@@ -1,0 +1,3 @@
+"""Caches of the PyTorch port: the per-fragment rank cache."""
+
+from .rank import RankCache, iter_rank_caches, topn_from_rank  # noqa: F401

@@ -1,0 +1,803 @@
+"""Executor: recursive PQL call dispatch over shards (executor.go:44-339) —
+the port of the JAX package's ``executor/executor.py`` for one device.
+
+``Executor(holder, device=None, stacked=True)``: ``device`` None means
+``cuda`` and raises when no card is present (pass ``device="cpu"`` to run
+the plain PyTorch paths on the CPU — nothing switches to the CPU by
+itself).  ``stacked=True`` (the JAX package's ``use_mesh=True``, which the
+server and the SSB bench build) runs every aggregation over stacked shard
+groups through parallel/stacked.py; ``stacked=False`` is the per-shard
+branch (the JAX package's ``mesh is None``), evaluating each shard's
+device mirrors in turn.
+
+Calls in this slice: Count, Row/Range, Intersect, Union, Difference, Xor,
+Not, Shift, TopN (filtered and unfiltered, incl. rank-cache answers),
+Rows, MinRow/MaxRow, GroupBy, Options and the writes Set, Clear,
+ClearRow, Store, SetRowAttrs, SetColumnAttrs.  Sum/Min/Max (BSI) raise
+``ExecutionError`` until the BSI slice.  Not carried over: the result
+cache, prepared statements, whole-query programs, the dispatch batcher and
+its grouped multi-call path (a multi-call request runs call by call, with
+every device part fetched once at the end), deadlines, profiling and the
+explain hooks.
+"""
+
+from __future__ import annotations
+
+from datetime import datetime
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core import SHARD_WIDTH, VIEW_STANDARD
+from ..ops import bitset
+from ..pql import Call, parse
+from ..storage.field import FIELD_TYPE_INT, FIELD_TYPE_BOOL
+from ..storage import time_quantum as tq
+from .plan import PlanCompiler, Resolver
+from .results import (
+    FieldRow, GroupCount, Pair, RowIdentifiers, RowResult, ValCount,
+    acc_counts, rank_counts,
+)
+
+BITMAP_CALLS = {"Row", "Range", "Intersect", "Union", "Difference", "Xor",
+                "Not", "Shift"}
+WRITE_CALLS = {"Set", "Clear", "ClearRow", "Store", "SetRowAttrs",
+               "SetColumnAttrs"}
+
+
+class ExecutionError(ValueError):
+    pass
+
+
+def topn_extras(c: Call):
+    """(tanimotoThreshold, attrName, attrValues) with the reference's
+    argument validation (executor.go:930-960)."""
+    tan_thresh = c.args.get("tanimotoThreshold")
+    attr_name = c.args.get("attrName")
+    attr_values = c.args.get("attrValues")
+    if attr_name is not None and attr_values is None:
+        raise ExecutionError("TopN(attrName=...) requires attrValues")
+    if attr_values is not None and attr_name is None:
+        raise ExecutionError("TopN(attrValues=...) requires attrName")
+    if tan_thresh is not None:
+        if not isinstance(tan_thresh, int) or isinstance(tan_thresh, bool) \
+                or not 0 < tan_thresh <= 100:
+            raise ExecutionError(
+                "tanimotoThreshold must be an integer in (0, 100]")
+        if not c.children:
+            raise ExecutionError("tanimotoThreshold requires a source row")
+    return tan_thresh, attr_name, attr_values
+
+
+class _Pending:
+    """A dispatched-but-unresolved call result: ``parts`` are the call's
+    unfetched device tensors, ``fin`` maps their host copies to the final
+    result.  A multi-call request dispatches every call before the first
+    fetch (``_resolve_pendings``)."""
+
+    __slots__ = ("parts", "fin")
+
+    def __init__(self, parts, fin):
+        self.parts = list(parts)
+        self.fin = fin
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().to("cpu").numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _resolve_pendings(results):
+    """Fetch every pending's parts to the host and finalize."""
+    return [r.fin([_host(p) for p in r.parts])
+            if isinstance(r, _Pending) else r for r in results]
+
+
+def resolve_device(device) -> torch.device:
+    """The executor's device: ``None`` means ``cuda``, which must exist."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is present; pass device='cpu' to run the "
+                "plain PyTorch paths on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+class Executor:
+    # GroupBy row-id grid bounds (see _group_by_grid)
+    GROUP_GRID_MAX = 1 << 20
+    GROUP_GRID_PREFIX_MAX = 16384
+
+    def __init__(self, holder, device=None, stacked: bool = True):
+        self.holder = holder
+        self.device = resolve_device(device)
+        self.compiler = PlanCompiler(self.device)
+        from .translator import Translator
+        self.translator = Translator(holder)
+        self.stacked = None
+        if stacked:
+            from ..parallel.stacked import StackedExecutor
+            self.stacked = StackedExecutor(self.device)
+
+    def close(self):
+        if self.stacked is not None:
+            self.stacked.close()
+
+    # -- entry point (executor.go:113 Execute) -----------------------------
+
+    def execute(self, index_name: str, query, shards=None,
+                translate: bool = True) -> list[Any]:
+        """Run a PQL request (text or parsed) and return one result per
+        call.  ``translate=False`` skips key translation (already
+        translated requests, executor.go:147)."""
+        if isinstance(query, str):
+            query = parse(query)
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise ExecutionError(f"index not found: {index_name}")
+        if translate:
+            query = self.translator.translate_query(index_name, query)
+        if shards is None:
+            shards = sorted(idx.available_shards())
+        results = [self._execute_call(index_name, c, shards)
+                   for c in query.calls]
+        results = _resolve_pendings(results)
+        if translate and self.translator.needs_translation(index_name):
+            results = self.translator.translate_results(
+                index_name, query.calls, results)
+        return results
+
+    # -- dispatch (executor.go:274 executeCall) ----------------------------
+
+    def _execute_call(self, index: str, c: Call, shards: list[int]):
+        name = c.name
+        if name == "Count":
+            return self._execute_count(index, c, shards)
+        if name in ("Sum", "Min", "Max"):
+            raise ExecutionError(
+                f"{name}() (BSI) is not in this slice of the port")
+        if name in ("MinRow", "MaxRow"):
+            return self._execute_min_max_row(index, c, shards,
+                                             name == "MaxRow")
+        if name == "TopN":
+            return self._execute_topn(index, c, shards)
+        if name == "Rows":
+            return self._execute_rows(index, c, shards)
+        if name == "GroupBy":
+            return self._execute_group_by(index, c, shards)
+        if name == "Options":
+            return self._execute_options(index, c, shards)
+        if name == "Set":
+            return self._execute_set(index, c)
+        if name == "Clear":
+            return self._execute_clear(index, c)
+        if name == "ClearRow":
+            return self._execute_clear_row(index, c, shards)
+        if name == "Store":
+            return self._execute_store(index, c, shards)
+        if name in ("SetRowAttrs", "SetColumnAttrs"):
+            return self._execute_set_attrs(index, c)
+        if name in BITMAP_CALLS:
+            return self._execute_bitmap(index, c, shards)
+        raise ExecutionError(f"unknown call: {name}")
+
+    # -- bitmap calls ------------------------------------------------------
+
+    def _resolve(self, index: str, c: Call):
+        return Resolver(self.holder, index).resolve_bitmap(c)
+
+    def _execute_bitmap(self, index: str, c: Call, shards) -> RowResult:
+        plan = self._resolve(index, c)
+        attrs = None
+        if c.name in ("Row", "Range"):
+            # a plain Row() result carries its row's attributes
+            # (executor.go:651 executeBitmapCallShard -> row.Attrs)
+            fa = c.field_arg()
+            if fa is not None and isinstance(fa[1], int) \
+                    and not isinstance(fa[1], bool):
+                f = self.holder.field(index, fa[0])
+                if f is not None:
+                    attrs = f.row_attrs.attrs(fa[1]) or None
+        segs = {s: bitset.to_numpy(seg) if isinstance(seg, torch.Tensor)
+                else seg
+                for s, seg in self._plan_segments(plan, index,
+                                                  shards).items()}
+        return RowResult(segs, attrs=attrs)
+
+    def _plan_segments(self, plan, index: str, shards) -> dict:
+        """Per-shard results of a bitmap plan: host numpy words on the
+        stacked path, device tensors on the per-shard path."""
+        if self.stacked is not None:
+            return self.stacked.segments(plan, self.holder, index, shards)
+        return {
+            shard: self.compiler.execute_shard(plan, self.holder, index,
+                                               shard)
+            for shard in shards
+        }
+
+    # -- aggregations ------------------------------------------------------
+
+    def _execute_count(self, index: str, c: Call, shards) -> int:
+        """(executor.go:1790 executeCount)"""
+        if len(c.children) != 1:
+            raise ExecutionError("Count() requires one input")
+        plan = self._resolve(index, c.children[0])
+        if self.stacked is not None:
+            parts = self.stacked.count_async(plan, self.holder, index,
+                                             shards)
+            return _Pending(parts, lambda hp: sum(int(x) for x in hp))
+        return sum(
+            self.compiler.execute_shard(plan, self.holder, index, shard,
+                                        reducer="count")
+            for shard in shards)
+
+    def _filter_segments(self, index: str, c: Call, shards):
+        """Evaluate the optional filter child of TopN (per-shard path)."""
+        if not c.children:
+            return None
+        plan = self._resolve(index, c.children[0])
+        return self._plan_segments(plan, index, shards)
+
+    def _filter_plan(self, index: str, c: Call):
+        """Resolve the optional filter child to a plan (the stacked path
+        evaluates it inside the same stacked reducer)."""
+        if not c.children:
+            return None
+        return self._resolve(index, c.children[0])
+
+    def _execute_min_max_row(self, index: str, c: Call, shards,
+                             want_max: bool) -> ValCount:
+        """MinRow/MaxRow: extreme row id with any bit set
+        (executor.go:506 executeMinRow)."""
+        field_name, ok = c.string_arg("field")
+        if not ok:
+            raise ExecutionError(f"{c.name}(): field required")
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        if self.stacked is not None:
+            counts = self.stacked.row_counts(
+                field_name, VIEW_STANDARD, None, self.holder, index, shards)
+            nz = np.nonzero(counts)[0]
+            if nz.size == 0:
+                return ValCount(0, 0)
+            rid = int(nz[-1] if want_max else nz[0])
+            return ValCount(rid, int(counts[rid]))
+        best, best_count = None, 0
+        v = f.view(VIEW_STANDARD)
+        for shard in shards:
+            frag = None if v is None else v.fragment(shard)
+            if frag is None or frag.n_rows == 0:
+                continue
+            counts = _host(bitset.row_counts(frag.device(self.device)))
+            nz = np.nonzero(counts)[0]
+            if nz.size == 0:
+                continue
+            rid = int(nz[-1] if want_max else nz[0])
+            if best is None or (rid > best if want_max else rid < best):
+                best, best_count = rid, int(counts[rid])
+            elif rid == best:
+                best_count += int(counts[rid])
+        return ValCount(best or 0, best_count if best is not None else 0)
+
+    # -- TopN (executor.go:860 executeTopN, fragment.go:1570 top) ----------
+
+    @staticmethod
+    def _topn_finalize(counts, row_tot, src_count, ids, n, tan_thresh,
+                       attr_name, attr_values, field) -> list[Pair]:
+        """Shared tail of TopN: tanimoto/attr row filtering + ranking
+        (fragment.go:1704 topBitmapPairs, executor.go:942-995), on global
+        counts."""
+        if tan_thresh:
+            size = max(counts.size, row_tot.size)
+            c_ = np.zeros(size, dtype=np.int64)
+            c_[: counts.size] = counts
+            t_ = np.zeros(size, dtype=np.int64)
+            t_[: row_tot.size] = row_tot
+            denom = t_ + src_count - c_
+            ok = (denom > 0) & (100 * c_ >= tan_thresh * denom)
+            counts = np.where(ok, c_, 0)
+        if attr_name is None:
+            return rank_counts(counts, n or None, ids)
+        allowed = set(attr_values)
+        pairs = [p for p in rank_counts(counts, None, ids)
+                 if field.row_attrs.attrs(p.id).get(attr_name) in allowed]
+        return pairs[: n or None]
+
+    def _execute_topn(self, index: str, c: Call, shards) -> list[Pair]:
+        field_name, ok = c.string_arg("_field")
+        if not ok:
+            raise ExecutionError("TopN() requires a field")
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        n, _ = c.uint_arg("n")
+        ids = c.args.get("ids")
+        tan_thresh, attr_name, attr_values = topn_extras(c)
+
+        # Unfiltered TopN first consults the field's per-fragment rank
+        # caches (cache/rank.py); they answer only when they can prove the
+        # pruned rows cannot reach the top n, else the full scan runs.
+        if not c.children and ids is None and tan_thresh is None \
+                and attr_name is None \
+                and f.options.cache_type in ("ranked", "lru"):
+            from ..cache.rank import topn_from_rank
+            pairs = topn_from_rank(f, shards, n)
+            if pairs is not None:
+                return pairs
+
+        if self.stacked is not None:
+            # per-row popcounts masked by the filter plan, summed over the
+            # stacked shard axis; tanimoto adds an unfiltered pass + the
+            # src count, all dispatched before the fetch
+            filter_plan = self._filter_plan(index, c)
+            parts = self.stacked.row_counts_async(
+                field_name, VIEW_STANDARD, filter_plan,
+                self.holder, index, shards)
+            parts_u, parts_src = [], []
+            if tan_thresh:
+                parts_u = self.stacked.row_counts_async(
+                    field_name, VIEW_STANDARD, None, self.holder, index,
+                    shards)
+                parts_src = self.stacked.count_async(
+                    filter_plan, self.holder, index, shards)
+            k, ku = len(parts), len(parts_u)
+            merge = self.stacked.merge_counts
+
+            def _fin(hp, ids=ids, n=n):
+                counts = merge(hp[:k])
+                row_tot = merge(hp[k: k + ku]) if tan_thresh else None
+                src = sum(int(x) for x in hp[k + ku:]) if tan_thresh else 0
+                return self._topn_finalize(
+                    counts, row_tot, src, ids, n, tan_thresh, attr_name,
+                    attr_values, f)
+
+            return _Pending(parts + parts_u + parts_src, _fin)
+
+        filters = self._filter_segments(index, c, shards)
+        v = f.view(VIEW_STANDARD)
+        counts = np.zeros(0, dtype=np.int64)
+        row_tot = np.zeros(0, dtype=np.int64)
+        src_count = 0
+        if tan_thresh and filters is not None:
+            # src is counted over ALL shards — including ones where the
+            # TopN field has no fragment
+            src_count = sum(int(bitset.count(seg))
+                            for seg in filters.values())
+        for shard in shards:
+            frag = None if v is None else v.fragment(shard)
+            if frag is None or frag.n_rows == 0:
+                continue
+            dev = frag.device(self.device)
+            filt = None if filters is None else filters.get(shard)
+            if filt is not None:
+                counts_dev = bitset.row_counts(
+                    bitset.intersect(dev, filt[None, :]))
+            else:
+                counts_dev = bitset.row_counts(dev)
+            counts = acc_counts(counts, _host(counts_dev))
+            if tan_thresh:
+                row_tot = acc_counts(row_tot,
+                                     _host(bitset.row_counts(dev)))
+        return self._topn_finalize(counts, row_tot, src_count, ids, n,
+                                   tan_thresh, attr_name, attr_values, f)
+
+    # -- Rows (executor.go:1274 executeRows) -------------------------------
+
+    def _execute_rows(self, index: str, c: Call, shards) -> RowIdentifiers:
+        field_name, ok = c.string_arg("_field")
+        if not ok:
+            raise ExecutionError("Rows() requires a field")
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        limit = c.args.get("limit")
+        previous = c.args.get("previous")
+        column = c.args.get("column")
+
+        views = [VIEW_STANDARD]
+        from_arg, to_arg = c.args.get("from"), c.args.get("to")
+        if from_arg or to_arg:
+            quantum = f.options.time_quantum
+            if not quantum:
+                raise ExecutionError(
+                    f"field {field_name!r} has no time quantum")
+            from_time = tq.parse_time(from_arg) if from_arg \
+                else datetime(1, 1, 1)
+            to_time = tq.parse_time(to_arg) if to_arg else datetime(9999, 1, 1)
+            views = tq.views_by_time_range(VIEW_STANDARD, from_time, to_time,
+                                           quantum)
+
+        row_ids: set[int] = set()
+        for vname in views:
+            v = f.view(vname)
+            if v is None:
+                continue
+            if self.stacked is not None and column is None:
+                counts = self.stacked.row_counts(
+                    field_name, vname, None, self.holder, index, shards)
+                row_ids.update(int(i) for i in np.nonzero(counts)[0])
+                continue
+            for shard in shards:
+                if column is not None and column // SHARD_WIDTH != shard:
+                    continue
+                frag = v.fragment(shard)
+                if frag is None or frag.n_rows == 0:
+                    continue
+                dev = frag.device(self.device)
+                if column is not None:
+                    col_local = column % SHARD_WIDTH
+                    w, bit = bitset.word_bit_np(col_local)
+                    present = bitset.to_numpy(dev[:, int(w)]) & bit > 0
+                    ids = np.nonzero(present)[0]
+                else:
+                    ids = np.nonzero(_host(bitset.row_counts(dev)))[0]
+                row_ids.update(int(i) for i in ids)
+
+        out = sorted(row_ids)
+        if previous is not None:
+            out = [r for r in out if r > previous]
+        if limit is not None:
+            out = out[:limit]
+        return RowIdentifiers(rows=out)
+
+    # -- GroupBy (executor.go:1068 executeGroupBy) -------------------------
+
+    def _group_by_parse(self, index: str, c: Call):
+        """(names, rows_calls, filt_call, limit) with the reference's
+        argument validation."""
+        if not c.children:
+            raise ExecutionError("GroupBy requires at least one Rows() child")
+        limit = c.args.get("limit")
+        filt_call = None
+        rows_calls = []
+        for ch in c.children:
+            if ch.name == "Rows":
+                rows_calls.append(ch)
+            else:
+                filt_call = ch
+        if not rows_calls:
+            raise ExecutionError("GroupBy requires Rows() children")
+        names = []
+        for rc in rows_calls:
+            fname, ok = rc.string_arg("_field")
+            if not ok:
+                raise ExecutionError("Rows() requires a field")
+            names.append(fname)
+        return names, rows_calls, filt_call, limit
+
+    def _group_by_grid(self, index: str, names, rows_calls):
+        """Row-id grid fields when every child is a plain Rows(field) and
+        the grid bounds hold; None otherwise (the caller executes Rows).
+        Every (field, row <= max_row) combo is counted and zero-count
+        groups drop out — the same answer without executing Rows first."""
+        if not all(set(rc.args) == {"_field"} for rc in rows_calls):
+            return None
+        caps = []
+        for fname in names:
+            f = self.holder.field(index, fname)
+            if f is None:
+                raise ExecutionError(f"field not found: {fname}")
+            v = f.view(VIEW_STANDARD)
+            cap = 0 if v is None else max(
+                (fr.max_row_id() + 1 for fr in v.fragments.values()
+                 if fr.host_bytes()), default=0)
+            caps.append(cap)
+        total = 1
+        for c_ in caps:
+            total *= c_
+        prefix_total = 1
+        for c_ in caps[:-1]:
+            prefix_total *= c_
+        if 0 < total <= self.GROUP_GRID_MAX and \
+                prefix_total <= self.GROUP_GRID_PREFIX_MAX:
+            return [(fname, list(range(c_)))
+                    for fname, c_ in zip(names, caps)]
+        return None
+
+    @staticmethod
+    def _group_by_previous(c: Call, fields):
+        """previous=[row per Rows child]: resume pagination strictly
+        after that group (executor.go:1403)."""
+        previous = c.args.get("previous")
+        if previous is None:
+            return None
+        if not isinstance(previous, list) or \
+                len(previous) != len(fields):
+            raise ExecutionError(
+                "GroupBy previous= must list one row per Rows child")
+        return tuple(int(p) for p in previous)
+
+    def _execute_group_by(self, index: str, c: Call,
+                          shards) -> list[GroupCount]:
+        names, rows_calls, filt_call, limit = self._group_by_parse(index,
+                                                                   c)
+        fields = []
+        if self.stacked is not None:
+            fields = self._group_by_grid(index, names, rows_calls) or []
+        if not fields:
+            for fname, rc in zip(names, rows_calls):
+                ids = self._execute_rows(index, rc, shards).rows
+                fields.append((fname, ids))
+
+        prev_ids = self._group_by_previous(c, fields)
+
+        def _paginate(groups_out):
+            if prev_ids is not None:
+                groups_out = [
+                    g for g in groups_out
+                    if tuple(fr.row_id for fr in g.group) > prev_ids]
+            if limit is not None:
+                groups_out = groups_out[:limit]
+            return groups_out
+
+        results: list[GroupCount] = []
+        last_field, last_ids = fields[-1]
+        prefix_fields = fields[:-1]
+
+        def prefix_combos(i=0, combo=()):
+            if i == len(prefix_fields):
+                yield combo
+                return
+            fname, ids = prefix_fields[i]
+            for rid in ids:
+                yield from prefix_combos(i + 1, combo + ((fname, rid),))
+
+        if self.stacked is not None:
+            filter_plan = (self._resolve(index, filt_call)
+                           if filt_call is not None else None)
+            prefix_keys = [(fname, VIEW_STANDARD) for fname, _ in
+                           prefix_fields]
+            combos = list(prefix_combos())
+            if not combos:
+                return []
+            mat = np.asarray(
+                [[rid for _, rid in combo] for combo in combos],
+                dtype=np.int64).reshape(len(combos), len(prefix_fields))
+            chunked = self.stacked.group_counts_batch_async(
+                (last_field, VIEW_STANDARD), prefix_keys, mat, filter_plan,
+                self.holder, index, shards)
+            all_parts = [p for _, _, ps in chunked for p in ps]
+
+            def _fin(hp, combos=combos, last_ids=last_ids):
+                out: list[GroupCount] = []
+                i = 0
+                for lo, hi, ps in chunked:
+                    acc = None
+                    for p in hp[i: i + len(ps)]:
+                        a = np.asarray(p, dtype=np.int64)
+                        acc = a.copy() if acc is None else acc_counts(acc, a)
+                    i += len(ps)
+                    for ci in range(lo, hi):
+                        combo = combos[ci]
+                        for rid in last_ids:
+                            cnt = (int(acc[ci - lo, rid])
+                                   if acc is not None
+                                   and rid < acc.shape[1] else 0)
+                            if cnt > 0:
+                                group = [FieldRow(fn, ri)
+                                         for fn, ri in combo]
+                                group.append(FieldRow(last_field, rid))
+                                out.append(GroupCount(group, cnt))
+                out.sort(key=lambda g: tuple(
+                    (fr.field, fr.row_id) for fr in g.group))
+                return _paginate(out)
+
+            return _Pending(all_parts, _fin)
+
+        filter_segs = None
+        if filt_call is not None:
+            plan = self._resolve(index, filt_call)
+            filter_segs = {
+                s: self.compiler.execute_shard(plan, self.holder, index, s)
+                for s in shards
+            }
+
+        last_pos = {r: j for j, r in enumerate(last_ids)}
+        for combo in prefix_combos():
+            counts_acc = np.zeros(len(last_ids), dtype=np.int64)
+            for shard in shards:
+                prefix_seg = None
+                empty = False
+                for fname, rid in combo:
+                    frag = self.holder.fragment(index, fname, VIEW_STANDARD,
+                                                shard)
+                    if frag is None or rid >= frag.n_rows:
+                        empty = True
+                        break
+                    seg = frag.device(self.device)[rid]
+                    prefix_seg = seg if prefix_seg is None else \
+                        bitset.intersect(prefix_seg, seg)
+                if empty:
+                    continue
+                if filter_segs is not None:
+                    fseg = filter_segs[shard]
+                    prefix_seg = fseg if prefix_seg is None else \
+                        bitset.intersect(prefix_seg, fseg)
+                frag = self.holder.fragment(index, last_field, VIEW_STANDARD,
+                                            shard)
+                if frag is None or frag.n_rows == 0:
+                    continue
+                dev = frag.device(self.device)
+                valid = [r for r in last_ids if r < frag.n_rows]
+                if not valid:
+                    continue
+                sel = dev[torch.as_tensor(valid, device=dev.device)]
+                if prefix_seg is None:
+                    cnts = _host(bitset.row_counts(sel))
+                else:
+                    cnts = _host(bitset.row_counts(
+                        bitset.intersect(sel, prefix_seg[None, :])))
+                for j, r in enumerate(valid):
+                    counts_acc[last_pos[r]] += int(cnts[j])
+            for j, rid in enumerate(last_ids):
+                if counts_acc[j] > 0:
+                    group = [FieldRow(fn, ri) for fn, ri in combo]
+                    group.append(FieldRow(last_field, rid))
+                    results.append(GroupCount(group, int(counts_acc[j])))
+
+        results.sort(key=lambda g: tuple(
+            (fr.field, fr.row_id) for fr in g.group))
+        return _paginate(results)
+
+    # -- Options (executor.go executeOptionsCall) --------------------------
+
+    @staticmethod
+    def _options_bool(c: Call, name: str) -> bool:
+        v = c.args.get(name, False)
+        if not isinstance(v, bool):
+            raise ExecutionError(f"Options() {name} must be a bool")
+        return v
+
+    @staticmethod
+    def attach_column_attrs(holder, index: str, result):
+        """Stash [{"id", "attrs"}] for every result column that has column
+        attributes onto the RowResult (executor.go:163-192, :209
+        readColumnAttrSets)."""
+        if not isinstance(result, RowResult):
+            return result
+        idx = holder.index(index)
+        all_attrs = idx.column_attrs.all()
+        if not all_attrs:
+            result.column_attrs = []
+            return result
+        attr_ids = np.fromiter(all_attrs.keys(), dtype=np.int64,
+                               count=len(all_attrs))
+        have = np.intersect1d(attr_ids, result.columns())
+        result.column_attrs = [{"id": int(c), "attrs": all_attrs[int(c)]}
+                               for c in np.sort(have)]
+        return result
+
+    def _execute_options(self, index: str, c: Call, shards):
+        """(executor.go:340-403 executeOptionsCall)"""
+        if len(c.children) != 1:
+            raise ExecutionError("Options() requires exactly one child")
+        if "shards" in c.args:
+            arg = c.args["shards"]
+            if not isinstance(arg, list):
+                raise ExecutionError("Options() shards must be a list")
+            shards = [int(s) for s in arg]
+        column_attrs = self._options_bool(c, "columnAttrs")
+        exclude_row_attrs = self._options_bool(c, "excludeRowAttrs")
+        exclude_columns = self._options_bool(c, "excludeColumns")
+        result = self._execute_call(index, c.children[0], shards)
+        if not (column_attrs or exclude_row_attrs or exclude_columns):
+            return result
+
+        def _shape(r):
+            if isinstance(r, RowResult):
+                if exclude_columns:
+                    r.segments = {}
+                if column_attrs:
+                    self.attach_column_attrs(self.holder, index, r)
+                if exclude_row_attrs:
+                    r.attrs = {}
+            return r
+
+        if isinstance(result, _Pending):
+            inner_fin = result.fin
+            result.fin = lambda hp: _shape(inner_fin(hp))
+            return result
+        return _shape(result)
+
+    # -- writes (executor.go:2067 executeSet etc.) -------------------------
+
+    def _require_col(self, c: Call) -> int:
+        col = c.args.get("_col")
+        if not isinstance(col, int) or isinstance(col, bool):
+            raise ExecutionError(
+                f"{c.name}() column argument must be an integer id "
+                f"(got {col!r})")
+        return col
+
+    def _execute_set(self, index: str, c: Call) -> bool:
+        idx = self.holder.index(index)
+        col = self._require_col(c)
+        fa = c.field_arg()
+        if fa is None:
+            raise ExecutionError("Set() requires a field=<row> argument")
+        field_name, row_val = fa
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+
+        if f.options.type == FIELD_TYPE_INT:
+            if not isinstance(row_val, int):
+                raise ExecutionError("Set() int field requires integer value")
+            changed = f.set_value(col, row_val)
+        else:
+            ts = None
+            if "_timestamp" in c.args:
+                ts = tq.parse_time(c.args["_timestamp"])
+            row_val = self._coerce_row(f, row_val)
+            changed = f.set_bit(row_val, col, ts=ts)
+        idx.add_existence(np.array([col]))
+        return changed
+
+    @staticmethod
+    def _coerce_row(f, row_val) -> int:
+        if isinstance(row_val, bool):
+            if f.options.type != FIELD_TYPE_BOOL:
+                raise ExecutionError("bool row value on non-bool field")
+            return int(row_val)
+        if not isinstance(row_val, int):
+            raise ExecutionError(
+                f"row must be an integer id, got {row_val!r}")
+        return row_val
+
+    def _execute_clear(self, index: str, c: Call) -> bool:
+        col = self._require_col(c)
+        fa = c.field_arg()
+        if fa is None:
+            raise ExecutionError("Clear() requires a field=<row> argument")
+        field_name, row_val = fa
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        return f.clear_bit(self._coerce_row(f, row_val), col)
+
+    def _execute_clear_row(self, index: str, c: Call, shards) -> bool:
+        """(executor.go:1825 executeClearRow)"""
+        fa = c.field_arg()
+        if fa is None:
+            raise ExecutionError("ClearRow() requires a field=<row> argument")
+        field_name, row_id = fa
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        changed = False
+        for vname, v in list(f.views.items()):
+            if vname.startswith("bsig_"):
+                continue
+            for shard in shards:
+                frag = v.fragment(shard)
+                if frag is not None and row_id < frag.n_rows:
+                    if frag.row(row_id).any():
+                        frag.set_row(row_id, None)
+                        changed = True
+        return changed
+
+    def _execute_store(self, index: str, c: Call, shards) -> bool:
+        """Store(Row(...), field=row) (executor.go:1979 executeSetRow)"""
+        fa = c.field_arg()
+        if fa is None:
+            raise ExecutionError("Store() requires a field=<row> argument")
+        field_name, row_id = fa
+        f = self.holder.field(index, field_name)
+        if f is None:
+            f = self.holder.index(index).create_field_if_not_exists(field_name)
+        if len(c.children) != 1:
+            raise ExecutionError("Store() requires exactly one input row")
+        src = self._execute_bitmap(index, c.children[0], shards)
+        for shard in shards:
+            seg = src.segments.get(shard)
+            v = f._create_view_if_not_exists(VIEW_STANDARD)
+            frag = v.create_fragment_if_not_exists(shard)
+            frag.set_row(row_id, None if seg is None else np.asarray(seg))
+        return True
+
+    def _execute_set_attrs(self, index: str, c: Call):
+        from ..storage.attrs import set_attrs_from_call
+        return set_attrs_from_call(self.holder, index, c)

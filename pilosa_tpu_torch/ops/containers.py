@@ -1,0 +1,350 @@
+"""Compressed container streams — the port of the JAX package's
+``ops/containers.py`` (roaring's array/bitmap/run container algebra,
+word-granular).
+
+A fragment's device form need not be the dense ``[rows, SHARD_WORDS]``
+tensor: it can stay resident as a *packed container stream* — per-container
+key/type/count/offset tables plus one payload word buffer — and be decoded
+to dense words on the device at op time.  Container forms (a container
+covers ``CONTAINER_WORDS`` = 2048 words = 2^16 bits):
+
+* **array** (type 0): ``count`` (word-slot, word-value) entries — payload
+  is ``count`` slot indices followed by ``count`` word values.
+* **bitmap** (type 1): the container's 2048 words verbatim.
+* **run** (type 2): ``count`` bit-level [start, end) pairs within the
+  container's 2^16-bit span.
+
+Copied from the JAX module: the host codec (``pow2_bucket``, ``Packed``,
+``pack_words``, ``estimate_packed_bytes``, ``unpack_packed`` — the numpy
+decode oracle — and ``pad_packed``).  New here: ``decode_block``, the
+plain PyTorch decode that is the plain version of the CUDA decode kernel
+(ops/kernels.py), and ``upload_decode`` over torch.
+
+``decode_block`` takes the stacked shard axis: tables ``[S, C]``, payload
+``[S, P]``, out ``[S, rows, words]`` (1-D tables decode one fragment).
+Words are int32 tensors holding the uint32 bit patterns (ops/bitset.py).
+It relies on ``pack_words``' invariants, as the JAX decode's scatter-set
+does: one container per key, unique slots within an array container,
+disjoint runs within a run container.  Under them every output word
+receives disjoint bits, so one scatter-add is their OR.  Padding entries
+(key -1, type -1) decode to nothing; keys past ``rows * words`` and
+payload reads past the buffer are dropped / read as zero, like the JAX
+decode's drop / fill modes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core import CONTAINER_WORDS, SHARD_WORDS, WORD_BITS
+from .bitset import _narrow
+
+# Container type codes (device-side selectors; padding rows use -1).
+TYPE_ARRAY = 0
+TYPE_BITMAP = 1
+TYPE_RUN = 2
+
+# Array form wins while 2 payload words per entry undercut the bitmap's
+# CONTAINER_WORDS; at >= CONTAINER_WORDS // 2 non-zero words the bitmap
+# copy is smaller AND decodes cheaper.
+ARRAY_WORDS_MAX = CONTAINER_WORDS // 2 - 1  # 1023
+
+# Run containers are only chosen up to this many runs: device decode
+# costs O(runs x CONTAINER_WORDS) per container (each run contributes a
+# masked OR over the tile), so unbounded run counts would trade HBM for
+# unbounded VPU work.  Clustered data this form exists for (Store'd
+# rows, range ingests) sits at 1-16 runs.
+RUN_MAX = 64
+
+# Dense fragments beyond this many rows never compress: the decode
+# scatter's flat int32 indices must stay below 2^31 (rows * SHARD_WORDS).
+MAX_COMPRESSED_ROWS = (1 << 31) // SHARD_WORDS - 1
+
+
+def pow2_bucket(n: int) -> int:
+    """Smallest power of two >= n (0 stays 0) — the shape-bucketing unit
+    that keeps one compiled decode executable serving many fragments."""
+    return 0 if n <= 0 else 1 << (int(n) - 1).bit_length()
+
+
+@dataclasses.dataclass(frozen=True)
+class Packed:
+    """One fragment's packed container stream (host arrays, built from
+    the sparse word store without materialising the dense tensor)."""
+    keys: np.ndarray      # int32[C] container ids (flat_word // 2048), sorted
+    types: np.ndarray     # int32[C] TYPE_*
+    counts: np.ndarray    # int32[C] entries (array) / words (bitmap) / runs
+    offsets: np.ndarray   # int32[C] payload word offset
+    payload: np.ndarray   # uint32[P]
+    a_max: int            # largest array-container entry count
+    r_max: int            # largest run-container run count
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.keys.nbytes + self.types.nbytes +
+                   self.counts.nbytes + self.offsets.nbytes +
+                   self.payload.nbytes)
+
+    def type_histogram(self) -> dict[str, int]:
+        t = self.types
+        return {"array": int(np.count_nonzero(t == TYPE_ARRAY)),
+                "bitmap": int(np.count_nonzero(t == TYPE_BITMAP)),
+                "run": int(np.count_nonzero(t == TYPE_RUN))}
+
+
+def _bit_runs(dense_words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """([starts], [ends]) of the set-bit runs of one container's 2048
+    words, bit-level [start, end) within the 2^16-bit span."""
+    bits = np.unpackbits(dense_words.view(np.uint8), bitorder="little")
+    d = np.diff(bits.astype(np.int8))
+    starts = np.nonzero(d == 1)[0] + 1
+    ends = np.nonzero(d == -1)[0] + 1
+    if bits[0]:
+        starts = np.concatenate(([0], starts))
+    if bits[-1]:
+        ends = np.concatenate((ends, [bits.size]))
+    return starts, ends
+
+
+def estimate_packed_bytes(idx: np.ndarray) -> int:
+    """Upper bound on pack_words' output size from the sparse indices
+    alone (run containers only shrink it) — the cheap density-heuristic
+    input that decides compressed vs dense residency without packing."""
+    if idx.size == 0:
+        return 0
+    _, cnt = np.unique(idx // CONTAINER_WORDS, return_counts=True)
+    payload_words = int(np.minimum(2 * cnt, CONTAINER_WORDS).sum())
+    return 4 * payload_words + 16 * cnt.size
+
+
+def pack_words(idx: np.ndarray, val: np.ndarray) -> Packed:
+    """Pack a fragment's sparse word store (sorted flat indices + word
+    values, storage/fragment.py) into a container stream, choosing the
+    cheapest form per container (the optimize heuristic of
+    roaring.go:2232, word-granular)."""
+    cid = idx // CONTAINER_WORDS
+    uniq, start, cnt = np.unique(cid, return_index=True,
+                                 return_counts=True)
+    C = uniq.size
+    keys = uniq.astype(np.int32)
+    types = np.empty(C, dtype=np.int32)
+    counts = np.empty(C, dtype=np.int32)
+    offsets = np.empty(C, dtype=np.int32)
+    parts: list[np.ndarray] = []
+    off = 0
+    a_max = r_max = 0
+    for i in range(C):
+        a, n = int(start[i]), int(cnt[i])
+        w_off = (idx[a: a + n] % CONTAINER_WORDS).astype(np.uint32)
+        w_val = val[a: a + n]
+        ctype = -1
+        dense = None
+        # bit-run candidacy prefilter: every gap between non-adjacent
+        # stored words forces a separate bit run, so the word-run count
+        # lower-bounds the bit-run count — skip the unpackbits scan when
+        # it already exceeds RUN_MAX
+        if int(np.count_nonzero(np.diff(w_off.astype(np.int64)) != 1)) \
+                + 1 <= RUN_MAX:
+            dense = np.zeros(CONTAINER_WORDS, dtype=np.uint32)
+            dense[w_off] = w_val
+            starts_b, ends_b = _bit_runs(dense)
+            nr = starts_b.size
+            if nr <= RUN_MAX and 2 * nr < min(2 * n, CONTAINER_WORDS):
+                ctype = TYPE_RUN
+                pl = np.empty(2 * nr, dtype=np.uint32)
+                pl[0::2] = starts_b
+                pl[1::2] = ends_b
+                counts[i] = nr
+                r_max = max(r_max, nr)
+        if ctype < 0:
+            if n <= ARRAY_WORDS_MAX:
+                ctype = TYPE_ARRAY
+                pl = np.concatenate([w_off, w_val])
+                counts[i] = n
+                a_max = max(a_max, n)
+            else:
+                ctype = TYPE_BITMAP
+                if dense is None:
+                    dense = np.zeros(CONTAINER_WORDS, dtype=np.uint32)
+                    dense[w_off] = w_val
+                pl = dense
+                counts[i] = CONTAINER_WORDS
+        types[i] = ctype
+        offsets[i] = off
+        parts.append(pl)
+        off += pl.size
+    payload = np.concatenate(parts) if parts \
+        else np.zeros(0, dtype=np.uint32)
+    return Packed(keys, types, counts, offsets, payload, a_max, r_max)
+
+
+def unpack_packed(p: Packed, rows: int,
+                  words: int = SHARD_WORDS) -> np.ndarray:
+    """Host (numpy) decode oracle: the dense tensor a Packed stream
+    represents — the differential reference for the device kernel."""
+    out = np.zeros(rows * words, dtype=np.uint32)
+    for i in range(p.keys.size):
+        base = int(p.keys[i]) * CONTAINER_WORDS
+        off = int(p.offsets[i])
+        n = int(p.counts[i])
+        t = int(p.types[i])
+        if t == TYPE_BITMAP:
+            out[base: base + CONTAINER_WORDS] = \
+                p.payload[off: off + CONTAINER_WORDS]
+        elif t == TYPE_ARRAY:
+            slots = p.payload[off: off + n].astype(np.int64)
+            out[base + slots] = p.payload[off + n: off + 2 * n]
+        else:  # TYPE_RUN
+            pairs = p.payload[off: off + 2 * n].astype(np.int64)
+            for s, e in pairs.reshape(n, 2):
+                w0, w1 = s // WORD_BITS, (e - 1) // WORD_BITS
+                for w in range(w0, w1 + 1):
+                    lo = max(s - w * WORD_BITS, 0)
+                    hi = min(e - w * WORD_BITS, WORD_BITS)
+                    m = ((1 << hi) - 1) & ~((1 << lo) - 1)
+                    out[base + w] |= np.uint32(m & 0xFFFFFFFF)
+    return out.reshape(rows, words)
+
+
+
+
+# ---------------------------------------------------------------------------
+# Device decode (plain PyTorch).
+# ---------------------------------------------------------------------------
+
+def _gather(flat_pay: torch.Tensor, row_base: torch.Tensor,
+            idx: torch.Tensor, P: int) -> torch.Tensor:
+    """payload[s, idx] for per-entry shard bases ``row_base`` (= s * P),
+    reading 0 where idx is outside [0, P) (the JAX decode's fill mode)."""
+    ok = (idx >= 0) & (idx < P)
+    vals = flat_pay[row_base + idx.clamp(0, max(P - 1, 0))]
+    return torch.where(ok, vals, torch.zeros_like(vals))
+
+
+def _expand(n: torch.Tensor):
+    """(owner, j) for ``n[i]`` items per owner i: owner repeats each i
+    n[i] times, j counts 0..n[i]-1 within it."""
+    owner = torch.repeat_interleave(
+        torch.arange(n.numel(), device=n.device), n)
+    start = torch.cumsum(n, 0) - n
+    return owner, torch.arange(owner.numel(), device=n.device) - start[owner]
+
+
+def decode_block(keys, types, counts, offsets, payload, *, rows: int,
+                 words: int = SHARD_WORDS) -> torch.Tensor:
+    """Decode packed container streams to dense int32 words on the tensors'
+    device: ``[S, C]`` tables + ``[S, P]`` payload -> ``[S, rows, words]``
+    (or ``[C]`` / ``[P]`` -> ``[rows, words]``).  The plain version of the
+    CUDA decode kernel; see the module docstring for the invariants."""
+    single = keys.dim() == 1
+    if single:
+        keys, types, counts, offsets, payload = (
+            a[None] for a in (keys, types, counts, offsets, payload))
+    S, C = keys.shape
+    P = payload.shape[1]
+    total = rows * words
+    dev = keys.device
+    out = torch.zeros(S * total, dtype=torch.int32, device=dev)
+    if C and rows:
+        cw = CONTAINER_WORDS
+        k = keys.reshape(-1).long()
+        t = types.reshape(-1)
+        n = counts.reshape(-1).long()
+        o = offsets.reshape(-1).long()
+        s_base = torch.arange(S, device=dev).repeat_interleave(C)
+        pay_base, out_base = s_base * P, s_base * total
+        flat_pay = payload.reshape(-1)
+        live = (k >= 0) & (k * cw < total)
+        dst_parts, val_parts = [], []
+
+        sel = live & (t == TYPE_BITMAP)
+        if bool(sel.any()):
+            j = torch.arange(cw, device=dev)
+            vals = _gather(flat_pay, pay_base[sel, None], o[sel, None] + j, P)
+            flat = (k[sel] * cw)[:, None] + j
+            ok = flat < total
+            dst_parts.append((out_base[sel, None] + flat)[ok])
+            val_parts.append(vals[ok])
+
+        sel = live & (t == TYPE_ARRAY) & (n > 0)
+        if bool(sel.any()):
+            owner, e = _expand(n[sel])
+            ob, pb = o[sel][owner], pay_base[sel][owner]
+            slot = _gather(flat_pay, pb, ob + e, P).long()
+            vals = _gather(flat_pay, pb, ob + n[sel][owner] + e, P)
+            ok = (slot >= 0) & (slot < cw)
+            flat = k[sel][owner] * cw + slot
+            ok &= flat < total
+            dst_parts.append((out_base[sel][owner] + flat)[ok])
+            val_parts.append(vals[ok])
+
+        sel = live & (t == TYPE_RUN) & (n > 0)
+        if bool(sel.any()):
+            owner, r = _expand(n[sel])
+            ob, pb = o[sel][owner], pay_base[sel][owner]
+            rs = _gather(flat_pay, pb, ob + 2 * r, P).long() & 0xFFFFFFFF
+            re_ = _gather(flat_pay, pb, ob + 2 * r + 1, P).long() \
+                & 0xFFFFFFFF
+            re_ = re_.clamp(max=cw * WORD_BITS)
+            nonempty = re_ > rs
+            rs, re_ = rs[nonempty], re_[nonempty]
+            run_key = k[sel][owner][nonempty]
+            run_out = out_base[sel][owner][nonempty]
+            w0 = rs // WORD_BITS
+            span = (re_ - 1) // WORD_BITS - w0 + 1
+            wo, wj = _expand(span)
+            w = w0[wo] + wj
+            lo = (rs[wo] - w * WORD_BITS).clamp(0, WORD_BITS)
+            hi = (re_[wo] - w * WORD_BITS).clamp(0, WORD_BITS)
+            one = torch.ones_like(lo)
+            mask = ((one << hi) - 1) & ~((one << lo) - 1) & 0xFFFFFFFF
+            flat = run_key[wo] * cw + w
+            ok = flat < total
+            dst_parts.append((run_out[wo] + flat)[ok])
+            val_parts.append(_narrow(mask[ok]))
+
+        if dst_parts:
+            out.index_put_((torch.cat(dst_parts),), torch.cat(val_parts),
+                           accumulate=True)
+    out = out.view(S, rows, words)
+    return out[0] if single else out
+
+
+def pad_packed(p: Packed) -> tuple[np.ndarray, ...]:
+    """Pad a Packed stream's arrays to their pow2 buckets (padding
+    containers use key/type -1) — the per-fragment staging unit the
+    compiled decode buckets expect."""
+    cb = pow2_bucket(p.keys.size)
+    pb = pow2_bucket(p.payload.size)
+    keys = np.full(cb, -1, dtype=np.int32)
+    types = np.full(cb, -1, dtype=np.int32)
+    counts = np.zeros(cb, dtype=np.int32)
+    offsets = np.zeros(cb, dtype=np.int32)
+    c = p.keys.size
+    keys[:c] = p.keys
+    types[:c] = p.types
+    counts[:c] = p.counts
+    offsets[:c] = p.offsets
+    payload = np.zeros(pb, dtype=np.uint32)
+    payload[: p.payload.size] = p.payload
+    return keys, types, counts, offsets, payload
+
+
+
+
+def upload_decode(p: Packed, rows: int, target,
+                  words: int = SHARD_WORDS) -> torch.Tensor:
+    """Ship a packed stream to ``target`` and decode it there to the dense
+    mirror — Fragment.device()'s compressed upload path.  The transfer
+    moves compressed bytes; the sparse->dense expansion happens on the
+    device, through the decode kernel on a CUDA device (ops/kernels.py)
+    and its plain version on the CPU."""
+    from . import kernels
+    from .bitset import from_numpy
+
+    arrs = [from_numpy(a, target) if a.dtype == np.uint32
+            else torch.from_numpy(a).to(target) for a in pad_packed(p)]
+    return kernels.decode_block(*arrs, rows=rows, words=words)

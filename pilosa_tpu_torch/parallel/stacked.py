@@ -1,0 +1,429 @@
+"""One-device stacked shard execution — the port of the JAX package's
+``parallel/mesh_exec.py`` for a single GPU.
+
+The reference fans per-shard jobs to a goroutine pool and a star reduce
+(executor.go:2455 mapReduce).  Here shards whose input fragments share a
+shape signature are STACKED along a leading shard axis and each reducer
+runs once over the whole stack: the JAX package's ``vmap`` over shards
+becomes the S axis, and its ``psum`` a sum over S.
+
+Per key of a plan, a group's stacked input is either dense —
+``[S, rows, W]`` int32 words — or, for compressed-resident fragments
+(storage/fragment.py ``device_form``), the packed container streams
+padded to the group's pow2 buckets: keys/types/counts/offsets ``[S, C]``
+and payload ``[S, P]`` (ops/containers.py).  Packed inputs are decoded at
+op time through the ``decode_block`` kernel (``_Frags``), and the
+TopN/Rows row counts of a packed field go through the ``fused_row_counts``
+kernel, which never writes the decoded words (``_fused_entry``).  On the
+CPU both wrappers run their plain PyTorch versions.
+
+Stacks are cached against the fragments' data generations and charged to
+the device budget (``_placed_groups``).
+
+Reducers: ``count_async`` (Count), ``segments`` (bitmap calls),
+``row_counts_async`` (TopN, Rows, MinRow/MaxRow) and
+``group_counts_batch_async`` (the GroupBy inner loop).
+
+Deviations from the JAX module, by design:
+
+* No pow2 shard bucketing (``_bucket`` / ``_pad_and_place``): it exists
+  for XLA's static shapes.  The container and payload pow2 buckets stay,
+  because they give a group its rectangular shape.
+* Every compressed entry takes the fused kernel: the TPU's ``fits_vmem``
+  rule does not apply on the card (ops/kernels.py).
+* Not in this slice: the over-budget shard schedule that streams slices
+  with a background prefetch, the batched ``[B, params]`` reducers behind
+  the dispatch batcher, the BSI reducers, the ingest overlay refresh of
+  cached stacks, and the multi-process mesh paths.
+"""
+
+from __future__ import annotations
+
+import weakref
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from ..core import SHARD_WORDS
+from ..executor.plan import eval_plan, parametrize, plan_inputs
+from ..ops import bitset, kernels
+from ..storage.membudget import DEFAULT_BUDGET
+from ..utils.locks import make_lock
+
+
+class _Frags:
+    """The decode-at-op-time step (mesh_exec.py ``_unpack_frags``): a lazy
+    (field, view) -> dense ``[S, rows, W]`` map over one group's present
+    entries.  A packed entry is decoded (``decode_block`` kernel) on first
+    access only, so a plan decodes just the fragments it reads — the eager
+    counterpart of XLA dropping unused decodes."""
+
+    def __init__(self, present):
+        self._entries = {k: (a, s) for k, a, s in present}
+        self._dense: dict = {}
+
+    def get(self, key):
+        if key in self._dense:
+            return self._dense[key]
+        entry = self._entries.get(key)
+        if entry is None:
+            return None
+        a, s = entry
+        if isinstance(a, tuple):
+            a = kernels.decode_block(*a, rows=s[1], words=SHARD_WORDS)
+        self._dense[key] = a
+        return a
+
+
+def _fused_entry(present, key):
+    """(packed arrays, sig) of ``key`` when its entry is compressed — the
+    condition under which row counts route decode + filter-AND + popcount
+    through one ``fused_row_counts`` launch — else None."""
+    for k, a, s in present:
+        if k == key:
+            return (a, s) if isinstance(a, tuple) else None
+    return None
+
+
+class StackedExecutor:
+    """Executes resolved plans over stacked shard groups on one device."""
+
+    # Max combos per GroupBy dispatch (mesh_exec.GROUP_CHUNK).
+    GROUP_CHUNK = 256
+
+    def __init__(self, device, budget=None):
+        self.device = torch.device(device)
+        # (index, keys, shards) -> (gen token, groups): the stacked input
+        # blocks, rebuilt only when a member fragment's data changes.
+        # LRU-bounded, each entry charged to the device budget.
+        self._stack_cache: OrderedDict = OrderedDict()
+        self.stack_cache_max = 64
+        self._budget = budget if budget is not None else DEFAULT_BUDGET
+        # Leaf lock for _stack_cache dict ops only: budget eviction
+        # callbacks race query threads on the dict.
+        self._sc_lock = make_lock("stack-cache")
+        # row-count groups answered through the fused_row_counts entry
+        self.fused_calls = 0
+        self._finalizer = weakref.finalize(
+            self, StackedExecutor._cleanup_budget, self._budget, id(self),
+            self._stack_cache)
+
+    @staticmethod
+    def _cleanup_budget(budget, exec_id, stack_cache):
+        for ck in list(stack_cache):
+            budget.unregister(("stack", exec_id, ck))
+        stack_cache.clear()
+
+    def close(self):
+        """Unregister budget entries and drop cached stacks (also runs
+        when an un-closed executor is garbage-collected)."""
+        self._finalizer()
+
+    # -- shard grouping ----------------------------------------------------
+
+    def _frag_sig(self, fr) -> tuple:
+        return fr.device_sig(self.device)
+
+    def _stack_token(self, keys, holder, index, shards):
+        """(per-shard fragment rows, token).  The token holds every
+        member's (device_gen, signature): a mutation, a budget change
+        that flips a fragment between dense and compressed residency, or
+        another backend all mint a new token and rebuild the stack."""
+        frags = [[holder.fragment(index, field, view, shard)
+                  for field, view in keys] for shard in shards]
+        token = tuple(
+            -1 if fr is None else (fr.device_gen, self._frag_sig(fr))
+            for row in frags for fr in row)
+        return frags, token
+
+    def _placed_groups(self, keys, holder, index, shards):
+        """Group shards by input-shape signature over fragment keys
+        [(field, view), ...] and stack each group's fragments on the
+        device.  Returns [(shard_list, placed_per_key, sig)];
+        ``placed_per_key[i]`` is None when key i's fragment is absent in
+        the whole group, a tuple of the five packed tensors for a
+        compressed entry, else the dense ``[S, rows, W]`` stack."""
+        frags, token = self._stack_token(keys, holder, index, shards)
+        ckey = (index, tuple(keys), tuple(shards))
+        skey = ("stack", id(self), ckey)
+        with self._sc_lock:
+            cached = self._stack_cache.get(ckey)
+            if cached is not None and cached[0] == token:
+                self._stack_cache.move_to_end(ckey)
+        if cached is not None and cached[0] == token:
+            self._budget.touch(skey)
+            return cached[1]
+
+        groups: dict[tuple, list[tuple[int, list]]] = {}
+        for shard, row in zip(shards, frags):
+            sig = tuple(None if fr is None
+                        else self._frag_sig(fr) for fr in row)
+            groups.setdefault(sig, []).append((shard, row))
+        out = []
+        nbytes = 0
+        comp_bytes = 0
+        for sig, members in groups.items():
+            shard_list = [m[0] for m in members]
+            placed = []
+            for i, shape in enumerate(sig):
+                if shape is None:
+                    placed.append(None)
+                    continue
+                frs = [m[1][i] for m in members]
+                if shape[0] == "z":
+                    pk = self._place_packed_block(frs, shape)
+                    pb = sum(a.numel() * a.element_size() for a in pk)
+                    nbytes += pb
+                    comp_bytes += pb
+                    placed.append(pk)
+                    continue
+                # Warm (mirrors already resident on the device): stack
+                # there, no host transfer.  Cold: one host block, one
+                # transfer.
+                resident = sum(
+                    1 for fr in frs
+                    if not fr._device_dirty
+                    and fr._mirrors.get(self.device) is not None)
+                if 5 * resident >= 4 * len(frs):
+                    arrs = [fr.device(self.device) for fr in frs]
+                    if all(tuple(a.shape) == shape for a in arrs):
+                        p = torch.stack(arrs)
+                    else:
+                        # a concurrent write grew a fragment's capacity
+                        # after the signature was read
+                        p = self._place_host_block(frs, shape)
+                else:
+                    p = self._place_host_block(frs, shape)
+                nbytes += p.numel() * p.element_size()
+                placed.append(p)
+            out.append((shard_list, placed, sig))
+
+        wself = weakref.ref(self)  # entries must not pin the executor
+
+        def _evict(ck=ckey, tok=token):
+            # guard on the registration's token VALUE: a deferred callback
+            # that lost a race with a rebuild must not drop the fresh entry
+            s = wself()
+            if s is not None:
+                with s._sc_lock:
+                    cur = s._stack_cache.get(ck)
+                    if cur is not None and cur[0] == tok:
+                        del s._stack_cache[ck]
+
+        with self._sc_lock:
+            self._stack_cache[ckey] = (token, out)
+            trimmed = []
+            while len(self._stack_cache) > self.stack_cache_max:
+                trimmed.append(self._stack_cache.popitem(last=False)[0])
+        self._budget.register(skey, nbytes, _evict,
+                              compressed_bytes=comp_bytes)
+        for old_key in trimmed:
+            self._budget.unregister(("stack", id(self), old_key))
+        return out
+
+    def _place_host_block(self, frs, shape) -> torch.Tensor:
+        """Cold staging: densify the group's fragments into one host block
+        and ship it in a single transfer."""
+        block = np.zeros((len(frs),) + tuple(shape), np.uint32)
+        for i, fr in enumerate(frs):
+            dense = fr.staged_dense()
+            r = min(dense.shape[0], shape[0])  # cap may race a grow
+            block[i, :r] = dense[:r]
+        return bitset.from_numpy(block, self.device)
+
+    def _place_packed_block(self, frs, sig):
+        """Compressed staging: pad each member's packed stream to the
+        group's pow2 buckets and ship the five stacked arrays."""
+        cb, pb = sig[2], sig[3]
+        n = len(frs)
+        keys = np.full((n, cb), -1, dtype=np.int32)
+        types = np.full((n, cb), -1, dtype=np.int32)
+        counts = np.zeros((n, cb), dtype=np.int32)
+        offsets = np.zeros((n, cb), dtype=np.int32)
+        payload = np.zeros((n, pb), dtype=np.uint32)
+        for i, fr in enumerate(frs):
+            p = fr.packed_host()
+            # a concurrent write may race the signature; clamping to the
+            # signature's buckets mirrors the dense path's slice-to-shape
+            c = min(p.keys.size, cb)
+            pw = min(p.payload.size, pb)
+            keys[i, :c] = p.keys[:c]
+            types[i, :c] = p.types[:c]
+            counts[i, :c] = p.counts[:c]
+            offsets[i, :c] = p.offsets[:c]
+            payload[i, :pw] = p.payload[:pw]
+        return tuple(bitset.from_numpy(a, self.device)
+                     for a in (keys, types, counts, offsets, payload))
+
+    @staticmethod
+    def _present(keys, placed, sig):
+        return [(k, a, s) for k, a, s in zip(keys, placed, sig)
+                if s is not None]
+
+    def _filter_keys(self, filter_plan) -> list[tuple[str, str]]:
+        return plan_inputs(filter_plan) if filter_plan is not None else []
+
+    def batch_keys(self, primary: tuple[str, str],
+                   filter_plan) -> list[tuple[str, str]]:
+        """The stacked key list for a primary-fragment dispatch with an
+        optional (slotted) filter plan."""
+        return [primary] + [k for k in self._filter_keys(filter_plan)
+                            if k != primary]
+
+    @staticmethod
+    def _slotted(filter_plan):
+        if filter_plan is None:
+            return None, np.zeros(0, dtype=np.int32)
+        return parametrize(filter_plan)
+
+    # -- reducers ------------------------------------------------------------
+
+    def count_async(self, plan, holder, index, shards) -> list:
+        """Count: one popcount-sum per shape group; returns unfetched
+        device scalars (int64)."""
+        keys = plan_inputs(plan)
+        slotted, params = parametrize(plan)
+        parts = []
+        for shard_list, placed, sig in self._placed_groups(
+                keys, holder, index, shards):
+            if all(s is None for s in sig):
+                continue  # no fragments -> plan evaluates to empty
+            frags = _Frags(self._present(keys, placed, sig))
+            seg = eval_plan(slotted, frags, params, lead=(len(shard_list),),
+                            device=self.device)
+            parts.append(bitset.count(seg))
+        return parts
+
+    def count(self, plan, holder, index, shards) -> int:
+        return sum(int(x) for x in self.count_async(
+            plan, holder, index, shards))
+
+    def segments(self, plan, holder, index, shards) -> dict[int, np.ndarray]:
+        """Per-shard plan results as host uint32 words."""
+        keys = plan_inputs(plan)
+        slotted, params = parametrize(plan)
+        out: dict[int, np.ndarray] = {}
+        for shard_list, placed, sig in self._placed_groups(
+                keys, holder, index, shards):
+            if all(s is None for s in sig):
+                zero = np.zeros(SHARD_WORDS, dtype=np.uint32)
+                for shard in shard_list:
+                    out[shard] = zero
+                continue
+            frags = _Frags(self._present(keys, placed, sig))
+            segs = eval_plan(slotted, frags, params,
+                             lead=(len(shard_list),), device=self.device)
+            host = bitset.to_numpy(segs)
+            for i, shard in enumerate(shard_list):
+                out[shard] = host[i]
+        return out
+
+    @staticmethod
+    def merge_counts(parts) -> np.ndarray:
+        """Sum per-group count vectors of differing lengths (shape groups
+        have different row capacities)."""
+        from ..executor.results import acc_counts
+        acc = np.zeros(0, dtype=np.int64)
+        for p in parts:
+            acc = acc_counts(acc, np.asarray(p, dtype=np.int64))
+        return acc
+
+    def row_counts_async(self, field: str, view: str, filter_plan, holder,
+                         index, shards) -> list:
+        """Per-row popcounts of (field, view) fragments over all shards,
+        masked by ``filter_plan``'s result when given.  Returns unfetched
+        per-group device vectors; combine with ``merge_counts``."""
+        keys = self.batch_keys((field, view), filter_plan)
+        fplan, params = self._slotted(filter_plan)
+        parts = []
+        for shard_list, placed, sig in self._placed_groups(
+                keys, holder, index, shards):
+            if sig[0] is None:
+                continue  # field fragment absent everywhere in this group
+            present = self._present(keys, placed, sig)
+            frags = _Frags(present)
+            filt = None
+            if fplan is not None:
+                filt = eval_plan(fplan, frags, params,
+                                 lead=(len(shard_list),), device=self.device)
+            fused = _fused_entry(present, keys[0])
+            if fused is not None:
+                # decode + filter-AND + per-row popcount in ONE launch;
+                # the field's dense words never reach device memory
+                packed, fs = fused
+                self.fused_calls += 1
+                counts = kernels.fused_row_counts(
+                    *packed, None if filt is None else filt.contiguous(),
+                    rows=fs[1], words=SHARD_WORDS)           # [S, rows]
+            else:
+                frag = frags.get(keys[0])                    # [S, rows, W]
+                masked = frag if filt is None else frag & filt[:, None, :]
+                counts = bitset.row_counts(masked)           # [S, rows]
+            parts.append(counts.sum(dim=0, dtype=torch.int64))
+        return parts
+
+    def row_counts(self, field: str, view: str, filter_plan, holder,
+                   index, shards) -> np.ndarray:
+        return self.merge_counts(
+            p.cpu().numpy() for p in self.row_counts_async(
+                field, view, filter_plan, holder, index, shards))
+
+    # -- GroupBy inner loop (executor.go:1068 executeGroupBy) --------------
+
+    def group_counts_batch_async(self, last_key: tuple[str, str],
+                                 prefix_keys: list[tuple[str, str]],
+                                 combos: np.ndarray, filter_plan, holder,
+                                 index, shards) -> list:
+        """All prefix combos of a GroupBy: ``combos`` is a [C, P] matrix
+        of prefix row ids.  Returns [(lo, hi, parts)] where ``parts`` are
+        [hi - lo, rows] count matrices (device, int64) covering
+        combos[lo:hi], chunked to GROUP_CHUNK combos."""
+        combos = np.asarray(combos, dtype=np.int64)
+        out = []
+        for lo in range(0, combos.shape[0], self.GROUP_CHUNK):
+            sub = combos[lo: lo + self.GROUP_CHUNK]
+            out.append((lo, lo + sub.shape[0], self._group_counts_chunk(
+                last_key, prefix_keys, sub, filter_plan, holder, index,
+                shards)))
+        return out
+
+    def _group_counts_chunk(self, last_key, prefix_keys, combos,
+                            filter_plan, holder, index, shards) -> list:
+        keys = [last_key]
+        for k in list(prefix_keys) + self._filter_keys(filter_plan):
+            if k not in keys:
+                keys.append(k)
+        fplan, params = self._slotted(filter_plan)
+        parts = []
+        for shard_list, placed, sig in self._placed_groups(
+                keys, holder, index, shards):
+            if sig[0] is None:
+                continue
+            key_to_sig = dict(zip(keys, sig))
+            if any(key_to_sig[k] is None for k in prefix_keys):
+                continue
+            frags = _Frags(self._present(keys, placed, sig))
+            frag = frags.get(last_key)                       # [S, rows, W]
+            fseg = None
+            if fplan is not None:
+                fseg = eval_plan(fplan, frags, params,
+                                 lead=(len(shard_list),), device=self.device)
+            counts = torch.empty((combos.shape[0], frag.shape[1]),
+                                 dtype=torch.int64, device=self.device)
+            for ci, rids in enumerate(combos):
+                mask = fseg
+                for pk, rid in zip(prefix_keys, rids):
+                    pfrag = frags.get(pk)
+                    if rid < pfrag.shape[1]:
+                        seg = pfrag[:, int(rid), :]
+                    else:
+                        seg = torch.zeros(
+                            (pfrag.shape[0], SHARD_WORDS),
+                            dtype=torch.int32, device=self.device)
+                    mask = seg if mask is None else mask & seg
+                masked = frag if mask is None else frag & mask[:, None, :]
+                counts[ci] = bitset.row_counts(masked).sum(
+                    dim=0, dtype=torch.int64)
+            parts.append(counts)
+        return parts

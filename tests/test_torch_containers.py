@@ -1,0 +1,242 @@
+"""Differential tests: the PyTorch port's container codec and the plain
+versions of its two CUDA kernels (pilosa_tpu_torch/ops/containers.py,
+ops/kernels.py) against the JAX package's codec and its Pallas kernels.
+
+The Pallas kernels run as tests/test_kernels.py runs them: with the
+``container-kernels`` knob set to "pallas" for the test (restored after),
+through the Pallas interpreter on the CPU.  To keep that interpretation
+cheap the fragments are small (at most 8 rows, 4096 words per row, the
+smallest width that still spans two container tiles per row).
+
+Every comparison is EXACT (np.array_equal): words and counts are
+integers, so there is no tolerance to state.  Inputs are made with numpy
+from a seed.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from pilosa_tpu.ops import containers as jc  # noqa: E402
+from pilosa_tpu.ops import kernels as jk  # noqa: E402
+from pilosa_tpu_torch.ops import bitset as tb  # noqa: E402
+from pilosa_tpu_torch.ops import containers as tc  # noqa: E402
+from pilosa_tpu_torch.ops import kernels as tk  # noqa: E402
+
+CW = 2048
+WORDS = 2 * CW          # two container tiles per row
+ROWS = 8
+
+
+@pytest.fixture
+def pallas():
+    """The JAX kernels' backend knob forced to "pallas" for one test."""
+    old = jk.CONTAINER_KERNELS
+    jk.CONTAINER_KERNELS = "pallas"
+    yield
+    jk.CONTAINER_KERNELS = old
+
+
+def _rand_words(rng, n):
+    v = rng.integers(1, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    v[0] = 0x80000000
+    if n > 1:
+        v[-1] = 0xFFFFFFFF
+    return v
+
+
+def _array_container(rng, tile, n):
+    slots = np.sort(rng.choice(CW, n, replace=False))
+    return (tile * CW + slots).astype(np.int64), _rand_words(rng, n)
+
+
+def _run_container(tile, n_runs, width=3):
+    """n_runs disjoint runs of ``width`` all-ones words, separated by one
+    empty word: n_runs bit runs."""
+    w = (np.arange(n_runs)[:, None] * (width + 1)
+         + np.arange(width)[None, :]).reshape(-1)
+    idx = (tile * CW + w).astype(np.int64)
+    return idx, np.full(idx.size, 0xFFFFFFFF, dtype=np.uint32)
+
+
+def _merge(*parts):
+    idx = np.concatenate([p[0] for p in parts])
+    val = np.concatenate([p[1] for p in parts])
+    order = np.argsort(idx)
+    return idx[order], val[order]
+
+
+def _cases():
+    """name -> (idx, val): the boundary packs of the slice's tests."""
+    rng = np.random.default_rng(7)
+    tiles = ROWS * WORDS // CW
+    last = tiles - 1
+    cases = {
+        "array_1023": _array_container(rng, 3, tc.ARRAY_WORDS_MAX),
+        "bitmap_1024": _array_container(rng, 5, tc.ARRAY_WORDS_MAX + 1),
+        "run_64": _run_container(2, tc.RUN_MAX),
+        "run_65": _run_container(4, tc.RUN_MAX + 1),
+        "full_run": (np.arange(CW, dtype=np.int64) + 6 * CW,
+                     np.full(CW, 0xFFFFFFFF, dtype=np.uint32)),
+        "last_tile": _array_container(rng, last, 17),
+        "emptied": (np.zeros(0, np.int64), np.zeros(0, np.uint32)),
+    }
+    # a partial-word run edge: the run starts and ends mid-word
+    i, v = _run_container(9, 5)
+    v = v.copy()
+    v[0] = 0xFFFF0000
+    v[-1] = 0x0000FFFF
+    cases["run_partial_words"] = (i, v)
+    cases["mixed"] = _merge(
+        _array_container(rng, 0, 40), _array_container(rng, 1, 1200),
+        _run_container(7, 10), _array_container(rng, last, 3),
+        _array_container(rng, 11, 1))
+    return cases
+
+
+CASES = _cases()
+
+
+def _jax_arrays(p):
+    return [jnp.asarray(a) for a in jc.pad_packed(p)]
+
+
+def _torch_arrays(p, device="cpu"):
+    keys, types, counts, offsets, payload = tc.pad_packed(p)
+    return [torch.from_numpy(a).to(device) for a in
+            (keys, types, counts, offsets)] + \
+        [tb.from_numpy(payload, device)]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_codec_matches_jax(name):
+    idx, val = CASES[name]
+    p, q = tc.pack_words(idx, val), jc.pack_words(idx, val)
+    for f in ("keys", "types", "counts", "offsets", "payload"):
+        assert np.array_equal(getattr(p, f), getattr(q, f)), f
+    assert (p.a_max, p.r_max, p.nbytes) == (q.a_max, q.r_max, q.nbytes)
+    assert p.type_histogram() == q.type_histogram()
+    assert tc.estimate_packed_bytes(idx) == jc.estimate_packed_bytes(idx)
+    for a, b in zip(tc.pad_packed(p), jc.pad_packed(q)):
+        assert np.array_equal(a, b)
+    assert np.array_equal(tc.unpack_packed(p, ROWS, WORDS),
+                          jc.unpack_packed(q, ROWS, WORDS))
+
+
+def test_boundary_forms_are_what_the_cases_claim():
+    def hist(name):
+        return tc.pack_words(*CASES[name]).type_histogram()
+    assert hist("array_1023") == {"array": 1, "bitmap": 0, "run": 0}
+    assert hist("bitmap_1024") == {"array": 0, "bitmap": 1, "run": 0}
+    assert hist("run_64") == {"array": 0, "bitmap": 0, "run": 1}
+    assert hist("run_65")["run"] == 0
+    assert hist("full_run") == {"array": 0, "bitmap": 0, "run": 1}
+    assert hist("mixed") == {"array": 3, "bitmap": 1, "run": 1}
+    p = tc.pack_words(*CASES["last_tile"])
+    assert int(p.keys[-1]) == ROWS * WORDS // CW - 1
+    # padding entries carry key -1 once the table is bucketed up
+    keys = tc.pad_packed(tc.pack_words(*CASES["mixed"]))[0]
+    assert keys.size == 8 and (keys[5:] == -1).all()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_decode_matches_pallas_kernel(name, pallas):
+    idx, val = CASES[name]
+    p = tc.pack_words(idx, val)
+    want = np.asarray(jk.decode_block(
+        *_jax_arrays(p), rows=ROWS, words=WORDS,
+        a_bucket=tc.pow2_bucket(p.a_max), r_bucket=tc.pow2_bucket(p.r_max)))
+    got = tb.to_numpy(tk.decode_block_plain(*_torch_arrays(p), rows=ROWS,
+                                            words=WORDS))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, tc.unpack_packed(p, ROWS, WORDS))
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+@pytest.mark.parametrize("name", ["mixed", "run_64", "bitmap_1024",
+                                  "last_tile", "emptied"])
+def test_plain_fused_row_counts_matches_pallas_kernel(name, filtered,
+                                                      pallas):
+    idx, val = CASES[name]
+    p = tc.pack_words(idx, val)
+    filt = None
+    if filtered:
+        filt = np.random.default_rng(3).integers(
+            0, 1 << 32, size=WORDS, dtype=np.uint64).astype(np.uint32)
+        filt[:64] = 0xFFFFFFFF
+    want = np.asarray(jk.fused_row_counts(
+        *_jax_arrays(p), None if filt is None else jnp.asarray(filt),
+        rows=ROWS, words=WORDS, a_bucket=tc.pow2_bucket(p.a_max),
+        r_bucket=tc.pow2_bucket(p.r_max)))
+    got = tk.fused_row_counts_plain(
+        *_torch_arrays(p), None if filt is None else tb.from_numpy(filt,
+                                                                   "cpu"),
+        rows=ROWS, words=WORDS).numpy()
+    assert np.array_equal(got, want)
+    dense = tc.unpack_packed(p, ROWS, WORDS)
+    if filt is not None:
+        dense = dense & filt[None, :]
+    assert np.array_equal(got, np.bitwise_count(dense).sum(axis=1))
+
+
+def _stack(packs):
+    """Pad several packed streams to common pow2 buckets and stack them
+    along the shard axis (parallel/stacked.py _place_packed_block)."""
+    cb = max(tc.pow2_bucket(p.keys.size) for p in packs) or 1
+    pb = max(tc.pow2_bucket(p.payload.size) for p in packs) or 1
+    S = len(packs)
+    keys = np.full((S, cb), -1, np.int32)
+    types = np.full((S, cb), -1, np.int32)
+    counts = np.zeros((S, cb), np.int32)
+    offsets = np.zeros((S, cb), np.int32)
+    payload = np.zeros((S, pb), np.uint32)
+    for i, p in enumerate(packs):
+        c = p.keys.size
+        keys[i, :c], types[i, :c] = p.keys, p.types
+        counts[i, :c], offsets[i, :c] = p.counts, p.offsets
+        payload[i, :p.payload.size] = p.payload
+    return [torch.from_numpy(a) for a in (keys, types, counts, offsets)] + \
+        [tb.from_numpy(payload, "cpu")]
+
+
+def test_stacked_shard_axis_matches_per_shard():
+    names = ["mixed", "run_64", "emptied", "last_tile", "bitmap_1024"]
+    packs = [tc.pack_words(*CASES[n]) for n in names]
+    arrs = _stack(packs)
+    dense = tb.to_numpy(tk.decode_block_plain(*arrs, rows=ROWS, words=WORDS))
+    filt = np.random.default_rng(5).integers(
+        0, 1 << 32, size=(len(packs), WORDS), dtype=np.uint64) \
+        .astype(np.uint32)
+    counts = tk.fused_row_counts_plain(
+        *arrs, tb.from_numpy(filt, "cpu"), rows=ROWS, words=WORDS).numpy()
+    for i, p in enumerate(packs):
+        want = tc.unpack_packed(p, ROWS, WORDS)
+        assert np.array_equal(dense[i], want)
+        assert np.array_equal(
+            counts[i], np.bitwise_count(want & filt[i][None, :]).sum(axis=1))
+
+
+def test_cpu_wrappers_take_the_plain_version_without_launching():
+    tk.reset_launches()
+    p = tc.pack_words(*CASES["mixed"])
+    arrs = _torch_arrays(p)
+    got = tk.decode_block(*arrs, rows=ROWS, words=WORDS)
+    assert np.array_equal(tb.to_numpy(got), tc.unpack_packed(p, ROWS, WORDS))
+    cnt = tk.fused_row_counts(*arrs, None, rows=ROWS, words=WORDS)
+    assert np.array_equal(cnt.numpy(), np.bitwise_count(
+        tc.unpack_packed(p, ROWS, WORDS)).sum(axis=1))
+    assert tk.LAUNCHES == {"decode_block": 0, "fused_row_counts": 0}
+    assert tk.resolve("cpu") == "torch" and tk.resolve("cuda") == "cuda"
+
+
+def test_upload_decode_matches_jax(pallas):
+    idx, val = CASES["mixed"]
+    p = tc.pack_words(idx, val)
+    got = tc.upload_decode(p, ROWS, "cpu", words=WORDS)
+    want = np.asarray(jc.upload_decode(jc.pack_words(idx, val), ROWS,
+                                       words=WORDS))
+    assert got.device.type == "cpu"
+    assert np.array_equal(tb.to_numpy(got), want)
