@@ -12,12 +12,16 @@ Phases, each printing its own lines:
 2. build  — compiles ``pilosa_tpu_torch/csrc`` with nvcc (timed).
 3. corpus — builds the SSB corpus from a seed (pilosa_tpu_torch/ssb.py).
 4. kernels against plain — each kernel's wrapper on card tensors, on the
-   boundary container packs and at the stacked SSB shapes, bit-exact
-   against its plain version; times (CUDA events) beside the bound.
+   boundary container packs (each alone, then all in one ragged stack)
+   and on the stacks the stacked executor places for the SSB TopN key
+   list (which must form ONE signature group over all 256 shards),
+   bit-exact against its plain version; times (CUDA events) beside the
+   bound.
 5. ssb    — the ``_ssb_batch`` mix, dense-resident (no budget) and
    compressed-resident (96 MB budget); every answer equals the numpy
    oracle, both forms agree, and the compressed run must launch both
-   kernels (counts reset just before it, read just after).
+   kernels (counts reset just before it, read just after; printed per
+   request too).
    With ``--profile`` each run ends with one request under
    torch.profiler: the card's busy and idle share and its top kernels.
 6. the ``kernels`` JSON line, the nvidia-smi line, and last the result
@@ -29,6 +33,7 @@ nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -45,6 +50,7 @@ BATCH = 24            # calls per request, as bench.bench_ssb
 N_BATCHES = 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (guide table)
 INT32_OPS_PER_S = 67e12        # 32-bit ops outside the tensor cores
+SLEEP_CYCLES = 50_000_000      # ~25 ms at the H100's boost clock
 # Where the replaced Pallas kernels live: the JAX package's directory,
 # named here only as a path for the report, never imported.
 JAX_KERNELS = "pilosa" + "_tpu/ops/kernels.py"
@@ -65,9 +71,14 @@ def card_line() -> str:
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds per call of ``fn`` on the current stream, timed
-    with CUDA events around ``iters`` calls after ``warmup``."""
+    with CUDA events around ``iters`` calls after ``warmup``.  The calls
+    are queued behind a sleep on the card (SLEEP_CYCLES), so that a
+    kernel whose host-side launch takes longer than its run on the card
+    is timed by the card and not by the host's launch rate."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -87,21 +98,19 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(np.abs(x - y).max()) if x.size else 0
 
 
-def stream_bytes(arrs) -> int:
-    """Bytes one pass must read of a stacked packed group: the four
-    tables plus the payload words its containers reference."""
-    keys, types, counts, _offsets, _payload = arrs
-    t, n = types.long(), counts.long()
-    need = torch.where(t == 1, torch.full_like(n, 2048),
-                       torch.where(t >= 0, 2 * n, torch.zeros_like(n)))
-    return int(4 * keys.numel() * 4 + 4 * need.sum().item())
+def stack_bytes(st) -> int:
+    """Bytes of a ragged packed stack — its slot map, tables and payload,
+    each read once (the payload holds each container's words exactly,
+    plus at most 3 alignment words)."""
+    return sum(a.numel() * a.element_size() for a in st)
 
 
 # -- phase 4a: boundary packs ----------------------------------------------
 
 def boundary_packs():
-    """name -> (idx, val) packs at the container-form boundaries (the
-    cases of tests/test_torch_containers.py at the full shard width)."""
+    """(rows, name -> (idx, val)): packs at the container-form boundaries
+    (the cases of tests/test_torch_containers.py at the full shard
+    width), each alone and mixed in one fragment."""
     from pilosa_tpu_torch.core import CONTAINER_WORDS as CW, SHARD_WORDS
     from pilosa_tpu_torch.ops.containers import ARRAY_WORDS_MAX, RUN_MAX
     rng = np.random.default_rng(SEED)
@@ -114,45 +123,52 @@ def boundary_packs():
         v[0] = 0x80000000
         return (tile * CW + slots).astype(np.int64), v
 
-    def runs(tile, n_runs):
+    def runs(tile, n_runs, edge=False):
         w = (np.arange(n_runs)[:, None] * 4 + np.arange(3)[None, :])
         idx = (tile * CW + w.reshape(-1)).astype(np.int64)
-        return idx, np.full(idx.size, 0xFFFFFFFF, np.uint32)
+        v = np.full(idx.size, 0xFFFFFFFF, np.uint32)
+        if edge:              # runs that start and end mid-word
+            v[0], v[-1] = 0xFFFF0000, 0x0000FFFF
+        return idx, v
 
-    parts = [array(0, ARRAY_WORDS_MAX), array(3, ARRAY_WORDS_MAX + 1),
-             runs(5, RUN_MAX), runs(9, RUN_MAX + 1),
-             (np.arange(CW, dtype=np.int64) + 20 * CW,
-              np.full(CW, 0xFFFFFFFF, np.uint32)),
-             array(last, 17)]
-    idx = np.concatenate([p[0] for p in parts])
-    val = np.concatenate([p[1] for p in parts])
-    order = np.argsort(idx)
-    return rows, {"mixed": (idx[order], val[order]),
-                  "emptied": (np.zeros(0, np.int64), np.zeros(0, np.uint32))}
+    def merge(*parts):
+        idx = np.concatenate([p[0] for p in parts])
+        val = np.concatenate([p[1] for p in parts])
+        order = np.argsort(idx)
+        return idx[order], val[order]
+
+    packs = {"array_1023": array(0, ARRAY_WORDS_MAX),
+             "bitmap_1024": array(3, ARRAY_WORDS_MAX + 1),
+             "run_64": runs(5, RUN_MAX), "run_65": runs(9, RUN_MAX + 1),
+             "run_partial_words": runs(11, 5, edge=True),
+             "full_run": (np.arange(CW, dtype=np.int64) + 20 * CW,
+                          np.full(CW, 0xFFFFFFFF, np.uint32)),
+             "last_tile": array(last, 17),
+             "emptied": (np.zeros(0, np.int64), np.zeros(0, np.uint32))}
+    packs["mixed"] = merge(*(packs[k] for k in (
+        "array_1023", "bitmap_1024", "run_64", "run_65", "full_run",
+        "last_tile")))
+    return rows, packs
 
 
 def check_boundary_packs(device):
+    """Each boundary pack alone through the 1-D call form, then all of
+    them as ONE ragged stack: both kernels against their plain versions
+    and the decode against the numpy oracle, exactly."""
     from pilosa_tpu_torch.core import SHARD_WORDS
     from pilosa_tpu_torch.ops import containers, kernels
-    from pilosa_tpu_torch.ops.bitset import from_numpy
+    from pilosa_tpu_torch.ops.bitset import from_numpy, to_numpy
     rows, packs = boundary_packs()
-    for name, (idx, val) in packs.items():
-        p = containers.pack_words(idx, val)
-        arrs = [from_numpy(a, device) if a.dtype == np.uint32
-                else torch.from_numpy(a).to(device)
-                for a in containers.pad_packed(p)]
+    filt_rng = np.random.default_rng(1)
+
+    def check(name, arrs, oracle, filt):
         got = kernels.decode_block(*arrs, rows=rows, words=SHARD_WORDS)
         plain = kernels.decode_block_plain(*arrs, rows=rows,
                                            words=SHARD_WORDS)
         torch.cuda.synchronize()
-        err = max_abs_err(got, plain)
-        oracle = containers.unpack_packed(p, rows, SHARD_WORDS)
-        from pilosa_tpu_torch.ops.bitset import to_numpy
-        if err or not np.array_equal(to_numpy(got), oracle):
-            raise AssertionError(f"decode_block differs on pack {name}")
-        filt = from_numpy(np.random.default_rng(1).integers(
-            0, 1 << 32, SHARD_WORDS, dtype=np.uint64).astype(np.uint32),
-            device)
+        if max_abs_err(got, plain) or not np.array_equal(to_numpy(got),
+                                                         oracle):
+            raise AssertionError(f"decode_block differs on {name}")
         for f in (None, filt):
             k = kernels.fused_row_counts(*arrs, f, rows=rows,
                                          words=SHARD_WORDS)
@@ -161,12 +177,35 @@ def check_boundary_packs(device):
             torch.cuda.synchronize()
             if max_abs_err(k, q):
                 raise AssertionError(
-                    f"fused_row_counts differs on pack {name} "
+                    f"fused_row_counts differs on {name} "
                     f"(filtered={f is not None})")
+
+    packed = {name: containers.pack_words(*iv) for name, iv in packs.items()}
+    oracles = {name: containers.unpack_packed(p, rows, SHARD_WORDS)
+               for name, p in packed.items()}
+    for name, p in packed.items():
+        arrs = [from_numpy(a, device) if a.dtype == np.uint32
+                else torch.from_numpy(a).to(device)
+                for a in containers.pad_packed(p)]
+        filt = from_numpy(filt_rng.integers(
+            0, 1 << 32, SHARD_WORDS, dtype=np.uint64).astype(np.uint32),
+            device)
+        check(name, arrs, oracles[name], filt)
         say("kernels", pack=name, types=p.type_histogram(), exact=True)
+    names = list(packed)
+    stack = containers.stack_packed(
+        [packed[n] for n in names],
+        containers.tiles_of(rows, SHARD_WORDS), device)
+    filt = from_numpy(filt_rng.integers(
+        0, 1 << 32, (len(names), SHARD_WORDS), dtype=np.uint64)
+        .astype(np.uint32), device)
+    check("the ragged stack of all boundary packs", stack,
+          np.stack([oracles[n] for n in names]), filt)
+    say("kernels", ragged_stack=len(names), containers=stack.types.numel(),
+        payload_words=stack.payload.numel(), exact=True)
 
 
-# -- phase 4b: the stacked SSB shapes --------------------------------------
+# -- phase 4b: the SSB shapes on the main path -------------------------------
 
 def _new_rec() -> dict:
     return {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0}
@@ -179,19 +218,19 @@ def measure_group(placed, sig, S: int, dec: dict, fus: dict,
     fused count over the rev stack under region[rg] & category[c].  Each
     kernel is compared with its plain version on the same inputs."""
     from pilosa_tpu_torch.core import SHARD_WORDS
-    from pilosa_tpu_torch.ops import kernels
-    for arrs in placed:
-        if not isinstance(arrs, tuple):
+    from pilosa_tpu_torch.ops import containers, kernels
+    for st in placed:
+        if not isinstance(st, containers.PackedStack):
             raise AssertionError("an SSB field is not compressed-resident")
     dense = {}
-    for name, arrs, s in zip(("region", "category"), placed[1:], sig[1:]):
+    for name, st, s in zip(("region", "category"), placed[1:], sig[1:]):
         rows = s[1]
 
-        def run(arrs=arrs, rows=rows):
-            return kernels.decode_block(*arrs, rows=rows, words=SHARD_WORDS)
+        def run(st=st, rows=rows):
+            return kernels.decode_block(*st, rows=rows, words=SHARD_WORDS)
 
-        def plain(arrs=arrs, rows=rows):
-            return kernels.decode_block_plain(*arrs, rows=rows,
+        def plain(st=st, rows=rows):
+            return kernels.decode_block_plain(*st, rows=rows,
                                               words=SHARD_WORDS)
 
         got, want = run(), plain()
@@ -199,17 +238,17 @@ def measure_group(placed, sig, S: int, dec: dict, fus: dict,
         dec["err"] = max(dec["err"], max_abs_err(got, want))
         dec["ms"] += time_ms(run, iters=20)
         dec["plain_ms"] += time_ms(plain, iters=plain_iters, warmup=1)
-        dec["bytes"] += stream_bytes(arrs) + S * rows * SHARD_WORDS * 4
+        dec["bytes"] += stack_bytes(st) + S * rows * SHARD_WORDS * 4
         dense[name] = got
     filt = (dense["region"][:, rg] & dense["category"][:, c]).contiguous()
-    arrs, rows = placed[0], sig[0][1]
+    st, rows = placed[0], sig[0][1]
 
     def frun():
-        return kernels.fused_row_counts(*arrs, filt, rows=rows,
+        return kernels.fused_row_counts(*st, filt, rows=rows,
                                         words=SHARD_WORDS)
 
     def fplain():
-        return kernels.fused_row_counts_plain(*arrs, filt, rows=rows,
+        return kernels.fused_row_counts_plain(*st, filt, rows=rows,
                                               words=SHARD_WORDS)
 
     got, want = frun(), fplain()
@@ -217,21 +256,17 @@ def measure_group(placed, sig, S: int, dec: dict, fus: dict,
     fus["err"] = max(fus["err"], max_abs_err(got, want))
     fus["ms"] += time_ms(frun, iters=20)
     fus["plain_ms"] += time_ms(fplain, iters=plain_iters, warmup=1)
-    fus["bytes"] += stream_bytes(arrs) + S * SHARD_WORDS * 4 + S * rows * 4
-    fus["ops"] += 2 * S * rows * SHARD_WORDS   # AND + popcount a word
+    fus["bytes"] += stack_bytes(st) + S * SHARD_WORDS * 4 + S * rows * 4
+    fus["ops"] += 2 * st.payload.numel()  # AND + popcount a payload word
 
 
 def check_ssb_shapes(holder, device, rg: int = 1, c: int = 3):
     """Each kernel at the shapes the main path gives it for
     ``TopN(rev, Intersect(Row(region=rg), Row(category=c)))`` over every
-    shard: decode_block over the region and category stacks (the filter's
-    operands), fused_row_counts over the rev stacks under that filter, for
-    every signature group the stacked executor forms.  Then the same work
-    as ONE group of all shards (each field padded to its largest container
-    and payload bucket), which shows the kernels' own rate apart from the
-    per-group launches; that measurement is printed, not reported as the
-    main path's."""
-    from pilosa_tpu_torch.ops.containers import pow2_bucket
+    shard, on the stacks the stacked executor itself places:
+    decode_block over the region and category stacks (the filter's
+    operands), fused_row_counts over the rev stack under that filter, for
+    every signature group — one for the SSB key list, which is asserted."""
     from pilosa_tpu_torch.parallel.stacked import StackedExecutor
     from pilosa_tpu_torch import ssb
     st = StackedExecutor(device)
@@ -239,34 +274,15 @@ def check_ssb_shapes(holder, device, rg: int = 1, c: int = 3):
             ("category", "standard")]
     shards = list(range(N_SHARDS))
     groups = st._placed_groups(keys, holder, ssb.SSB_INDEX, shards)
+    say("kernels", ssb_groups=len(groups),
+        group_shards=[len(g[0]) for g in groups],
+        sigs=[g[2] for g in groups])
+    if len(groups) != 1:
+        raise AssertionError(f"the SSB TopN key list forms {len(groups)} "
+                             f"signature groups, not 1")
     dec, fus = _new_rec(), _new_rec()
     for shard_list, placed, sig in groups:
         measure_group(placed, sig, len(shard_list), dec, fus, rg, c)
-    say("kernels", ssb_groups=len(groups),
-        group_shards=[len(g[0]) for g in groups],
-        rev_sig=groups[0][2][0])
-
-    placed, sig = [], []
-    for field, view in keys:
-        frs = [holder.fragment(ssb.SSB_INDEX, field, view, s) for s in shards]
-        packs = [fr.packed_host() for fr in frs]
-        one = ("z", max(fr.n_rows for fr in frs),
-               max(pow2_bucket(p.keys.size) for p in packs),
-               max(pow2_bucket(p.payload.size) for p in packs))
-        placed.append(st._place_packed_block(frs, one))
-        sig.append(one)
-    one_dec, one_fus = _new_rec(), _new_rec()
-    measure_group(placed, sig, N_SHARDS, one_dec, one_fus, rg, c,
-                  plain_iters=1)
-    for name, rec in (("decode_block", one_dec),
-                      ("fused_row_counts", one_fus)):
-        if rec["err"]:
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"on one group of all shards")
-        b_ms, b_by = bound(rec)
-        say("kernels", one_group=name, shards=N_SHARDS, ms=rec["ms"],
-            plain_ms=rec["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-            bytes=rec["bytes"], exact=True)
     st.close()
     return dec, fus
 
@@ -307,10 +323,20 @@ def profile_request(ex, query: str, label: str):
         kernels=sum(k[1] for k in kern), top=json.dumps(top))
 
 
+def check_answers(label: str, hist, shards, calls, got):
+    from pilosa_tpu_torch import ssb
+    want = [ssb.oracle(hist, shards, c) for c in calls]
+    if got != want:
+        bad = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"{label}: {ssb.ssb_query(calls[bad])} -> "
+                             f"{got[bad]}, oracle {want[bad]}")
+
+
 def run_ssb(holder, hist, device, label: str, profile: bool = False):
     """Warm, then time N_BATCHES requests of BATCH mixed SSB calls over
-    all shards; every answer must equal the oracle.  Returns (answers,
-    record)."""
+    all shards; every answer must equal the oracle.  Each timed request
+    also records the milliseconds the Python garbage collector held the
+    host inside it (``batch_gc_ms``).  Returns (answers, record)."""
     from pilosa_tpu_torch import ssb
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import kernels
@@ -319,26 +345,36 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False):
     rng = np.random.default_rng(SEED + 1)
     batches = [ssb.ssb_calls(rng, BATCH) for _ in range(N_BATCHES + 1)]
     ex = Executor(holder, device=device)
+    gc_s = [0.0, 0.0]              # [start of the open pause, paused total]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_s[0] = time.perf_counter()
+        else:
+            gc_s[1] += time.perf_counter() - gc_s[0]
+
     kernels.reset_launches()
-    answers, lat = [], []
-    for i, calls in enumerate(batches):
-        t0 = time.perf_counter()
-        got = ssb.normalize(ex.execute(ssb.SSB_INDEX, ssb.ssb_batch(calls)))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if i:                      # batch 0 warms: stacks staged, cached
-            lat.append(dt)
-        want = [ssb.oracle(hist, shards, c) for c in calls]
-        if got != want:
-            bad = next(j for j, (a, b) in enumerate(zip(got, want))
-                       if a != b)
-            raise AssertionError(
-                f"{label}: {ssb.ssb_query(calls[bad])} -> {got[bad]}, "
-                f"oracle {want[bad]}")
-        answers.append(got)
+    answers, lat, gc_ms = [], [], []
+    gc.callbacks.append(on_gc)
+    try:
+        for i, calls in enumerate(batches):
+            gc_s[1] = 0.0
+            t0 = time.perf_counter()
+            got = ssb.normalize(ex.execute(ssb.SSB_INDEX,
+                                           ssb.ssb_batch(calls)))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if i:                  # batch 0 warms: stacks staged, cached
+                lat.append(dt)
+                gc_ms.append(round(gc_s[1] * 1e3, 3))
+            check_answers(label, hist, shards, calls, got)
+            answers.append(got)
+    finally:
+        gc.callbacks.remove(on_gc)
     if profile:
         profile_request(ex, ssb.ssb_batch(batches[-1]), label)
     launches = dict(kernels.LAUNCHES)
+    requests = len(batches) + int(profile)
     stats = DEFAULT_BUDGET.stats()
     ex.close()
     rec = {"qps": BATCH * len(lat) / sum(lat),
@@ -346,11 +382,15 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False):
            "compressed_mb": stats["compressedBytes"] / 2**20,
            "batch_p50_ms": statistics.median(lat) * 1e3,
            "batch_ms": [round(x * 1e3, 3) for x in lat],
-           "launches": launches}
+           "batch_gc_ms": gc_ms,
+           "launches": launches, "requests": requests,
+           "launches_per_request": {k: n / requests
+                                    for k, n in launches.items()}}
     say("ssb", run=label, shards=N_SHARDS, calls_per_batch=BATCH,
         batches=len(lat), qps=rec["qps"], batch_p50_ms=rec["batch_p50_ms"],
         resident_mb=rec["resident_mb"], compressed_mb=rec["compressed_mb"],
-        launches=json.dumps(launches))
+        launches=json.dumps(launches), requests=requests,
+        launches_per_request=json.dumps(rec["launches_per_request"]))
     return answers, rec
 
 

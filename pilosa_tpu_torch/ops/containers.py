@@ -16,25 +16,26 @@ covers ``CONTAINER_WORDS`` = 2048 words = 2^16 bits):
 
 Copied from the JAX module: the host codec (``pow2_bucket``, ``Packed``,
 ``pack_words``, ``estimate_packed_bytes``, ``unpack_packed`` — the numpy
-decode oracle — and ``pad_packed``).  New here: ``decode_block``, the
-plain PyTorch decode that is the plain version of the CUDA decode kernel
-(ops/kernels.py), and ``upload_decode`` over torch.
+decode oracle — and ``pad_packed``).  New here: ``PackedStack``, the
+ragged layout both CUDA kernels take (ops/kernels.py), its host builder
+``stack_packed``, ``decode_block``, the plain PyTorch decode that is the
+plain version of the CUDA decode kernel, and ``upload_decode`` over
+torch.
 
-``decode_block`` takes the stacked shard axis: tables ``[S, C]``, payload
-``[S, P]``, out ``[S, rows, words]`` (1-D tables decode one fragment).
-Words are int32 tensors holding the uint32 bit patterns (ops/bitset.py).
-It relies on ``pack_words``' invariants, as the JAX decode's scatter-set
-does: one container per key, unique slots within an array container,
-disjoint runs within a run container.  Under them every output word
-receives disjoint bits, so one scatter-add is their OR.  Padding entries
-(key -1, type -1) decode to nothing; keys past ``rows * words`` and
-payload reads past the buffer are dropped / read as zero, like the JAX
-decode's drop / fill modes.
+A PackedStack lays S shards' streams end to end at their exact sizes:
+the JAX package pads every fragment to pow2 buckets so that XLA sees
+static shapes, and stacks only fragments of one bucket; here one stack
+holds shards of any container count and payload size.  Words are int32
+tensors holding the uint32 bit patterns (ops/bitset.py).  Payload reads
+past the buffer read as zero, like the JAX decode's fill mode; keys past
+the fragment's tiles are dropped when the stack is built, like its drop
+mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -212,15 +213,112 @@ def unpack_packed(p: Packed, rows: int,
 
 
 # ---------------------------------------------------------------------------
+# The ragged packed stack (the container kernels' input).
+# ---------------------------------------------------------------------------
+
+# Payload word alignment of every container in a stack: 4 words = 16
+# bytes, so the kernels move bitmap tiles with 16-byte loads.
+PAYLOAD_ALIGN = 4
+
+
+class PackedStack(NamedTuple):
+    """S packed streams laid end to end, exact size (no pow2 padding) —
+    what both container kernels (ops/kernels.py) and ``decode_block``
+    take, so one launch covers shards of any container count.
+
+    ``slots[s, t]`` is the index into the container tables of the
+    container that covers tile ``t`` of shard ``s`` (a tile is
+    CONTAINER_WORDS words of the flat ``[rows, words]`` fragment), or -1.
+    It replaces the sorted key table: the JAX package's ``_tile_slots``
+    map, built once per stack instead of per launch.  ``offsets`` are
+    absolute word offsets into ``payload``, multiples of PAYLOAD_ALIGN,
+    int64 so a stack's payload may pass 2^31 words."""
+    slots: torch.Tensor    # int32[S, tiles]
+    types: torch.Tensor    # int32[N] TYPE_*
+    counts: torch.Tensor   # int32[N] entries / words / runs
+    offsets: torch.Tensor  # int64[N]
+    payload: torch.Tensor  # int32[M] uint32 bit patterns
+
+    def to(self, device) -> "PackedStack":
+        return PackedStack(*(a.to(device) for a in self))
+
+
+def tiles_of(rows: int, words: int) -> int:
+    """Container tiles of a ``[rows, words]`` fragment."""
+    return -(-rows * words // CONTAINER_WORDS)
+
+
+def stack_packed(packs, tiles: int, device="cpu") -> PackedStack:
+    """Lay packed streams (``Packed``, or any object with its five table
+    fields, padded or not) end to end into one PackedStack of
+    ``len(packs)`` shards on ``device``, built on the host.
+
+    Padding entries (key -1), unknown types and keys at or beyond
+    ``tiles`` (a write that raced the caller's row capacity) are dropped.
+    Each kept container's payload is copied to a PAYLOAD_ALIGN-aligned
+    offset at its full size — CONTAINER_WORDS words for a bitmap, 2 x
+    count for an array or run — with words past its pack's buffer read
+    as zero, so no kernel read leaves the stack's payload."""
+    cw = CONTAINER_WORDS
+    slots = np.full((len(packs), tiles), -1, dtype=np.int32)
+    types, counts, offsets, pays = ([np.zeros(0, dt)] for dt in (
+        np.int32, np.int32, np.int64, np.uint32))
+    n_live = base = 0
+    for s, p in enumerate(packs):
+        k = np.asarray(p.keys, dtype=np.int64)
+        t = np.asarray(p.types, dtype=np.int32)
+        live = (k >= 0) & (k < tiles) & (t >= TYPE_ARRAY) & (t <= TYPE_RUN)
+        k, t = k[live], t[live]
+        n = np.asarray(p.counts, dtype=np.int32)[live]
+        src = np.asarray(p.offsets, dtype=np.int64)[live]
+        size = np.where(t == TYPE_BITMAP, cw,
+                        2 * np.maximum(n.astype(np.int64), 0))
+        asize = -(-size // PAYLOAD_ALIGN) * PAYLOAD_ALIGN
+        dst = np.cumsum(asize) - asize
+        out = np.zeros(int(asize.sum()), dtype=np.uint32)
+        if size.size:
+            owner = np.repeat(np.arange(size.size), size)
+            j = np.arange(owner.size) - np.repeat(np.cumsum(size) - size,
+                                                  size)
+            at = src[owner] + j
+            pay = np.asarray(p.payload, dtype=np.uint32)
+            ok = (at >= 0) & (at < pay.size)
+            out[(dst[owner] + j)[ok]] = pay[at[ok]]
+        slots[s, k] = np.arange(n_live, n_live + k.size)
+        n_live += k.size
+        types.append(t)
+        counts.append(n)
+        offsets.append(dst + base)
+        pays.append(out)
+        base += out.size
+    return PackedStack(
+        torch.from_numpy(slots), torch.from_numpy(np.concatenate(types)),
+        torch.from_numpy(np.concatenate(counts)),
+        torch.from_numpy(np.concatenate(offsets)),
+        torch.from_numpy(np.concatenate(pays).view(np.int32))).to(device)
+
+
+def stack_tables(keys, types, counts, offsets, payload,
+                 tiles: int) -> PackedStack:
+    """One fragment's (padded) container tables as tensors -> a one-shard
+    PackedStack on the same device (built on the host, as every stack
+    is)."""
+    arrs = [a.detach().cpu().numpy() for a in
+            (keys, types, counts, offsets, payload)]
+    p = Packed(*arrs[:4], arrs[4].view(np.uint32), 0, 0)
+    return stack_packed([p], tiles, keys.device)
+
+
+# ---------------------------------------------------------------------------
 # Device decode (plain PyTorch).
 # ---------------------------------------------------------------------------
 
-def _gather(flat_pay: torch.Tensor, row_base: torch.Tensor,
-            idx: torch.Tensor, P: int) -> torch.Tensor:
-    """payload[s, idx] for per-entry shard bases ``row_base`` (= s * P),
-    reading 0 where idx is outside [0, P) (the JAX decode's fill mode)."""
-    ok = (idx >= 0) & (idx < P)
-    vals = flat_pay[row_base + idx.clamp(0, max(P - 1, 0))]
+def _gather(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """payload[idx], reading 0 where idx is outside the buffer (the JAX
+    decode's fill mode)."""
+    M = payload.numel()
+    ok = (idx >= 0) & (idx < M)
+    vals = payload[idx.clamp(0, max(M - 1, 0))]
     return torch.where(ok, vals, torch.zeros_like(vals))
 
 
@@ -233,84 +331,77 @@ def _expand(n: torch.Tensor):
     return owner, torch.arange(owner.numel(), device=n.device) - start[owner]
 
 
-def decode_block(keys, types, counts, offsets, payload, *, rows: int,
+def decode_block(slots, types, counts, offsets, payload, *, rows: int,
                  words: int = SHARD_WORDS) -> torch.Tensor:
-    """Decode packed container streams to dense int32 words on the tensors'
-    device: ``[S, C]`` tables + ``[S, P]`` payload -> ``[S, rows, words]``
-    (or ``[C]`` / ``[P]`` -> ``[rows, words]``).  The plain version of the
-    CUDA decode kernel; see the module docstring for the invariants."""
-    single = keys.dim() == 1
-    if single:
-        keys, types, counts, offsets, payload = (
-            a[None] for a in (keys, types, counts, offsets, payload))
-    S, C = keys.shape
-    P = payload.shape[1]
+    """Decode a PackedStack to dense int32 words ``[S, rows, words]`` on
+    its device — the plain version of the CUDA decode kernel.  It relies
+    on ``pack_words``' invariants, as the JAX decode's scatter-set does:
+    unique slots within an array container, disjoint runs within a run
+    container, so every output word receives disjoint bits and one
+    scatter-add is their OR."""
+    S, tiles = slots.shape
+    if tiles != tiles_of(rows, words):
+        raise ValueError(f"slot map has {tiles} tiles, a [{rows}, {words}] "
+                         f"fragment {tiles_of(rows, words)}")
     total = rows * words
-    dev = keys.device
+    dev = slots.device
     out = torch.zeros(S * total, dtype=torch.int32, device=dev)
-    if C and rows:
-        cw = CONTAINER_WORDS
-        k = keys.reshape(-1).long()
-        t = types.reshape(-1)
-        n = counts.reshape(-1).long()
-        o = offsets.reshape(-1).long()
-        s_base = torch.arange(S, device=dev).repeat_interleave(C)
-        pay_base, out_base = s_base * P, s_base * total
-        flat_pay = payload.reshape(-1)
-        live = (k >= 0) & (k * cw < total)
-        dst_parts, val_parts = [], []
+    cw = CONTAINER_WORDS
+    flat = slots.reshape(-1)
+    tile = torch.nonzero(flat >= 0).reshape(-1)          # s * tiles + t
+    ci = flat[tile].long()
+    t = types[ci]
+    n = counts[ci].long()
+    o = offsets[ci].long()
+    first = (tile % tiles) * cw                          # tile's word in shard
+    out_base = (tile // tiles) * total + first
+    dst_parts, val_parts = [], []
 
-        sel = live & (t == TYPE_BITMAP)
-        if bool(sel.any()):
-            j = torch.arange(cw, device=dev)
-            vals = _gather(flat_pay, pay_base[sel, None], o[sel, None] + j, P)
-            flat = (k[sel] * cw)[:, None] + j
-            ok = flat < total
-            dst_parts.append((out_base[sel, None] + flat)[ok])
-            val_parts.append(vals[ok])
+    sel = t == TYPE_BITMAP
+    if bool(sel.any()):
+        j = torch.arange(cw, device=dev)
+        vals = _gather(payload, o[sel, None] + j)
+        ok = first[sel, None] + j < total
+        dst_parts.append((out_base[sel, None] + j)[ok])
+        val_parts.append(vals[ok])
 
-        sel = live & (t == TYPE_ARRAY) & (n > 0)
-        if bool(sel.any()):
-            owner, e = _expand(n[sel])
-            ob, pb = o[sel][owner], pay_base[sel][owner]
-            slot = _gather(flat_pay, pb, ob + e, P).long()
-            vals = _gather(flat_pay, pb, ob + n[sel][owner] + e, P)
-            ok = (slot >= 0) & (slot < cw)
-            flat = k[sel][owner] * cw + slot
-            ok &= flat < total
-            dst_parts.append((out_base[sel][owner] + flat)[ok])
-            val_parts.append(vals[ok])
+    sel = (t == TYPE_ARRAY) & (n > 0)
+    if bool(sel.any()):
+        owner, e = _expand(n[sel])
+        ob = o[sel][owner]
+        slot = _gather(payload, ob + e).long() & 0xFFFFFFFF
+        vals = _gather(payload, ob + n[sel][owner] + e)
+        ok = (slot < cw) & (first[sel][owner] + slot < total)
+        dst_parts.append((out_base[sel][owner] + slot)[ok])
+        val_parts.append(vals[ok])
 
-        sel = live & (t == TYPE_RUN) & (n > 0)
-        if bool(sel.any()):
-            owner, r = _expand(n[sel])
-            ob, pb = o[sel][owner], pay_base[sel][owner]
-            rs = _gather(flat_pay, pb, ob + 2 * r, P).long() & 0xFFFFFFFF
-            re_ = _gather(flat_pay, pb, ob + 2 * r + 1, P).long() \
-                & 0xFFFFFFFF
-            re_ = re_.clamp(max=cw * WORD_BITS)
-            nonempty = re_ > rs
-            rs, re_ = rs[nonempty], re_[nonempty]
-            run_key = k[sel][owner][nonempty]
-            run_out = out_base[sel][owner][nonempty]
-            w0 = rs // WORD_BITS
-            span = (re_ - 1) // WORD_BITS - w0 + 1
-            wo, wj = _expand(span)
-            w = w0[wo] + wj
-            lo = (rs[wo] - w * WORD_BITS).clamp(0, WORD_BITS)
-            hi = (re_[wo] - w * WORD_BITS).clamp(0, WORD_BITS)
-            one = torch.ones_like(lo)
-            mask = ((one << hi) - 1) & ~((one << lo) - 1) & 0xFFFFFFFF
-            flat = run_key[wo] * cw + w
-            ok = flat < total
-            dst_parts.append((run_out[wo] + flat)[ok])
-            val_parts.append(_narrow(mask[ok]))
+    sel = (t == TYPE_RUN) & (n > 0)
+    if bool(sel.any()):
+        owner, r = _expand(n[sel])
+        ob = o[sel][owner]
+        rs = _gather(payload, ob + 2 * r).long() & 0xFFFFFFFF
+        re_ = _gather(payload, ob + 2 * r + 1).long() & 0xFFFFFFFF
+        re_ = re_.clamp(max=cw * WORD_BITS)
+        nonempty = re_ > rs
+        rs, re_ = rs[nonempty], re_[nonempty]
+        run_out = out_base[sel][owner][nonempty]
+        run_first = first[sel][owner][nonempty]
+        w0 = rs // WORD_BITS
+        span = (re_ - 1) // WORD_BITS - w0 + 1
+        wo, wj = _expand(span)
+        w = w0[wo] + wj
+        lo = (rs[wo] - w * WORD_BITS).clamp(0, WORD_BITS)
+        hi = (re_[wo] - w * WORD_BITS).clamp(0, WORD_BITS)
+        one = torch.ones_like(lo)
+        mask = ((one << hi) - 1) & ~((one << lo) - 1) & 0xFFFFFFFF
+        ok = run_first[wo] + w < total
+        dst_parts.append((run_out[wo] + w)[ok])
+        val_parts.append(_narrow(mask[ok]))
 
-        if dst_parts:
-            out.index_put_((torch.cat(dst_parts),), torch.cat(val_parts),
-                           accumulate=True)
-    out = out.view(S, rows, words)
-    return out[0] if single else out
+    if dst_parts:
+        out.index_put_((torch.cat(dst_parts),), torch.cat(val_parts),
+                       accumulate=True)
+    return out.view(S, rows, words)
 
 
 def pad_packed(p: Packed) -> tuple[np.ndarray, ...]:
@@ -333,8 +424,6 @@ def pad_packed(p: Packed) -> tuple[np.ndarray, ...]:
     return keys, types, counts, offsets, payload
 
 
-
-
 def upload_decode(p: Packed, rows: int, target,
                   words: int = SHARD_WORDS) -> torch.Tensor:
     """Ship a packed stream to ``target`` and decode it there to the dense
@@ -343,8 +432,6 @@ def upload_decode(p: Packed, rows: int, target,
     device, through the decode kernel on a CUDA device (ops/kernels.py)
     and its plain version on the CPU."""
     from . import kernels
-    from .bitset import from_numpy
 
-    arrs = [from_numpy(a, target) if a.dtype == np.uint32
-            else torch.from_numpy(a).to(target) for a in pad_packed(p)]
-    return kernels.decode_block(*arrs, rows=rows, words=words)
+    stack = stack_packed([p], tiles_of(rows, words), target)
+    return kernels.decode_block(*stack, rows=rows, words=words)[0]

@@ -2,23 +2,26 @@
 ``ops/kernels.py`` (its two Pallas kernels), written in CUDA C++ in
 ``csrc/container_kernels.cu``.
 
-* ``decode_block`` — packed container streams -> dense words, one
-  2048-word tile per thread block.
+* ``decode_block`` — packed container streams -> dense words.
 * ``fused_row_counts`` — decode + optional AND with a dense filter +
   per-row popcount in one launch; the decoded words never reach device
   memory (the TopN/Rows ``row_counts`` hot path, parallel/stacked.py).
 
-Both take the stacked shard axis natively — tables ``[S, C]``, payload
-``[S, P]`` — so one launch covers a whole signature group (what ``vmap``
-over the Pallas call gave on the TPU).  1-D tables are one fragment.
+Both take a ragged ``containers.PackedStack`` of S shards — a slot map
+``[S, tiles]`` and the shards' container tables and payloads laid end to
+end — so one launch covers every shard of a stack whatever its
+container count or payload size (the JAX package's ``vmap`` over one
+pow2 bucket's Pallas call covered only that bucket).  The other call
+form, one fragment's 1-D (padded) tables ``keys, types, counts,
+offsets, payload``, is a stack of S = 1, built on the host.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its
-output with ``torch.empty``, launches on the current stream, raises if the
+Each wrapper checks device, dtype, shape, contiguity and alignment,
+allocates its output, launches on the current stream, raises if the
 launch reports an error, and counts its launches in ``LAUNCHES``.  On a
 tensor that lies on the CPU it calls its plain PyTorch version
 (``decode_block_plain``, ``fused_row_counts_plain``) instead; on a CUDA
 tensor it launches the kernel or raises — there is no fallback.
-Degenerate inputs (no containers, no rows, no shards) return zeros
+Degenerate inputs (no containers, no tiles, no shards) return zeros
 without a launch.
 
 Deviations from the JAX module, by design:
@@ -27,8 +30,10 @@ Deviations from the JAX module, by design:
   not from a process-wide knob; there is no switch that moves the card's
   path off the kernels.
 * The TPU's ``fits_vmem`` eligibility rule (a 12 MB VMEM budget) does not
-  apply: each block's shared memory is a fixed ~10 KB whatever the
-  bucket, so every packed entry on the card takes the kernel.
+  apply: each block's shared memory is a fixed 8 or 16 KB whatever the
+  containers, so every packed entry on the card takes the kernel.
+* No ``a_bucket`` / ``r_bucket`` arguments: the kernels loop over a
+  container's actual entries and runs.
 * ``words`` must be a multiple of 2048 on the card (the plain version
   takes any width, as the JAX jnp decode does).
 
@@ -63,7 +68,6 @@ SOURCE = _PKG / "csrc" / "container_kernels.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_SHARDS = 65535  # grid.y limit of one launch
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -128,94 +132,101 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.decode_block_launch.argtypes = [p, p, p, p, p, p, i, i, ll,
-                                                i, p]
+            lib.decode_block_launch.argtypes = [p, p, p, p, p, p, ll, p]
             lib.decode_block_launch.restype = i
-            lib.fused_row_counts_launch.argtypes = [p, p, p, p, p, p, p, i,
-                                                    i, ll, i, i, p]
+            lib.fused_row_counts_launch.argtypes = [p, p, p, p, p, p, p, ll,
+                                                    i, i, p]
             lib.fused_row_counts_launch.restype = i
             _lib = lib
         return _lib
 
 
-def _check_stream(keys, types, counts, offsets, payload):
-    """Validate one packed stream (1-D) or a stacked group (2-D) and
-    return it as 2-D tensors plus whether the caller passed 1-D."""
-    single = keys.dim() == 1
-    tabs = (keys, types, counts, offsets)
-    if single:
-        tabs = tuple(a[None] for a in tabs)
-        payload = payload[None]
-    dev = tabs[0].device
-    for name, a in zip(("keys", "types", "counts", "offsets", "payload"),
-                       tabs + (payload,)):
-        if a.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32 (uint32 bit patterns), "
-                            f"got {a.dtype}")
-        if a.device != dev:
-            raise ValueError(f"{name} is on {a.device}, keys on {dev}")
-        if a.dim() != 2:
-            raise ValueError(f"{name} must be 1-D or 2-D, got {a.shape}")
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if any(a.shape != tabs[0].shape for a in tabs) or \
-            payload.shape[0] != tabs[0].shape[0]:
-        raise ValueError("container tables and payload disagree in shape: "
-                         f"{[tuple(a.shape) for a in tabs + (payload,)]}")
+def _as_stack(stream, rows: int, words: int):
+    """(PackedStack, single) for either call form: a PackedStack's five
+    tensors (the 2-D slot map first), or one fragment's 1-D tables (its
+    keys first), made a stack of one shard."""
+    if stream[0].dim() == 1:
+        return containers.stack_tables(
+            *stream, tiles=containers.tiles_of(rows, words)), True
+    return containers.PackedStack(*stream), False
+
+
+def _check_stack(st: containers.PackedStack, rows: int, words: int):
+    """Validate a stack for the kernels; returns tiles per row."""
+    dev = st.slots.device
     if dev.type != "cuda":
         raise ValueError(f"container kernels run on CUDA tensors, got {dev}")
-    return tabs + (payload,), single
-
-
-def _launch_shape(S: int, rows: int, words: int):
+    for name, a, dt, dim in (("slots", st.slots, torch.int32, 2),
+                             ("types", st.types, torch.int32, 1),
+                             ("counts", st.counts, torch.int32, 1),
+                             ("offsets", st.offsets, torch.int64, 1),
+                             ("payload", st.payload, torch.int32, 1)):
+        if a.dtype != dt or a.device != dev or a.dim() != dim or \
+                not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dim}-D {dt} "
+                             f"tensor on {dev}, got {a.dtype} "
+                             f"{tuple(a.shape)} on {a.device}")
+    if not st.types.numel() == st.counts.numel() == st.offsets.numel():
+        raise ValueError("container tables disagree in length")
+    if st.payload.data_ptr() % 16:
+        raise ValueError("payload must be 16-byte aligned")
     if words % CONTAINER_WORDS:
         raise ValueError(f"words={words} is not a multiple of "
                          f"{CONTAINER_WORDS} (one container tile)")
-    if S > MAX_SHARDS:
-        raise ValueError(f"{S} stacked shards exceed one launch's "
-                         f"{MAX_SHARDS}")
-    return words // CONTAINER_WORDS
+    tpr = words // CONTAINER_WORDS
+    if st.slots.shape[1] != rows * tpr:
+        raise ValueError(f"slot map has {st.slots.shape[1]} tiles, a "
+                         f"[{rows}, {words}] fragment {rows * tpr}")
+    if st.slots.shape[0] * tpr >= 1 << 31:
+        raise ValueError(f"{st.slots.shape[0]} shards exceed one launch")
+    return tpr
+
+
+def _launch(name: str, st: containers.PackedStack, *args):
+    """Launch kernel ``name`` over ``st`` (and ``args``) on the current
+    stream of the stack's device, raise on a CUDA error, count it."""
+    dev = st.slots.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(_load(), f"{name}_launch")(
+            *(a.data_ptr() for a in st), *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
 # decode_block
 # ---------------------------------------------------------------------------
 
-def decode_block_plain(keys, types, counts, offsets, payload, *, rows: int,
-                       words: int = SHARD_WORDS) -> torch.Tensor:
+def decode_block_plain(slots, types, counts, offsets, payload, *,
+                       rows: int, words: int = SHARD_WORDS) -> torch.Tensor:
     """Plain PyTorch version of the decode kernel (ops/containers.py
-    decode_block)."""
-    return containers.decode_block(keys, types, counts, offsets, payload,
-                                   rows=rows, words=words)
+    decode_block), in both call forms."""
+    st, single = _as_stack((slots, types, counts, offsets, payload), rows,
+                           words)
+    out = containers.decode_block(*st, rows=rows, words=words)
+    return out[0] if single else out
 
 
-def decode_block(keys, types, counts, offsets, payload, *, rows: int,
+def decode_block(slots, types, counts, offsets, payload, *, rows: int,
                  words: int = SHARD_WORDS) -> torch.Tensor:
-    """Decode packed streams to dense int32 words ``[S, rows, words]``
-    (``[rows, words]`` for 1-D tables).  CPU tensors take the plain
-    version; CUDA tensors launch ``decode_block_kernel``."""
-    if keys.device.type == "cpu":
-        return decode_block_plain(keys, types, counts, offsets, payload,
-                                  rows=rows, words=words)
-    (keys, types, counts, offsets, payload), single = _check_stream(
-        keys, types, counts, offsets, payload)
-    S, C = keys.shape
-    out = torch.empty((S, rows, words), dtype=torch.int32,
-                      device=keys.device)
-    if C == 0 or rows == 0 or S == 0:
-        out.zero_()
+    """Decode a PackedStack (``slots`` its ``[S, tiles]`` slot map) to
+    dense int32 words ``[S, rows, words]``, or one fragment's 1-D tables
+    (``slots`` then its keys) to ``[rows, words]``.  CPU tensors take the
+    plain version; CUDA tensors launch ``decode_block_kernel``."""
+    stream = (slots, types, counts, offsets, payload)
+    if slots.device.type == "cpu":
+        return decode_block_plain(*stream, rows=rows, words=words)
+    st, single = _as_stack(stream, rows, words)
+    _check_stack(st, rows, words)
+    S = st.slots.shape[0]
+    dev = st.slots.device
+    if st.types.numel() == 0 or st.slots.numel() == 0:
+        out = torch.zeros((S, rows, words), dtype=torch.int32, device=dev)
     else:
-        tpr = _launch_shape(S, rows, words)
-        lib = _load()
-        with torch.cuda.device(keys.device):
-            stream = torch.cuda.current_stream(keys.device).cuda_stream
-            rc = lib.decode_block_launch(
-                keys.data_ptr(), types.data_ptr(), counts.data_ptr(),
-                offsets.data_ptr(), payload.data_ptr(), out.data_ptr(),
-                S, C, payload.shape[1], rows * tpr, stream)
-        if rc != 0:
-            raise RuntimeError(f"decode_block launch failed: CUDA error {rc}")
-        LAUNCHES["decode_block"] += 1
+        out = torch.empty((S, rows, words), dtype=torch.int32, device=dev)
+        _launch("decode_block", st, out.data_ptr(), st.slots.numel())
     return out[0] if single else out
 
 
@@ -223,55 +234,47 @@ def decode_block(keys, types, counts, offsets, payload, *, rows: int,
 # fused_row_counts
 # ---------------------------------------------------------------------------
 
-def fused_row_counts_plain(keys, types, counts, offsets, payload, filt=None,
-                           *, rows: int,
+def fused_row_counts_plain(slots, types, counts, offsets, payload,
+                           filt=None, *, rows: int,
                            words: int = SHARD_WORDS) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel: decode, AND with the
     filter, per-row popcount -> int32 ``[S, rows]`` (``[rows]`` for 1-D
     tables)."""
-    frag = containers.decode_block(keys, types, counts, offsets, payload,
-                                   rows=rows, words=words)
+    frag = decode_block_plain(slots, types, counts, offsets, payload,
+                              rows=rows, words=words)
     if filt is not None:
         frag = frag & filt[..., None, :]
     return bitset.row_counts(frag)
 
 
-def fused_row_counts(keys, types, counts, offsets, payload, filt=None, *,
-                     rows: int, words: int = SHARD_WORDS) -> torch.Tensor:
-    """Per-row set-bit counts of packed fragments, optionally ANDed with a
-    dense filter (``[S, words]``, or ``[words]`` for 1-D tables), in one
-    launch: int32 ``[S, rows]`` (``[rows]``).  CPU tensors take the plain
-    version; CUDA tensors launch ``fused_row_counts_kernel``."""
-    if keys.device.type == "cpu":
-        return fused_row_counts_plain(keys, types, counts, offsets, payload,
-                                      filt, rows=rows, words=words)
-    (keys, types, counts, offsets, payload), single = _check_stream(
-        keys, types, counts, offsets, payload)
-    S, C = keys.shape
+def fused_row_counts(slots, types, counts, offsets, payload, filt=None,
+                     *, rows: int, words: int = SHARD_WORDS) -> torch.Tensor:
+    """Per-row set-bit counts of a PackedStack, optionally ANDed with a
+    dense filter ``[S, words]`` (``[words]`` for 1-D tables), in one
+    launch: int32 ``[S, rows]`` (``[rows]``).  Call forms as
+    ``decode_block``.  CPU tensors take the plain version; CUDA tensors
+    launch ``fused_row_counts_kernel``."""
+    stream = (slots, types, counts, offsets, payload)
+    if slots.device.type == "cpu":
+        return fused_row_counts_plain(*stream, filt, rows=rows, words=words)
+    st, single = _as_stack(stream, rows, words)
+    tpr = _check_stack(st, rows, words)
+    S = st.slots.shape[0]
+    dev = st.slots.device
     if filt is not None:
         if single:
             filt = filt[None]
-        if filt.dtype != torch.int32 or filt.device != keys.device or \
-                tuple(filt.shape) != (S, words) or not filt.is_contiguous():
+        if filt.dtype != torch.int32 or filt.device != dev or \
+                tuple(filt.shape) != (S, words) or \
+                not filt.is_contiguous() or filt.data_ptr() % 16:
             raise ValueError(
-                f"filter must be contiguous int32 {(S, words)} on "
-                f"{keys.device}, got {filt.dtype} {tuple(filt.shape)} on "
-                f"{filt.device}")
-    out = torch.empty((S, rows), dtype=torch.int32, device=keys.device)
-    if C == 0 or rows == 0 or S == 0:
-        out.zero_()
-    else:
-        tpr = _launch_shape(S, rows, words)
-        lib = _load()
-        with torch.cuda.device(keys.device):
-            stream = torch.cuda.current_stream(keys.device).cuda_stream
-            rc = lib.fused_row_counts_launch(
-                keys.data_ptr(), types.data_ptr(), counts.data_ptr(),
-                offsets.data_ptr(), payload.data_ptr(),
+                f"filter must be contiguous 16-byte aligned int32 "
+                f"{(S, words)} on {dev}, got {filt.dtype} "
+                f"{tuple(filt.shape)} on {filt.device}")
+    # the kernel adds each (shard, tile column)'s count with an atomic
+    out = torch.zeros((S, rows), dtype=torch.int32, device=dev)
+    if st.types.numel() and st.slots.numel():
+        _launch("fused_row_counts", st,
                 None if filt is None else filt.data_ptr(), out.data_ptr(),
-                S, C, payload.shape[1], rows, tpr, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"fused_row_counts launch failed: CUDA error {rc}")
-        LAUNCHES["fused_row_counts"] += 1
+                S, rows, tpr)
     return out[0] if single else out

@@ -9,13 +9,13 @@ becomes the S axis, and its ``psum`` a sum over S.
 
 Per key of a plan, a group's stacked input is either dense —
 ``[S, rows, W]`` int32 words — or, for compressed-resident fragments
-(storage/fragment.py ``device_form``), the packed container streams
-padded to the group's pow2 buckets: keys/types/counts/offsets ``[S, C]``
-and payload ``[S, P]`` (ops/containers.py).  Packed inputs are decoded at
-op time through the ``decode_block`` kernel (``_Frags``), and the
-TopN/Rows row counts of a packed field go through the ``fused_row_counts``
-kernel, which never writes the decoded words (``_fused_entry``).  On the
-CPU both wrappers run their plain PyTorch versions.
+(storage/fragment.py ``device_form``), a ragged ``PackedStack`` of the
+members' packed container streams at their exact sizes, with its slot
+map (ops/containers.py).  Packed inputs are decoded at op time through
+the ``decode_block`` kernel (``_Frags``), and the TopN/Rows row counts of
+a packed field go through the ``fused_row_counts`` kernel, which never
+writes the decoded words (``_fused_entry``).  On the CPU both wrappers
+run their plain PyTorch versions.
 
 Stacks are cached against the fragments' data generations and charged to
 the device budget (``_placed_groups``).
@@ -26,9 +26,14 @@ Reducers: ``count_async`` (Count), ``segments`` (bitmap calls),
 
 Deviations from the JAX module, by design:
 
-* No pow2 shard bucketing (``_bucket`` / ``_pad_and_place``): it exists
-  for XLA's static shapes.  The container and payload pow2 buckets stay,
-  because they give a group its rectangular shape.
+* No pow2 shard bucketing (``_bucket`` / ``_pad_and_place``), and no
+  container, payload, array-entry or run-count buckets in a compressed
+  fragment's signature (``('z', rows, backend)``, storage/fragment.py):
+  both exist for XLA's static shapes.  The kernels take a ragged stack,
+  so every compressed shard of one row capacity joins one group and one
+  launch.  The row capacity stays in the signature: merging capacities
+  would pad rows, which every reducer would then have to treat as
+  empty.
 * Every compressed entry takes the fused kernel: the TPU's ``fits_vmem``
   rule does not apply on the card (ops/kernels.py).
 * Not in this slice: the over-budget shard schedule that streams slices
@@ -47,7 +52,7 @@ import torch
 
 from ..core import SHARD_WORDS
 from ..executor.plan import eval_plan, parametrize, plan_inputs
-from ..ops import bitset, kernels
+from ..ops import bitset, containers, kernels
 from ..storage.membudget import DEFAULT_BUDGET
 from ..utils.locks import make_lock
 
@@ -70,7 +75,7 @@ class _Frags:
         if entry is None:
             return None
         a, s = entry
-        if isinstance(a, tuple):
+        if isinstance(a, containers.PackedStack):
             a = kernels.decode_block(*a, rows=s[1], words=SHARD_WORDS)
         self._dense[key] = a
         return a
@@ -82,7 +87,8 @@ def _fused_entry(present, key):
     through one ``fused_row_counts`` launch — else None."""
     for k, a, s in present:
         if k == key:
-            return (a, s) if isinstance(a, tuple) else None
+            return (a, s) if isinstance(a, containers.PackedStack) \
+                else None
     return None
 
 
@@ -142,8 +148,8 @@ class StackedExecutor:
         [(field, view), ...] and stack each group's fragments on the
         device.  Returns [(shard_list, placed_per_key, sig)];
         ``placed_per_key[i]`` is None when key i's fragment is absent in
-        the whole group, a tuple of the five packed tensors for a
-        compressed entry, else the dense ``[S, rows, W]`` stack."""
+        the whole group, a ``PackedStack`` for a compressed entry, else
+        the dense ``[S, rows, W]`` stack."""
         frags, token = self._stack_token(keys, holder, index, shards)
         ckey = (index, tuple(keys), tuple(shards))
         skey = ("stack", id(self), ckey)
@@ -232,29 +238,15 @@ class StackedExecutor:
             block[i, :r] = dense[:r]
         return bitset.from_numpy(block, self.device)
 
-    def _place_packed_block(self, frs, sig):
-        """Compressed staging: pad each member's packed stream to the
-        group's pow2 buckets and ship the five stacked arrays."""
-        cb, pb = sig[2], sig[3]
-        n = len(frs)
-        keys = np.full((n, cb), -1, dtype=np.int32)
-        types = np.full((n, cb), -1, dtype=np.int32)
-        counts = np.zeros((n, cb), dtype=np.int32)
-        offsets = np.zeros((n, cb), dtype=np.int32)
-        payload = np.zeros((n, pb), dtype=np.uint32)
-        for i, fr in enumerate(frs):
-            p = fr.packed_host()
-            # a concurrent write may race the signature; clamping to the
-            # signature's buckets mirrors the dense path's slice-to-shape
-            c = min(p.keys.size, cb)
-            pw = min(p.payload.size, pb)
-            keys[i, :c] = p.keys[:c]
-            types[i, :c] = p.types[:c]
-            counts[i, :c] = p.counts[:c]
-            offsets[i, :c] = p.offsets[:c]
-            payload[i, :pw] = p.payload[:pw]
-        return tuple(bitset.from_numpy(a, self.device)
-                     for a in (keys, types, counts, offsets, payload))
+    def _place_packed_block(self, frs, sig) -> containers.PackedStack:
+        """Compressed staging: lay the members' packed streams end to end
+        (one ``packed_host()`` read each, sized from that read) with the
+        slot map built on the host, and ship the stack.  Keys beyond the
+        signature's row capacity, which a write that raced the signature
+        can leave, are dropped, as the dense path slices to shape."""
+        return containers.stack_packed(
+            [fr.packed_host() for fr in frs],
+            containers.tiles_of(sig[1], SHARD_WORDS), self.device)
 
     @staticmethod
     def _present(keys, placed, sig):

@@ -39,9 +39,11 @@ store, the WAL, snapshots, quarantine, the packed form
 (``packed_host``, ``device_form``, ``staged_dense``) and the rank-cache
 hooks are copied.  ``device()`` is rewritten to keep one torch mirror per
 device, and ``device_sig`` takes the device whose container-kernel
-backend ("cuda" or "torch") it records.  The ingest delta overlay
-(``ingest_apply``, the journal, and its branch in ``device()``) waits for
-the ingest slice and is dropped, so ``device_gen`` always equals ``gen``.
+backend ("cuda" or "torch") it records; a compressed fragment's
+signature drops the JAX package's pow2 buckets (see ``device_sig``).
+The ingest delta overlay (``ingest_apply``, the journal, and its branch
+in ``device()``) waits for the ingest slice and is dropped, so
+``device_gen`` always equals ``gen``.
 """
 
 from __future__ import annotations
@@ -237,11 +239,9 @@ class Fragment:
         self._stage = None
         # packed container stream cache: (gen, ops.containers.Packed) —
         # see packed_host(); _comp_est is the (gen, bytes) estimate the
-        # density heuristic uses without packing, and _psig the (gen,
-        # sig tuple) bucket signature so stack tokens never repack
+        # density heuristic uses without packing
         self._packed = None
         self._comp_est = None
-        self._psig = None
         self._device_dirty = True
         self._op_n = 0
         self._dirty_data = False  # mutated since last snapshot?
@@ -1171,29 +1171,24 @@ class Fragment:
     def device_sig(self, device) -> tuple:
         """Stacked-group shape signature for the stacked executor: dense
         fragments keep the (rows, words) tensor shape; compressed ones
-        carry ('z', rows, C, P, A, R, backend) with pow2-bucketed
-        container, payload, array-entry and run counts, so the fragments
-        of one bucket stack into one rectangular group.  The trailing
-        element is the container-kernel backend RESOLVED from ``device``
-        (ops/kernels.py: "cuda" for a CUDA device, "torch" for the plain
-        version on the CPU), so stacks built for one device are never
-        replayed on the other."""
+        are ('z', rows, backend).  The trailing element is the
+        container-kernel backend RESOLVED from ``device`` (ops/kernels.py:
+        "cuda" for a CUDA device, "torch" for the plain version on the
+        CPU), so stacks built for one device are never replayed on the
+        other.
+
+        Deviation from the JAX package, whose compressed signature also
+        carries pow2 buckets of container, payload, array-entry and run
+        counts so that one bucket's fragments stack into one rectangular
+        group of static shape for XLA: the port's kernels take a ragged
+        stack (ops/containers.py PackedStack), so the buckets would only
+        split one launch into many.  The signature no longer reads the
+        pack, so it needs no cache of its own; the stack token's
+        ``device_gen`` still changes with every write."""
         if self.device_form() == "dense":
             return (self.n_rows, SHARD_WORDS)
         from ..ops import kernels
-        from ..ops.containers import pow2_bucket
-        backend = kernels.resolve(device)
-        with self._lock:
-            s = self._psig
-            if s is not None and s[0] == (self.device_gen, backend):
-                return s[1]
-        p = self.packed_host()
-        sig = ("z", self.n_rows, pow2_bucket(p.keys.size),
-               pow2_bucket(p.payload.size), pow2_bucket(p.a_max),
-               pow2_bucket(p.r_max), backend)
-        with self._lock:
-            self._psig = ((self.device_gen, backend), sig)
-        return sig
+        return ("z", self.n_rows, kernels.resolve(device))
 
     def packed_stats(self) -> dict | None:
         """Container-type histogram of the CURRENT packed stream, or

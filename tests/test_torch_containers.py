@@ -182,41 +182,118 @@ def test_plain_fused_row_counts_matches_pallas_kernel(name, filtered,
     assert np.array_equal(got, np.bitwise_count(dense).sum(axis=1))
 
 
-def _stack(packs):
-    """Pad several packed streams to common pow2 buckets and stack them
-    along the shard axis (parallel/stacked.py _place_packed_block)."""
-    cb = max(tc.pow2_bucket(p.keys.size) for p in packs) or 1
-    pb = max(tc.pow2_bucket(p.payload.size) for p in packs) or 1
-    S = len(packs)
-    keys = np.full((S, cb), -1, np.int32)
-    types = np.full((S, cb), -1, np.int32)
-    counts = np.zeros((S, cb), np.int32)
-    offsets = np.zeros((S, cb), np.int32)
-    payload = np.zeros((S, pb), np.uint32)
-    for i, p in enumerate(packs):
-        c = p.keys.size
-        keys[i, :c], types[i, :c] = p.keys, p.types
-        counts[i, :c], offsets[i, :c] = p.counts, p.offsets
-        payload[i, :p.payload.size] = p.payload
-    return [torch.from_numpy(a) for a in (keys, types, counts, offsets)] + \
-        [tb.from_numpy(payload, "cpu")]
+def _filters(n, seed=5):
+    filt = np.random.default_rng(seed).integers(
+        0, 1 << 32, size=(n, WORDS), dtype=np.uint64).astype(np.uint32)
+    filt[:, :64] = 0xFFFFFFFF
+    return filt
 
 
-def test_stacked_shard_axis_matches_per_shard():
-    names = ["mixed", "run_64", "emptied", "last_tile", "bitmap_1024"]
-    packs = [tc.pack_words(*CASES[n]) for n in names]
-    arrs = _stack(packs)
-    dense = tb.to_numpy(tk.decode_block_plain(*arrs, rows=ROWS, words=WORDS))
-    filt = np.random.default_rng(5).integers(
-        0, 1 << 32, size=(len(packs), WORDS), dtype=np.uint64) \
-        .astype(np.uint32)
+# Every boundary case in one ragged stack, in an order that puts shards
+# of different container counts and payload sizes side by side.
+STACK_NAMES = ["mixed", "emptied", "bitmap_1024", "run_64", "last_tile",
+               "array_1023", "run_65", "full_run", "run_partial_words"]
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    """(packs, PackedStack on the CPU) of STACK_NAMES."""
+    packs = [tc.pack_words(*CASES[n]) for n in STACK_NAMES]
+    assert len({p.keys.size for p in packs}) == 3
+    assert len({p.payload.size for p in packs}) > 3
+    return packs, tc.stack_packed(packs, tc.tiles_of(ROWS, WORDS))
+
+
+def test_stacked_shard_axis_matches_per_shard(ragged):
+    """Each shard of a ragged stack decodes and counts as the same
+    fragment does alone through the 1-D call form, and as the numpy
+    oracle says."""
+    packs, st = ragged
+    dense = tb.to_numpy(tk.decode_block_plain(*st, rows=ROWS, words=WORDS))
+    filt = _filters(len(packs))
     counts = tk.fused_row_counts_plain(
-        *arrs, tb.from_numpy(filt, "cpu"), rows=ROWS, words=WORDS).numpy()
+        *st, tb.from_numpy(filt, "cpu"), rows=ROWS, words=WORDS).numpy()
     for i, p in enumerate(packs):
         want = tc.unpack_packed(p, ROWS, WORDS)
-        assert np.array_equal(dense[i], want)
+        assert np.array_equal(dense[i], want), STACK_NAMES[i]
+        one = _torch_arrays(p)
+        assert np.array_equal(tb.to_numpy(tk.decode_block_plain(
+            *one, rows=ROWS, words=WORDS)), want)
         assert np.array_equal(
             counts[i], np.bitwise_count(want & filt[i][None, :]).sum(axis=1))
+        assert np.array_equal(counts[i], tk.fused_row_counts_plain(
+            *one, tb.from_numpy(filt[i], "cpu"), rows=ROWS,
+            words=WORDS).numpy())
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_ragged_stack_matches_pallas_per_fragment(ragged, filtered, pallas):
+    packs, st = ragged
+    filt = _filters(len(packs), seed=11) if filtered else None
+    dense = tb.to_numpy(tk.decode_block_plain(*st, rows=ROWS, words=WORDS))
+    counts = tk.fused_row_counts_plain(
+        *st, None if filt is None else tb.from_numpy(filt, "cpu"),
+        rows=ROWS, words=WORDS).numpy()
+    for i, p in enumerate(packs):
+        buckets = dict(a_bucket=tc.pow2_bucket(p.a_max),
+                       r_bucket=tc.pow2_bucket(p.r_max))
+        if not filtered:
+            want = np.asarray(jk.decode_block(
+                *_jax_arrays(p), rows=ROWS, words=WORDS, **buckets))
+            assert np.array_equal(dense[i], want), STACK_NAMES[i]
+        want = np.asarray(jk.fused_row_counts(
+            *_jax_arrays(p), None if filt is None else jnp.asarray(filt[i]),
+            rows=ROWS, words=WORDS, **buckets))
+        assert np.array_equal(counts[i], want), STACK_NAMES[i]
+
+
+def test_ragged_layout_is_exact_and_aligned(ragged):
+    """No pow2 padding: every container keeps its own payload words at a
+    16-byte aligned offset; the slot map points each tile at its
+    container; padded tables stack as their unpadded pack does."""
+    packs, st = ragged
+    tiles = tc.tiles_of(ROWS, WORDS)
+    assert tuple(st.slots.shape) == (len(packs), tiles)
+    assert st.offsets.dtype == torch.int64
+    assert int(st.types.numel()) == sum(p.keys.size for p in packs)
+    sizes = np.where(st.types.numpy() == tc.TYPE_BITMAP, CW,
+                     2 * st.counts.numpy())
+    assert (st.offsets.numpy() % tc.PAYLOAD_ALIGN == 0).all()
+    assert st.payload.numel() == int((-(-sizes // 4) * 4).sum())
+    pay = tb.to_numpy(st.payload)
+    for i, p in enumerate(packs):
+        for k, t, off in zip(p.keys, p.types, p.offsets):
+            ci = int(st.slots[i, k])
+            assert int(st.types[ci]) == t
+            size = CW if t == tc.TYPE_BITMAP else 2 * int(st.counts[ci])
+            o = int(st.offsets[ci])
+            assert np.array_equal(pay[o: o + size],
+                                  p.payload[off: off + size])
+        assert int((st.slots[i] >= 0).sum()) == p.keys.size
+    padded = tc.Packed(*tc.pad_packed(packs[0]), 0, 0)
+    for a, b in zip(tc.stack_packed([padded], tiles),
+                    tc.stack_packed(packs[:1], tiles)):
+        assert torch.equal(a, b)
+
+
+def test_slot_map_drops_keys_beyond_rows():
+    """A pack built at a larger row capacity (a write that raced the
+    stack's signature) loses the tiles past the stack's rows, as the
+    JAX decode's drop mode and the dense path's slice to shape do."""
+    idx, val = CASES["mixed"]
+    wide = np.concatenate([idx, idx[:50] + ROWS * WORDS])
+    wval = np.concatenate([val, val[:50]])
+    p = tc.pack_words(wide, wval)
+    tiles = tc.tiles_of(ROWS, WORDS)
+    assert int(p.keys.max()) >= tiles
+    st = tc.stack_packed([tc.pack_words(*CASES["run_64"]), p], tiles)
+    assert int(st.slots.max()) == st.types.numel() - 1
+    assert int((st.slots[1] >= 0).sum()) == int((p.keys < tiles).sum())
+    got = tb.to_numpy(tk.decode_block_plain(*st, rows=ROWS, words=WORDS))
+    assert np.array_equal(got[1], tc.unpack_packed(
+        tc.pack_words(idx, val), ROWS, WORDS))
+    assert np.array_equal(got[0], tc.unpack_packed(
+        tc.pack_words(*CASES["run_64"]), ROWS, WORDS))
 
 
 def test_cpu_wrappers_take_the_plain_version_without_launching():

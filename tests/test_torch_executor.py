@@ -261,3 +261,75 @@ def test_default_device_is_cuda_and_never_falls_back(diff_corpus,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Executor(th)
+
+
+def _bucket_fill(h, wide: bool):
+    """Four shards whose packed fragments fall in different pow2 buckets
+    of container count, payload, array entries and runs: shard 0 holds a
+    handful of bits, shard 1 scattered bits over dozens of containers,
+    shard 2 a full run and a bitmap container, shard 3 no ``b`` at all.
+    Every shard's ``a`` reaches row 5 (row capacity 8); ``wide`` adds
+    row 20 to shard 1 (capacity 32), a second capacity."""
+    rng = np.random.default_rng(31)
+    idx = h.create_index("g")
+    a = idx.create_field("a")
+    b = idx.create_field("b")
+    W = SHARD_WIDTH
+    for shard in range(4):
+        a.import_bits([5, 0], [shard * W + 7, shard * W + 9])
+    a.import_bits([1] * 5, np.arange(5) * 3)
+    b.import_bits([0, 2], [4, 11])
+    cols = W + rng.choice(W, 3000, replace=False)
+    a.import_bits(rng.integers(0, 6, 3000), cols)
+    b.import_bits(rng.integers(0, 4, 3000), cols)
+    a.import_bits(np.full(70000, 2), 2 * W + np.arange(70000))
+    cols = 2 * W + (5 << 16) + rng.choice(1 << 16, 40000, replace=False)
+    a.import_bits(np.full(40000, 3), cols)
+    b.import_bits(np.full(40000, 1), cols)
+    a.import_bits(rng.integers(0, 6, 200),
+                  3 * W + rng.choice(W, 200, replace=False))
+    if wide:
+        a.import_bits([20], [W + 5])
+
+
+BUCKET_QUERIES = [
+    "Count(Row(a=1))", "Count(Intersect(Row(a=3), Row(b=1)))",
+    "Count(Union(Row(a=2), Row(b=0)))", "TopN(a, n=4)",
+    "TopN(a, Row(b=1), n=3)", "TopN(b, Row(a=0), n=2)", "Rows(a)",
+    "Rows(b, limit=3)", "GroupBy(Rows(a), Rows(b))",
+    "GroupBy(Rows(b), Rows(a), Row(a=3))", "Row(a=5)",
+    "Intersect(Row(a=2), Row(b=1))"]
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_mixed_bucket_shards_form_one_group_per_row_capacity(wide,
+                                                             residency):
+    """Shards whose packs would fall in different pow2 buckets stack into
+    ONE group per row capacity (two capacities, two groups), and the
+    stacked answers equal the JAX executor's, shards without a ``b``
+    fragment included."""
+    jh, th = JaxHolder(None), Holder(None)
+    _bucket_fill(jh, wide)
+    _bucket_fill(th, wide)
+    shards = list(range(4))
+    frs = [th.fragment("g", "a", "standard", s) for s in shards]
+    assert {fr.device_form() for fr in frs} == {residency}
+    assert th.fragment("g", "b", "standard", 3) is None
+    if residency == "compressed":
+        from pilosa_tpu_torch.ops.containers import pow2_bucket
+        buckets = {(pow2_bucket(p.keys.size), pow2_bucket(p.payload.size),
+                    pow2_bucket(p.a_max), pow2_bucket(p.r_max))
+                   for p in (fr.packed_host() for fr in frs)}
+        assert len(buckets) == 4
+    jex = JaxExecutor(jh, use_mesh=True)
+    ex = Executor(th, device="cpu", stacked=True)
+    try:
+        groups = ex.stacked._placed_groups([("a", "standard")], th, "g",
+                                           shards)
+        assert len(groups) == (2 if wide else 1)
+        assert sorted(s for g in groups for s in g[0]) == shards
+        for q in BUCKET_QUERIES:
+            assert _norm(ex.execute("g", q)) == _norm(jex.execute("g", q)), q
+    finally:
+        jex.close()
+        ex.close()
