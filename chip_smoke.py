@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py [--profile]
 
-Drives the port's main path — PQL read requests over the SSB star-schema
-corpus at its full 256 shards, dense-resident and compressed-resident —
-through the user entry point ``pilosa_tpu_torch.executor.Executor``, and
-holds every CUDA kernel of that path against its plain PyTorch version.
-Phases, each printing its own lines:
+Drives the port's main paths — PQL read requests over the SSB
+star-schema corpus at its full 256 shards, and BASELINE config 4 (BSI
+Sum / range predicates + GroupBy over 64 shards at depth 20), each
+dense-resident and compressed-resident — through the user entry point
+``pilosa_tpu_torch.executor.Executor``, and holds every CUDA kernel of
+those paths against its plain PyTorch version.  Phases, each printing
+its own lines and its seconds:
 
 1. card   — the device name and power limit; fails without CUDA.
 2. build  — compiles ``pilosa_tpu_torch/csrc`` with nvcc (timed).
@@ -17,14 +19,24 @@ Phases, each printing its own lines:
    list (which must form ONE signature group over all 256 shards),
    bit-exact against its plain version; times (CUDA events) beside the
    bound.
-5. ssb    — the ``_ssb_batch`` mix, dense-resident (no budget) and
-   compressed-resident (96 MB budget); every answer equals the numpy
-   oracle, both forms agree, and the compressed run must launch both
-   kernels (counts reset just before it, read just after; printed per
-   request too).
-   With ``--profile`` each run ends with one request under
-   torch.profiler: the card's busy and idle share and its top kernels.
-6. the ``kernels`` JSON line, the nvidia-smi line, and last the result
+5. ssb    — the ``_ssb_batch`` mix (multi-call requests: the grouped
+   path), dense-resident (no budget) and compressed-resident (96 MB
+   budget); every answer equals the numpy oracle, both forms agree, and
+   the compressed run must launch both kernels (counts reset just before
+   it, read just after; printed per request too).
+6. bsi64  — config 4 (pilosa_tpu_torch/bsi64.py): the corpus at 64
+   shards; ``decode_block`` on the packed ``bsig_v`` stack the stacked
+   executor places, bit-exact against its plain version and timed; then
+   requests of 64 ``Sum(Row(v > X), field=v)`` calls, the GroupBy and a
+   Min / Max / Count / TopN request under the same predicate, dense and
+   compressed, every answer equal to the numpy oracle; the compressed
+   run must launch both kernels.  Printed: qps, request p50, launches
+   and batch chunks per request, prepared hits, the GroupBy time,
+   resident MB.
+   With ``--profile`` each run of phases 5 and 6 ends with one request
+   under torch.profiler: the card's busy and idle share and its top
+   kernels.
+7. the ``kernels`` JSON line, the nvidia-smi line, and last the result
    line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the result line.  It imports
@@ -295,17 +307,16 @@ def bound(rec) -> tuple[float, str]:
 
 # -- phase 5: the SSB request mix ------------------------------------------
 
-def profile_request(ex, query: str, label: str):
+def profile_request(ex, index: str, query: str, label: str):
     """One request under torch.profiler: the card's busy time (the sum of
     its kernel and copy durations) against the request's wall time, and
     the kernels that took most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from pilosa_tpu_torch import ssb
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ex.execute(ssb.SSB_INDEX, query)
+        ex.execute(index, query)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = []
@@ -372,12 +383,15 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False):
     finally:
         gc.callbacks.remove(on_gc)
     if profile:
-        profile_request(ex, ssb.ssb_batch(batches[-1]), label)
+        profile_request(ex, ssb.SSB_INDEX, ssb.ssb_batch(batches[-1]),
+                        label)
     launches = dict(kernels.LAUNCHES)
     requests = len(batches) + int(profile)
     stats = DEFAULT_BUDGET.stats()
+    chunks = ex.stacked.batch_chunks
     ex.close()
     rec = {"qps": BATCH * len(lat) / sum(lat),
+           "batch_chunks_per_request": chunks / requests,
            "resident_mb": stats["residentBytes"] / 2**20,
            "compressed_mb": stats["compressedBytes"] / 2**20,
            "batch_p50_ms": statistics.median(lat) * 1e3,
@@ -390,7 +404,157 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False):
         batches=len(lat), qps=rec["qps"], batch_p50_ms=rec["batch_p50_ms"],
         resident_mb=rec["resident_mb"], compressed_mb=rec["compressed_mb"],
         launches=json.dumps(launches), requests=requests,
-        launches_per_request=json.dumps(rec["launches_per_request"]))
+        launches_per_request=json.dumps(rec["launches_per_request"]),
+        batch_chunks_per_request=rec["batch_chunks_per_request"])
+    return answers, rec
+
+
+# -- phase 6: BASELINE config 4 --------------------------------------------
+
+CFG4_REQUESTS = 6     # timed 64-Sum requests per residency, after one warm
+
+
+def cfg4_corpus(n_shards: int):
+    """The config-4 holder at ``n_shards`` (64 on the card; its value
+    count scales with the shards, so the density stays the config's)."""
+    from pilosa_tpu_torch import bsi64
+    from pilosa_tpu_torch.storage import Holder
+    holder = Holder(None)
+    oracle = bsi64.build(holder, np.random.default_rng(SEED + 4),
+                         n_shards=n_shards,
+                         n_values=bsi64.N_VALUES * n_shards
+                         // bsi64.N_SHARDS)
+    return holder, oracle
+
+
+def check_bsi_stack(holder, device, n_shards: int) -> dict:
+    """``decode_block`` at the shape every compressed Sum / Min / Max /
+    range predicate gives it: the packed ``bsig_v`` stack the stacked
+    executor places over all shards (one signature group, asserted),
+    bit-exact against its plain version; timed."""
+    from pilosa_tpu_torch import bsi64
+    from pilosa_tpu_torch.core import SHARD_WORDS
+    from pilosa_tpu_torch.ops import containers, kernels
+    from pilosa_tpu_torch.parallel.stacked import StackedExecutor
+    st = StackedExecutor(device)
+    groups = st._placed_groups([("v", "bsig_v")], holder, bsi64.INDEX,
+                               list(range(n_shards)))
+    if len(groups) != 1 or not isinstance(groups[0][1][0],
+                                          containers.PackedStack):
+        raise AssertionError(f"bsig_v does not stack into one packed "
+                             f"group: {[g[2] for g in groups]}")
+    _, (pk,), (sig,) = groups[0]
+    rows = sig[1]
+
+    def run():
+        return kernels.decode_block(*pk, rows=rows, words=SHARD_WORDS)
+
+    def plain():
+        return kernels.decode_block_plain(*pk, rows=rows, words=SHARD_WORDS)
+
+    rec = _new_rec()
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    rec["err"] = max_abs_err(got, want)
+    rec["ms"] = time_ms(run, iters=20)
+    rec["plain_ms"] = time_ms(plain, iters=3, warmup=1)
+    rec["bytes"] = stack_bytes(pk) + n_shards * rows * SHARD_WORDS * 4
+    say("bsi64", bsig_stack_shards=n_shards, rows=rows,
+        containers=pk.types.numel(), payload_words=pk.payload.numel(),
+        types=json.dumps({t: int((pk.types == i).sum()) for i, t in
+                          enumerate(("array", "bitmap", "run"))}),
+        decode_ms=rec["ms"], plain_ms=rec["plain_ms"], exact=not rec["err"])
+    st.close()
+    return rec
+
+
+def cfg4_oracle_topn(vals, segs, x: int, n: int) -> list:
+    counts = np.bincount(segs[vals > x], minlength=8)
+    order = np.lexsort((np.arange(counts.size), -counts))
+    return [(int(i), int(counts[i])) for i in order[:n] if counts[i] > 0]
+
+
+def run_cfg4(holder, oracle, device, label: str, n_shards: int,
+             profile: bool = False):
+    """Warm, then time CFG4_REQUESTS requests of 64 Sums; then the GroupBy
+    (warmed with another literal, as bench.py times it) and one request of
+    Min / Max / Count / TopN under a range predicate.  Every answer must
+    equal the numpy oracle.  Returns (answers, record)."""
+    from pilosa_tpu_torch import bsi64
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.storage.membudget import DEFAULT_BUDGET
+    cols, vals, segs = oracle
+    rng = np.random.default_rng(SEED + 5)
+    xs_all = [rng.integers(0, bsi64.V_MAX, size=bsi64.SUMS_PER_REQUEST)
+              for _ in range(CFG4_REQUESTS + 1)]
+    ex = Executor(holder, device=device)
+    t_phase = time.perf_counter()
+
+    def check(what, got, want):
+        if got != want:
+            raise AssertionError(f"config 4 {label}: {what} -> {got}, "
+                                 f"oracle {want}")
+
+    kernels.reset_launches()
+    answers, lat = [], []
+    chunks0 = ex.stacked.batch_chunks
+    for i, xs in enumerate(xs_all):
+        t0 = time.perf_counter()
+        got = bsi64.normalize(ex.execute(bsi64.INDEX,
+                                         bsi64.sum_request(xs)))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i:                  # request 0 warms: stacks staged, prepared
+            lat.append(dt)
+        check("64 Sums", got, [bsi64.oracle_sum(vals, int(x)) for x in xs])
+        answers.append(got)
+    n_req = len(xs_all)
+    sum_launches = dict(kernels.LAUNCHES)
+    chunks = (ex.stacked.batch_chunks - chunks0) / n_req
+    ex.execute(bsi64.INDEX, bsi64.group_by_query(1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = bsi64.normalize(ex.execute(bsi64.INDEX,
+                                     bsi64.group_by_query(500_000)))
+    torch.cuda.synchronize()
+    gb_ms = (time.perf_counter() - t0) * 1e3
+    check("GroupBy", got, [bsi64.oracle_group_by(vals, segs, 500_000)])
+    answers.append(got)
+    x = int(xs_all[-1][0])
+    got = bsi64.normalize(ex.execute(
+        bsi64.INDEX, f"Min(Row(v > {x}), field=v) Max(Row(v > {x}), "
+                     f"field=v) Count(Row(v > {x})) "
+                     f"TopN(seg, Row(v > {x}), n=5)"))
+    check("Min / Max / Count / TopN", got,
+          [bsi64.oracle_min_max(vals, x, False),
+           bsi64.oracle_min_max(vals, x, True), int((vals > x).sum()),
+           cfg4_oracle_topn(vals, segs, x, 5)])
+    answers.append(got)
+    if profile:
+        profile_request(ex, bsi64.INDEX, bsi64.sum_request(xs_all[-1]),
+                        f"bsi64-{label}")
+    launches = dict(kernels.LAUNCHES)
+    stats = DEFAULT_BUDGET.stats()
+    hits = ex.prepared.hits
+    ex.close()
+    rec = {"qps": bsi64.SUMS_PER_REQUEST * len(lat) / sum(lat),
+           "requests_per_s": len(lat) / sum(lat),
+           "request_p50_ms": statistics.median(lat) * 1e3,
+           "request_ms": [round(t * 1e3, 3) for t in lat],
+           "launches_per_sum_request": {k: n / n_req for k, n in
+                                        sum_launches.items()},
+           "launches_phase": launches,
+           "batch_chunks_per_request": chunks,
+           "prepared_hits": hits,
+           "group_by_ms": gb_ms,
+           "resident_mb": stats["residentBytes"] / 2**20,
+           "compressed_mb": stats["compressedBytes"] / 2**20,
+           "seconds": time.perf_counter() - t_phase}
+    say("bsi64", run=label, shards=n_shards,
+        sums_per_request=bsi64.SUMS_PER_REQUEST, requests=len(lat),
+        **{k: (json.dumps(v) if isinstance(v, (dict, list)) else v)
+           for k, v in rec.items()})
     return answers, rec
 
 
@@ -425,6 +589,7 @@ def main(argv) -> int:
     say("corpus", shards=N_SHARDS, columns=N_SHARDS << 20,
         fields=dict(ssb.SSB_FIELDS), seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
     check_boundary_packs(device)
     port_fragment.COMPRESSED_RESIDENT = True
     DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
@@ -433,8 +598,10 @@ def main(argv) -> int:
         if rec["err"]:
             raise AssertionError(f"{name} differs from its plain version "
                                  f"at the SSB shapes: {rec['err']}")
+    say("kernels", seconds=time.perf_counter() - t0)
 
     # dense-resident: no budget, so every fragment stays dense
+    t0 = time.perf_counter()
     DEFAULT_BUDGET.limit_bytes = None
     dense_ans, dense_rec = run_ssb(holder, hist, device, "dense", profile)
     # compressed-resident: the 96 MB budget packs the sparse fragments
@@ -448,22 +615,56 @@ def main(argv) -> int:
         if n <= 0:
             raise AssertionError(f"the compressed SSB run never launched "
                                  f"{name}")
+    say("ssb", seconds=time.perf_counter() - t0)
+
+    # config 4: the BSI Sum / range / GroupBy path over 64 shards
+    from pilosa_tpu_torch import bsi64
+    t0 = time.perf_counter()
+    DEFAULT_BUDGET.limit_bytes = None
+    cfg4, oracle = cfg4_corpus(bsi64.N_SHARDS)
+    say("bsi64", corpus_values=oracle[0].size, shards=bsi64.N_SHARDS,
+        seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    c4_dense_ans, c4_dense = run_cfg4(cfg4, oracle, device, "dense",
+                                      bsi64.N_SHARDS, profile)
+    DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
+    DEFAULT_BUDGET.shrink_to_limit()
+    bsi_dec = check_bsi_stack(cfg4, device, bsi64.N_SHARDS)
+    if bsi_dec["err"]:
+        raise AssertionError(f"decode_block differs from its plain "
+                             f"version on bsig_v: {bsi_dec['err']}")
+    c4_comp_ans, c4_comp = run_cfg4(cfg4, oracle, device, "compressed",
+                                    bsi64.N_SHARDS, profile)
+    if c4_comp_ans != c4_dense_ans:
+        raise AssertionError("config 4: dense and compressed answers "
+                             "differ")
+    for name, n in c4_comp["launches_phase"].items():
+        if n <= 0:
+            raise AssertionError(f"the compressed config-4 run never "
+                                 f"launched {name}")
+    say("bsi64", seconds=time.perf_counter() - t0)
 
     src = "pilosa_tpu_torch/csrc/container_kernels.cu"
     lines = []
-    for name, rec, replaces in (
-            ("decode_block", dec, f"{JAX_KERNELS}:245"),
-            ("fused_row_counts", fus, f"{JAX_KERNELS}:326")):
+    for name, rec, replaces, shape, launches in (
+            ("decode_block", dec, f"{JAX_KERNELS}:245", "ssb_topn_filter",
+             comp_rec["launches"]["decode_block"]),
+            ("fused_row_counts", fus, f"{JAX_KERNELS}:326",
+             "ssb_topn_filter", comp_rec["launches"]["fused_row_counts"]),
+            ("decode_block", bsi_dec, f"{JAX_KERNELS}:245", "bsi64_bsig_v",
+             c4_comp["launches_phase"]["decode_block"])):
         b_ms, b_by = bound(rec)
         lines.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": replaces,
-                      "launches": comp_rec["launches"][name],
+                      "replaces": replaces, "shape": shape,
+                      "launches": launches,
                       "max_abs_err": rec["err"], "ms": rec["ms"],
                       "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ssb": {"dense": dense_rec, "compressed": comp_rec,
-                              "budget_mb": BUDGET_MB}}))
+                              "budget_mb": BUDGET_MB},
+                      "bsi64": {"dense": c4_dense, "compressed": c4_comp,
+                                "budget_mb": BUDGET_MB}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,15 +10,38 @@ groups through parallel/stacked.py; ``stacked=False`` is the per-shard
 branch (the JAX package's ``mesh is None``), evaluating each shard's
 device mirrors in turn.
 
-Calls in this slice: Count, Row/Range, Intersect, Union, Difference, Xor,
-Not, Shift, TopN (filtered and unfiltered, incl. rank-cache answers),
-Rows, MinRow/MaxRow, GroupBy, Options and the writes Set, Clear,
-ClearRow, Store, SetRowAttrs, SetColumnAttrs.  Sum/Min/Max (BSI) raise
-``ExecutionError`` until the BSI slice.  Not carried over: the result
-cache, prepared statements, whole-query programs, the dispatch batcher and
-its grouped multi-call path (a multi-call request runs call by call, with
-every device part fetched once at the end), deadlines, profiling and the
-explain hooks.
+A read request goes through the JAX package's request stages
+(``_execute_stages``), minus its whole-query program: the result cache
+(cache/results.py; off while ``result_cache.limit_bytes`` is 0, as on a
+bare JAX executor) → the prepared-statement cache (executor/prepared.py,
+on when ``stacked``) → parse → translate → the grouped path for a
+multi-call read-only request on the stacked branch, else call by call →
+ONE device-to-host fetch of every pending part → the cache fill.  The
+grouped path batches same-shape Count / Sum / TopN calls into one
+``[B, P]`` params matrix per group and runs each group in chunks through
+the stacked executor's batched reducers (``_run_batched_groups``, which
+the prepared cache replays through too).
+
+Calls: Count, Sum, Min, Max (BSI), Row/Range (incl. BSI conditions),
+Intersect, Union, Difference, Xor, Not, Shift, TopN (filtered and
+unfiltered, incl. rank-cache answers), Rows, MinRow/MaxRow, GroupBy,
+Options and the writes Set, Clear, ClearRow, Store, SetRowAttrs,
+SetColumnAttrs.
+
+Deviations from the JAX module:
+
+* One shard slice covers all shards: there is no over-budget shard
+  schedule yet, and on one GPU a batched launch covers every shard of
+  the request (the JAX module's ``stacked_per_device(n)`` is ``n``).
+* Chunks of a batched group are not padded to a power of two: the
+  padding only lets XLA reuse executables, and answers do not depend on
+  it.  ``batch_chunk_size`` stays the one sizing rule, and a filter-less
+  Sum / TopN group runs as one chunk.
+* The batched groups go to the stacked executor directly; the
+  cross-query dispatch batcher is not ported yet.
+* Not carried over: the whole-query program, the degraded-answer guard
+  of the cache fill, deadlines, stats, profiling, the warm-start corpus
+  recorder and the explain hooks.
 """
 
 from __future__ import annotations
@@ -29,12 +52,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..core import SHARD_WIDTH, VIEW_STANDARD
-from ..ops import bitset
+from ..core import SHARD_WIDTH, SHARD_WORDS, VIEW_STANDARD
+from ..ops import bitset, bsi
 from ..pql import Call, parse
 from ..storage.field import FIELD_TYPE_INT, FIELD_TYPE_BOOL
 from ..storage import time_quantum as tq
-from .plan import PlanCompiler, Resolver
+from .plan import PlanCompiler, Resolver, parametrize
 from .results import (
     FieldRow, GroupCount, Pair, RowIdentifiers, RowResult, ValCount,
     acc_counts, rank_counts,
@@ -48,6 +71,11 @@ WRITE_CALLS = {"Set", "Clear", "ClearRow", "Store", "SetRowAttrs",
 
 class ExecutionError(ValueError):
     pass
+
+
+# TopN args that the batched/prepared fast paths cannot express — calls
+# carrying any of them take the per-call path.
+TOPN_EXTRAS = ("tanimotoThreshold", "attrName", "attrValues")
 
 
 def topn_extras(c: Call):
@@ -73,8 +101,8 @@ def topn_extras(c: Call):
 class _Pending:
     """A dispatched-but-unresolved call result: ``parts`` are the call's
     unfetched device tensors, ``fin`` maps their host copies to the final
-    result.  A multi-call request dispatches every call before the first
-    fetch (``_resolve_pendings``)."""
+    result.  A request dispatches every call before the first fetch
+    (``_resolve_pendings``)."""
 
     __slots__ = ("parts", "fin")
 
@@ -83,15 +111,179 @@ class _Pending:
         self.fin = fin
 
 
+class _PendingGroup:
+    """One pending filling MANY result slots: a batched call group's B
+    results resolve with ONE vectorized ``fin`` instead of B per-call
+    closures.  Place the same instance at every slot in ``call_idxs``;
+    ``fin(hp)`` returns an indexable of per-slot values."""
+
+    __slots__ = ("parts", "pos", "fin", "_vec")
+
+    def __init__(self, parts, call_idxs, fin):
+        self.parts = list(parts)
+        self.pos = {i: b for b, i in enumerate(call_idxs)}
+        self.fin = fin
+        self._vec = None
+
+    @classmethod
+    def counts(cls, parts, call_idxs):
+        """Group of B Counts: per-group [B] vectors summed in one numpy
+        op (shared by the grouped executor and the prepared cache)."""
+        nB = len(call_idxs)
+        return cls(parts, call_idxs,
+                   lambda hp: (np.sum(hp, axis=0).tolist()
+                               if hp else [0] * nB))
+
+
+# A batched group materializes roughly one [B, S, SHARD_WORDS] int32
+# temporary per params slot over its stacked shards (a BSI predicate's 63
+# magnitude-bit slots included), so a group is dispatched in chunks sized
+# to keep those temporaries under BATCH_TEMP_BYTES.  Filtered row-count
+# (TopN) groups additionally materialize one [B, S, rows, W] masked
+# temporary over a dense field: callers pass that rows axis as
+# ``row_weight`` so the budget sees the real per-row footprint.
+BATCH_TEMP_BYTES = 4 << 30
+BATCH_CHUNK_MIN, BATCH_CHUNK_MAX = 8, 32768
+
+
+def batch_chunk_size(P: int, n_shards: int, row_weight: int = 0) -> int:
+    """Pow-2 batch-axis chunk size under the batch-temp workspace — THE
+    sizing formula of the batched groups."""
+    weight = max(1, P, row_weight) * n_shards * SHARD_WORDS * 4
+    chunk = max(BATCH_CHUNK_MIN,
+                min(BATCH_CHUNK_MAX, BATCH_TEMP_BYTES // weight))
+    return 1 << (chunk.bit_length() - 1)
+
+
+def _batch_chunks(params_mat: np.ndarray, n_shards: int,
+                  row_weight: int = 0):
+    """Yield (lo, n, params) covering params_mat[lo:lo+n].  ``n_shards``
+    is the stacked-shard count a launch covers; ``n_shards <= 0`` marks a
+    filter-less group whose device pass is a B-independent broadcast: it
+    dispatches as ONE chunk whatever B (splitting would repeat the full
+    fragment pass per chunk).  ``row_weight``: the rows axis of a
+    [B, S, rows, W] masked temporary (filtered TopN), 0 for the others.
+    Unlike the JAX module, chunks are not padded to a power of two."""
+    B, P = params_mat.shape
+    chunk = max(1, B) if n_shards <= 0 else \
+        batch_chunk_size(P, n_shards, row_weight)
+    for lo in range(0, B, chunk):
+        sub = params_mat[lo: lo + chunk]
+        yield lo, sub.shape[0], sub
+
+
+def _run_batched_groups(stacked, holder, index, shards, groups, results):
+    """Dispatch batched call groups chunk-wise and fill ``results``.
+
+    ``groups``: iterable of (kind, slotted, params_mat, call_idxs, extra);
+    extra carries kind-specific fields — sum: field/view/base, topn:
+    field/view/ids_n with one (ids, n) pair per call.  Shared by the
+    grouped path and the prepared-statement cache so the chunking policy
+    lives in exactly one place.  Every chunk of every group is dispatched
+    before any result is fetched."""
+    from ..parallel.stacked import field_rows
+    groups = list(groups)
+    if not groups:
+        return
+    per_dev = max(1, len(shards))   # one device: every shard a launch
+
+    def _n_split(kind, slotted):
+        # count plans always gather per-row temps; sum/topn without a
+        # filter broadcast one pass — single chunk (see _batch_chunks)
+        return per_dev if (kind == "count" or slotted is not None) else 0
+
+    def _row_weight(kind, slotted, extra):
+        if kind != "topn" or slotted is None:
+            return 0
+        return field_rows(holder, index, extra["field"], extra["view"])
+
+    for gi, (kind, slotted, params_mat, call_idxs, extra) \
+            in enumerate(groups):
+        for lo, n_c, sub in _batch_chunks(
+                params_mat, _n_split(kind, slotted),
+                _row_weight(kind, slotted, extra)):
+            stacked.batch_chunks += 1
+            if kind == "count":
+                parts = stacked.count_batch_async(
+                    slotted, sub, holder, index, shards)
+                grp = _PendingGroup.counts(parts, call_idxs[lo: lo + n_c])
+                for i in call_idxs[lo: lo + n_c]:
+                    results[i] = grp
+            elif kind == "sum":
+                parts = stacked.bsi_sum_batch_async(
+                    extra["field"], extra["view"], slotted, sub, holder,
+                    index, shards)
+                for b in range(n_c):
+                    results[call_idxs[lo + b]] = _Pending(
+                        parts, lambda hp, b=b, base=extra["base"]:
+                        _sum_fin(hp, b, base))
+            else:  # topn
+                parts = stacked.row_counts_batch_async(
+                    extra["field"], extra["view"], slotted, sub, holder,
+                    index, shards)
+                for b in range(n_c):
+                    ids, n = extra["ids_n"][lo + b]
+                    results[call_idxs[lo + b]] = _Pending(
+                        parts, lambda hp, b=b, ids=ids, n=n:
+                        rank_counts(stacked.merge_counts(
+                            [p[b] for p in hp]), n or None, ids))
+
+
+def _sum_fin(hp, b, base):
+    """ValCount of batch row ``b`` from a Sum group's fetched parts."""
+    total, cnt = 0, 0
+    for p in hp:
+        s, c_ = bsi.weighted_sum(p[b])
+        total += s
+        cnt += c_
+    return ValCount(total + cnt * base, cnt)
+
+
 def _host(t) -> np.ndarray:
     return t.detach().to("cpu").numpy() if isinstance(t, torch.Tensor) \
         else np.asarray(t)
 
 
+def _fetch(parts) -> list[np.ndarray]:
+    """Host copies of device tensors (int64 counts of any shape) in ONE
+    device-to-host transfer: flattened, concatenated, copied, split."""
+    if not parts:
+        return []
+    flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
+    host = flat.cpu().numpy()
+    out, at = [], 0
+    for p in parts:
+        n = p.numel()
+        out.append(host[at: at + n].reshape(tuple(p.shape)))
+        at += n
+    return out
+
+
 def _resolve_pendings(results):
-    """Fetch every pending's parts to the host and finalize."""
-    return [r.fin([_host(p) for p in r.parts])
-            if isinstance(r, _Pending) else r for r in results]
+    """Resolve all pending results with a single device->host fetch.
+    Parts shared between pendings (batched call groups) fetch once."""
+    unique: dict[int, Any] = {}
+    for r in results:
+        if isinstance(r, (_Pending, _PendingGroup)):
+            for p in r.parts:
+                unique.setdefault(id(p), p)
+    tensors = {k: p for k, p in unique.items()
+               if isinstance(p, torch.Tensor)}
+    host = dict(zip(tensors, _fetch(list(tensors.values()))))
+    for k, p in unique.items():
+        if k not in host:
+            host[k] = np.asarray(p)
+    out = []
+    for i, r in enumerate(results):
+        if isinstance(r, _Pending):
+            out.append(r.fin([host[id(p)] for p in r.parts]))
+        elif isinstance(r, _PendingGroup):
+            if r._vec is None:
+                r._vec = r.fin([host[id(p)] for p in r.parts])
+            out.append(r._vec[r.pos[i]])
+        else:
+            out.append(r)
+    return out
 
 
 def resolve_device(device) -> torch.device:
@@ -116,10 +308,17 @@ class Executor:
         self.compiler = PlanCompiler(self.device)
         from .translator import Translator
         self.translator = Translator(holder)
+        # Generation-keyed result cache (cache/results.py), disabled
+        # (limit 0) until the caller sets ``result_cache.limit_bytes``.
+        from ..cache.results import ResultCache
+        self.result_cache = ResultCache()
         self.stacked = None
+        self.prepared = None
         if stacked:
             from ..parallel.stacked import StackedExecutor
+            from .prepared import PreparedCache
             self.stacked = StackedExecutor(self.device)
+            self.prepared = PreparedCache(self)
 
     def close(self):
         if self.stacked is not None:
@@ -132,8 +331,40 @@ class Executor:
         """Run a PQL request (text or parsed) and return one result per
         call.  ``translate=False`` skips key translation (already
         translated requests, executor.go:147)."""
+        # Result-cache lookup first (before the parse): the key holds the
+        # query text (an AST keys on its repr), the shard set and the
+        # index's fragment generation vector, so any mutation misses.
+        qkey = ckey = None
+        cache = self.result_cache
+        if cache.limit_bytes > 0:
+            idx0 = self.holder.index(index_name)
+            if idx0 is not None:
+                if shards is None:
+                    shards = sorted(idx0.available_shards())
+                from ..cache.results import gen_vector
+                from ..core import attr_epoch, schema_epoch
+                qrepr = query if isinstance(query, str) else repr(query)
+                qkey = ("local", index_name, qrepr, tuple(shards),
+                        bool(translate))
+                ckey = qkey + (gen_vector(self.holder, index_name,
+                                          set(shards)),
+                               schema_epoch(), attr_epoch())
+                out = cache.lookup(ckey)
+                if out is not None:
+                    return out
         if isinstance(query, str):
-            query = parse(query)
+            if translate and self.prepared is not None:
+                hit, out = self.prepared.attempt(index_name, query, shards)
+                if hit:
+                    # prepared entries exist only for Count/Sum/TopN
+                    # templates: read-only by construction
+                    if ckey is not None:
+                        cache.fill(qkey, ckey, out)
+                    return out
+                if out is not None:
+                    query = out  # the parsed (tagged) AST
+            if isinstance(query, str):
+                query = parse(query)
         idx = self.holder.index(index_name)
         if idx is None:
             raise ExecutionError(f"index not found: {index_name}")
@@ -141,12 +372,102 @@ class Executor:
             query = self.translator.translate_query(index_name, query)
         if shards is None:
             shards = sorted(idx.available_shards())
-        results = [self._execute_call(index_name, c, shards)
-                   for c in query.calls]
+        # Grouping reorders dispatch, which is only sound when no call
+        # mutates state a later call could read: mixed write/read
+        # requests run strictly in order, as in the reference.
+        read_only = not any(c.name in WRITE_CALLS for c in query.calls)
+        if self.stacked is not None and len(query.calls) > 1 and read_only:
+            results = self._execute_calls_grouped(index_name, query.calls,
+                                                  shards)
+        else:
+            results = [self._execute_call(index_name, c, shards)
+                       for c in query.calls]
         results = _resolve_pendings(results)
         if translate and self.translator.needs_translation(index_name):
             results = self.translator.translate_results(
                 index_name, query.calls, results)
+        if ckey is not None:
+            from ..cache.results import query_is_readonly
+            if query_is_readonly(query):
+                cache.fill(qkey, ckey, results)
+        return results
+
+    # -- batched multi-call execution --------------------------------------
+
+    _EMPTY_PARAMS = np.zeros(0, dtype=np.int32)
+
+    def _batch_desc(self, index: str, c: Call):
+        """(group_key, desc) for calls that can batch into one group with
+        per-call params rows; None for everything else."""
+        if c.name == "Count" and len(c.children) == 1:
+            slotted, params = parametrize(self._resolve(index,
+                                                        c.children[0]))
+            return (("count", repr(slotted)),
+                    {"kind": "count", "slotted": slotted, "params": params})
+        if c.name == "Sum":
+            f = self._bsi_field(index, c)
+            fp = self._filter_plan(index, c)
+            slotted, params = (None, self._EMPTY_PARAMS) if fp is None \
+                else parametrize(fp)
+            return (("sum", f.name, repr(slotted)),
+                    {"kind": "sum", "slotted": slotted, "params": params,
+                     "field": f.name, "view": f.bsi_view_name(),
+                     "base": f.options.base})
+        if c.name == "TopN":
+            if any(k in c.args for k in TOPN_EXTRAS):
+                return None  # extras need extra passes: per-call path
+            field_name, ok = c.string_arg("_field")
+            if not ok or self.holder.field(index, field_name) is None:
+                return None  # per-call path raises the proper error
+            fp = self._filter_plan(index, c)
+            slotted, params = (None, self._EMPTY_PARAMS) if fp is None \
+                else parametrize(fp)
+            n, _ = c.uint_arg("n")
+            return (("topn", field_name, repr(slotted)),
+                    {"kind": "topn", "slotted": slotted, "params": params,
+                     "field": field_name, "ids": c.args.get("ids"), "n": n})
+        return None
+
+    def _execute_calls_grouped(self, index: str, calls, shards):
+        """Group same-shape Count/TopN/Sum calls and execute each group as
+        ONE batched device computation over stacked params — the
+        worker-pool equivalent for a multi-call request
+        (executor.go:80-110).  Singletons and other calls run one by
+        one."""
+        descs: list = [None] * len(calls)
+        groups: dict[tuple, list[int]] = {}
+        for i, c in enumerate(calls):
+            kd = self._batch_desc(index, c)
+            if kd is not None:
+                key, d = kd
+                descs[i] = d
+                groups.setdefault(key, []).append(i)
+
+        results: list = [None] * len(calls)
+        batched: set[int] = set()
+        to_run = []
+        for key, idxs in groups.items():
+            if len(idxs) < 2:
+                continue
+            ds = [descs[i] for i in idxs]
+            kind = ds[0]["kind"]
+            params_mat = np.stack([d["params"] for d in ds])
+            if kind == "sum":
+                extra = {"field": ds[0]["field"], "view": ds[0]["view"],
+                         "base": ds[0]["base"]}
+            elif kind == "topn":
+                extra = {"field": ds[0]["field"], "view": VIEW_STANDARD,
+                         "ids_n": [(d["ids"], d["n"]) for d in ds]}
+            else:
+                extra = None
+            to_run.append((kind, ds[0]["slotted"], params_mat, idxs, extra))
+            batched.update(idxs)
+        _run_batched_groups(self.stacked, self.holder, index, shards,
+                            to_run, results)
+
+        for i, c in enumerate(calls):
+            if i not in batched:
+                results[i] = self._execute_call(index, c, shards)
         return results
 
     # -- dispatch (executor.go:274 executeCall) ----------------------------
@@ -155,9 +476,10 @@ class Executor:
         name = c.name
         if name == "Count":
             return self._execute_count(index, c, shards)
-        if name in ("Sum", "Min", "Max"):
-            raise ExecutionError(
-                f"{name}() (BSI) is not in this slice of the port")
+        if name == "Sum":
+            return self._execute_sum(index, c, shards)
+        if name in ("Min", "Max"):
+            return self._execute_min_max(index, c, shards, name == "Max")
         if name in ("MinRow", "MaxRow"):
             return self._execute_min_max_row(index, c, shards,
                                              name == "MaxRow")
@@ -233,8 +555,23 @@ class Executor:
                                         reducer="count")
             for shard in shards)
 
+    def _bsi_field(self, index: str, c: Call):
+        field_name, _ = c.string_arg("field")
+        if not field_name:
+            fa = c.field_arg()
+            if fa is None:
+                raise ExecutionError("field required")
+            field_name = fa[0]
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        if f.options.type != FIELD_TYPE_INT:
+            raise ExecutionError(f"field {field_name!r} is not an int field")
+        return f
+
     def _filter_segments(self, index: str, c: Call, shards):
-        """Evaluate the optional filter child of TopN (per-shard path)."""
+        """Evaluate the optional filter child of Sum/Min/Max/TopN
+        (per-shard path)."""
         if not c.children:
             return None
         plan = self._resolve(index, c.children[0])
@@ -246,6 +583,67 @@ class Executor:
         if not c.children:
             return None
         return self._resolve(index, c.children[0])
+
+    def _execute_sum(self, index: str, c: Call, shards):
+        """(executor.go:406 executeSum + fragment.go:1111 sum)"""
+        f = self._bsi_field(index, c)
+        view = f.bsi_view_name()
+        base = f.options.base
+        if self.stacked is not None:
+            parts = self.stacked.bsi_sum_async(
+                f.name, view, self._filter_plan(index, c), self.holder,
+                index, shards)
+
+            def _fin(hp):
+                total, n = 0, 0
+                for p in hp:
+                    s, cnt = bsi.weighted_sum(p)
+                    total += s
+                    n += cnt
+                return ValCount(total + n * base, n)
+
+            return _Pending(parts, _fin)
+        filters = self._filter_segments(index, c, shards)
+        total, n = 0, 0
+        for shard in shards:
+            frag = self.holder.fragment(index, f.name, view, shard)
+            if frag is None or frag.n_rows < bsi.OFFSET_ROW + 1:
+                continue
+            filt = None if filters is None else filters.get(shard)
+            counts = _host(bsi.sum_counts(frag.device(self.device), filt))
+            s, cnt = bsi.weighted_sum(counts)
+            total += s
+            n += cnt
+        # values are stored base-offset: add base per set column
+        # (field.go:1138 Sum: sum + count*base)
+        return ValCount(total + n * base, n)
+
+    def _execute_min_max(self, index: str, c: Call, shards,
+                         want_max: bool) -> ValCount:
+        """(executor.go:437 executeMin/:472 executeMax)"""
+        f = self._bsi_field(index, c)
+        view = f.bsi_view_name()
+        acc = ValCount()
+        if self.stacked is not None:
+            per_shard = self.stacked.bsi_min_max(
+                f.name, view, self._filter_plan(index, c), self.holder,
+                index, shards, want_max=want_max)
+        else:
+            filters = self._filter_segments(index, c, shards)
+            per_shard = []
+            for shard in shards:
+                frag = self.holder.fragment(index, f.name, view, shard)
+                if frag is None or frag.n_rows < bsi.OFFSET_ROW + 1:
+                    continue
+                filt = None if filters is None else filters.get(shard)
+                bits, neg, cnt = (_host(x) for x in bsi.min_max_bits(
+                    frag.device(self.device), filt, want_max=want_max))
+                per_shard.append(bsi.reconstruct_min_max(bits, int(neg),
+                                                         int(cnt)))
+        for val, cnt in per_shard:
+            vc = ValCount(val + f.options.base if cnt else 0, cnt)
+            acc = acc.larger(vc) if want_max else acc.smaller(vc)
+        return acc
 
     def _execute_min_max_row(self, index: str, c: Call, shards,
                              want_max: bool) -> ValCount:

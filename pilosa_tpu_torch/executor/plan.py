@@ -13,8 +13,17 @@ with its row ids read from the host params vector.
 ``eval_plan`` works on any leading batch axes: the per-shard path hands
 it ``[rows, W]`` fragments, the stacked executor ``[S, rows, W]`` stacks,
 and every node evaluates to ``lead + (W,)``.  BSI predicates
-(``BSIPlan``) resolve as in the JAX package but evaluating them waits for
-the BSI slice of the port: ``eval_plan`` raises ``PlanError`` on them.
+(``BSIPlan``) evaluate through ``ops/bsi.py``: literal ones through
+``range_op`` / ``range_between``, slotted ones through the ``_dyn`` forms
+with their magnitude bits read from the params.
+
+The batched form replaces the JAX package's ``jax.vmap`` of
+``eval_plan`` over the rows of a ``[B, P]`` params matrix
+(mesh_exec.py ``count_batch_async``): given that matrix, a row id read
+from a param slot gathers ``[B] + lead + (W,)`` rows at once (an id at
+or past the fragment's row count reads as an empty row for that b only),
+BSI magnitude bits come from ``[B, 63]`` columns, and the result is
+``[B] + lead + (W,)``.
 """
 
 from __future__ import annotations
@@ -440,6 +449,32 @@ def plan_inputs(plan) -> list[tuple[str, str]]:
     return out
 
 
+def params_to(params: np.ndarray, device) -> torch.Tensor:
+    """Host params (row ids, predicate bits) -> int32 tensor on
+    ``device``.  On a CUDA device the copy goes from pinned memory without
+    blocking the host, so reading params never waits for the card's
+    queue to drain."""
+    t = torch.from_numpy(np.ascontiguousarray(params, dtype=np.int32))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _gather_rows(frag: torch.Tensor, rids: np.ndarray):
+    """Rows ``rids`` ``[B]`` of ``frag`` (``lead + (rows, W)``) as
+    ``[B] + lead + (W,)``; an id outside ``[0, rows)`` reads as an empty
+    row for its b only.  None when every id is outside."""
+    ok = (rids >= 0) & (rids < frag.shape[-2])
+    if not ok.any():
+        return None
+    g = frag.movedim(-2, 0)[params_to(np.where(ok, rids, 0), frag.device)
+                            .long()]
+    if not ok.all():
+        g[params_to(np.flatnonzero(~ok), frag.device).long()] = 0
+    return g
+
+
 def eval_plan(plan, frags: dict[tuple[str, str], Any], params=None, *,
               lead: tuple = (), device=None) -> torch.Tensor:
     """Evaluate a plan over fragment tensors.  ``frags`` maps (field, view)
@@ -449,7 +484,11 @@ def eval_plan(plan, frags: dict[tuple[str, str], Any], params=None, *,
 
     Literal plans carry their row ids; slotted plans (``parametrize``)
     read them from the host ``params`` vector.  A row id at or past a
-    fragment's row count reads as an empty row, as in the JAX module."""
+    fragment's row count reads as an empty row, as in the JAX module.
+    With a ``[B, P]`` params matrix the plan is evaluated for each of its
+    B rows at once and the result is ``[B] + lead + (W,)``."""
+    batched = params is not None and np.ndim(params) == 2
+    dev_params: dict = {}
 
     def zero():
         return torch.zeros(lead + (SHARD_WORDS,), dtype=torch.int32,
@@ -459,11 +498,19 @@ def eval_plan(plan, frags: dict[tuple[str, str], Any], params=None, *,
         frag = frags.get((field, view))
         if frag is None:
             return None
+        if isinstance(row_id, Slot) and batched:
+            return _gather_rows(frag, params[:, row_id.idx])
         rid = int(params[row_id.idx]) if isinstance(row_id, Slot) \
             else int(row_id)
         if rid < 0 or rid >= frag.shape[-2]:
             return None
         return frag[..., rid, :]
+
+    def mag_bits(slot: Slot, dev):
+        # the params go to the device once per evaluation
+        if dev not in dev_params:
+            dev_params[dev] = params_to(params, dev)
+        return dev_params[dev][..., slot.idx:slot.idx + slot.width]
 
     def ev(p):
         if isinstance(p, ConstPlan):
@@ -477,8 +524,21 @@ def eval_plan(plan, frags: dict[tuple[str, str], Any], params=None, *,
                 return segs[0]
             return bitset.union_many(torch.stack(segs))
         if isinstance(p, BSIPlan):
-            raise PlanError(
-                "BSI range predicates are not in this slice of the port")
+            frag = frags.get((p.field, p.view))
+            if frag is None or p.op == "empty":
+                return zero()
+            if p.op == "notnull":
+                return bsi.not_null(frag)
+            if isinstance(p.value, Slot):
+                if p.op == "between":
+                    return bsi.range_between_dyn(
+                        frag, p.value.sign, mag_bits(p.value, frag.device),
+                        p.value2.sign, mag_bits(p.value2, frag.device))
+                return bsi.range_op_dyn(frag, p.op, p.value.sign,
+                                        mag_bits(p.value, frag.device))
+            if p.op == "between":
+                return bsi.range_between(frag, p.value, p.value2)
+            return bsi.range_op(frag, p.op, p.value)
         if isinstance(p, NotPlan):
             ex = ev(p.existence)
             return bitset.difference(ex, ev(p.child))
@@ -501,7 +561,11 @@ def eval_plan(plan, frags: dict[tuple[str, str], Any], params=None, *,
             return acc
         raise PlanError(f"unknown plan node: {p!r}")
 
-    return ev(plan)
+    out = ev(plan)
+    if batched and out.dim() == len(lead) + 1:
+        # no node read a param slot: one result serves every b
+        out = out.expand((params.shape[0],) + tuple(out.shape))
+    return out
 
 
 class PlanCompiler:

@@ -248,7 +248,7 @@ def tiles_of(rows: int, words: int) -> int:
     return -(-rows * words // CONTAINER_WORDS)
 
 
-def stack_packed(packs, tiles: int, device="cpu") -> PackedStack:
+def stack_packed(packs, tiles: int, device) -> PackedStack:
     """Lay packed streams (``Packed``, or any object with its five table
     fields, padded or not) end to end into one PackedStack of
     ``len(packs)`` shards on ``device``, built on the host.

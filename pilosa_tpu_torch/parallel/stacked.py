@@ -21,8 +21,20 @@ Stacks are cached against the fragments' data generations and charged to
 the device budget (``_placed_groups``).
 
 Reducers: ``count_async`` (Count), ``segments`` (bitmap calls),
-``row_counts_async`` (TopN, Rows, MinRow/MaxRow) and
-``group_counts_batch_async`` (the GroupBy inner loop).
+``row_counts_async`` (TopN, Rows, MinRow/MaxRow),
+``group_counts_batch_async`` (the GroupBy inner loop), ``bsi_sum_async``
+and ``bsi_min_max`` (Sum, Min, Max), and the batched reducers of the
+executor's grouped multi-call path and prepared statements —
+``count_batch_async``, ``row_counts_batch_async`` and
+``bsi_sum_batch_async`` — which evaluate B same-shape calls over one
+``[B, P]`` params matrix (the JAX package's ``vmap`` over its rows is
+the batched ``eval_plan``).  A packed BSI entry is decoded through
+``_Frags`` (the ``decode_block`` kernel).  A filtered batched row count
+over a packed field calls ``fused_row_counts`` once per filter row of
+the chunk over the whole ragged stack: the same counts as the JAX
+module's decode + masked popcount, without a ``[B, S, rows, W]``
+temporary.  A filter-less batched group computes once and broadcasts
+over B.
 
 Deviations from the JAX module, by design:
 
@@ -36,10 +48,12 @@ Deviations from the JAX module, by design:
   empty.
 * Every compressed entry takes the fused kernel: the TPU's ``fits_vmem``
   rule does not apply on the card (ops/kernels.py).
+* One device, no shard schedule: every reducer runs over all of its
+  shards at once, and the batched reducers are called by the executor
+  directly — there is no cross-query dispatch batcher yet.
 * Not in this slice: the over-budget shard schedule that streams slices
-  with a background prefetch, the batched ``[B, params]`` reducers behind
-  the dispatch batcher, the BSI reducers, the ingest overlay refresh of
-  cached stacks, and the multi-process mesh paths.
+  with a background prefetch, the dispatch batcher, the ingest overlay
+  refresh of cached stacks, and the multi-process mesh paths.
 """
 
 from __future__ import annotations
@@ -52,7 +66,7 @@ import torch
 
 from ..core import SHARD_WORDS
 from ..executor.plan import eval_plan, parametrize, plan_inputs
-from ..ops import bitset, containers, kernels
+from ..ops import bitset, bsi, containers, kernels
 from ..storage.membudget import DEFAULT_BUDGET
 from ..utils.locks import make_lock
 
@@ -92,6 +106,25 @@ def _fused_entry(present, key):
     return None
 
 
+def _sig_rows(shape) -> int:
+    """Row count of a group-signature entry: dense entries are (rows,
+    words), compressed ones ('z', rows, backend)."""
+    return shape[1] if shape[0] == "z" else shape[0]
+
+
+def field_rows(holder, index: str, field: str, view: str) -> int:
+    """Max fragment row count for (field, view) — the ``rows`` axis of a
+    batched row count's ``[B, S, rows, W]`` masked temporary, which the
+    batch-chunk sizing must see (executor.batch_chunk_size).  0 when the
+    view holds no fragments."""
+    idx = holder.index(index)
+    f = idx.field(field) if idx is not None else None
+    v = f.view(view) if f is not None else None
+    if v is None:
+        return 0
+    return max((fr.n_rows for fr in v.fragments.values()), default=0)
+
+
 class StackedExecutor:
     """Executes resolved plans over stacked shard groups on one device."""
 
@@ -111,6 +144,8 @@ class StackedExecutor:
         self._sc_lock = make_lock("stack-cache")
         # row-count groups answered through the fused_row_counts entry
         self.fused_calls = 0
+        # batched chunks dispatched (executor._run_batched_groups)
+        self.batch_chunks = 0
         self._finalizer = weakref.finalize(
             self, StackedExecutor._cleanup_budget, self._budget, id(self),
             self._stack_cache)
@@ -418,4 +453,123 @@ class StackedExecutor:
                 counts[ci] = bitset.row_counts(masked).sum(
                     dim=0, dtype=torch.int64)
             parts.append(counts)
+        return parts
+
+    # -- BSI aggregations (fragment.go:1111 sum, :1147 min/max) ------------
+
+    def _bsi_groups(self, field: str, view: str, filter_plan, params,
+                    holder, index, shards):
+        """Yield (n_shards, bsi stack [S, rows, W], filter) per signature
+        group holding the BSI fragment at full BSI depth; the filter is
+        the plan's result (``[S, W]``, or ``[B, S, W]`` for a ``[B, P]``
+        params matrix) or None."""
+        keys = self.batch_keys((field, view), filter_plan)
+        for shard_list, placed, sig in self._placed_groups(
+                keys, holder, index, shards):
+            if sig[0] is None or _sig_rows(sig[0]) < bsi.OFFSET_ROW + 1:
+                continue
+            frags = _Frags(self._present(keys, placed, sig))
+            filt = None
+            if filter_plan is not None:
+                filt = eval_plan(filter_plan, frags, params,
+                                 lead=(len(shard_list),), device=self.device)
+            yield len(shard_list), frags.get(keys[0]), filt
+
+    def bsi_sum_async(self, field: str, view: str, filter_plan, holder,
+                      index, shards) -> list:
+        """The per-slice popcounts of Sum: unfetched int64 ``[2, depth+1]``
+        device matrices, one per signature group; combine with
+        ``bsi.weighted_sum`` per part and add."""
+        fplan, params = self._slotted(filter_plan)
+        return [bsi.sum_counts(frag, filt).sum(dim=0, dtype=torch.int64)
+                for _, frag, filt in self._bsi_groups(
+                    field, view, fplan, params, holder, index, shards)]
+
+    def bsi_min_max(self, field: str, view: str, filter_plan, holder,
+                    index, shards, want_max: bool) -> list:
+        """Per-shard extremum bits narrowed on the device and fetched to
+        the host: a list of (value, count) per shard."""
+        fplan, params = self._slotted(filter_plan)
+        out = []
+        for n, frag, filt in self._bsi_groups(field, view, fplan, params,
+                                              holder, index, shards):
+            bits, neg, cnt = (x.cpu().numpy() for x in bsi.min_max_bits(
+                frag, filt, want_max=want_max))
+            out.extend(bsi.reconstruct_min_max(bits[i], int(neg[i]),
+                                               int(cnt[i]))
+                       for i in range(n))
+        return out
+
+    # -- batched variants: B same-shape calls over one [B, P] params -------
+    # A multi-call request's same-shape calls (64 distinct Sums, say)
+    # evaluate as one chain of launches over the matrix's B rows.
+
+    def count_batch_async(self, slotted, params_mat, holder, index,
+                          shards) -> list:
+        """B counts that share one plan shape; parts are int64 [B]."""
+        keys = plan_inputs(slotted)
+        parts = []
+        for shard_list, placed, sig in self._placed_groups(
+                keys, holder, index, shards):
+            if all(s is None for s in sig):
+                continue
+            frags = _Frags(self._present(keys, placed, sig))
+            segs = eval_plan(slotted, frags, params_mat,
+                             lead=(len(shard_list),), device=self.device)
+            parts.append(bitset.popcount_words(segs).sum(
+                dim=(-2, -1), dtype=torch.int64))           # [B]
+        return parts
+
+    def row_counts_batch_async(self, field: str, view: str, slotted_filter,
+                               params_mat, holder, index, shards) -> list:
+        """B row-count passes sharing one filter shape; parts are int64
+        [B, rows]."""
+        keys = self.batch_keys((field, view), slotted_filter)
+        B = params_mat.shape[0]
+        parts = []
+        for shard_list, placed, sig in self._placed_groups(
+                keys, holder, index, shards):
+            if sig[0] is None:
+                continue
+            present = self._present(keys, placed, sig)
+            frags = _Frags(present)
+            fused = _fused_entry(present, keys[0])
+            masks = None
+            if slotted_filter is not None:
+                masks = eval_plan(slotted_filter, frags, params_mat,
+                                  lead=(len(shard_list),),
+                                  device=self.device)        # [B, S, W]
+            if fused is not None:
+                packed, fs = fused
+                self.fused_calls += 1
+                filts = [None] if masks is None else \
+                    [masks[b].contiguous() for b in range(B)]
+                counts = torch.stack([kernels.fused_row_counts(
+                    *packed, f, rows=fs[1], words=SHARD_WORDS).sum(
+                        dim=0, dtype=torch.int64) for f in filts])
+            else:
+                frag = frags.get(keys[0])                    # [S, rows, W]
+                masked = frag[None] if masks is None \
+                    else frag[None] & masks[:, :, None, :]
+                counts = bitset.row_counts(masked).sum(
+                    dim=1, dtype=torch.int64)                # [B|1, rows]
+            # a filter-less group computes once and broadcasts over B
+            parts.append(counts.expand(B, -1))
+        return parts
+
+    def bsi_sum_batch_async(self, field: str, view: str, slotted_filter,
+                            params_mat, holder, index, shards) -> list:
+        """B BSI sums sharing one filter shape; parts are int64
+        [B, 2, depth+1]."""
+        B = params_mat.shape[0]
+        parts = []
+        for _, frag, filt in self._bsi_groups(
+                field, view, slotted_filter, params_mat, holder, index,
+                shards):
+            counts = bsi.sum_counts(frag, filt)      # [B|-, S, 2, depth+1]
+            if filt is None:
+                parts.append(counts.sum(dim=0, dtype=torch.int64)
+                             .expand((B,) + tuple(counts.shape[1:])))
+            else:
+                parts.append(counts.sum(dim=1, dtype=torch.int64))
         return parts

@@ -1,6 +1,8 @@
 """Differential tests: the PyTorch port's dense bitset ops
-(pilosa_tpu_torch/ops/bitset.py) against the JAX package's
-(pilosa_tpu/ops/bitset.py) on the same numpy inputs.
+(pilosa_tpu_torch/ops/bitset.py) and BSI ops (ops/bsi.py) against the
+JAX package's (pilosa_tpu/ops/bitset.py, ops/bsi.py) on the same numpy
+inputs.  The BSI cases are those of tests/test_bsi.py, plus the
+``_dyn`` forms over a batch axis of predicates.
 
 Every comparison is EXACT (np.array_equal / integer equality): words and
 counts are integers, so there is no tolerance to state.  Inputs are made
@@ -16,7 +18,9 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from pilosa_tpu.ops import bitset as jb  # noqa: E402
+from pilosa_tpu.ops import bsi as jbsi  # noqa: E402
 from pilosa_tpu_torch.ops import bitset as tb  # noqa: E402
+from pilosa_tpu_torch.ops import bsi as tbsi  # noqa: E402
 
 W = 256  # words per segment: small, but every op is width-generic
 
@@ -154,3 +158,183 @@ def test_numpy_pack_helpers_match(rng):
     w, bit = tb.word_bit_np(cols)
     w2, bit2 = jb.word_bit_np(cols)
     assert np.array_equal(w, w2) and np.array_equal(bit, bit2)
+
+
+# -- BSI (tests/test_bsi.py's cases) ------------------------------------------
+
+DEPTH = 16
+BSI_OPS = {
+    "eq": lambda v, p: v == p,
+    "neq": lambda v, p: v != p,
+    "lt": lambda v, p: v < p,
+    "le": lambda v, p: v <= p,
+    "gt": lambda v, p: v > p,
+    "ge": lambda v, p: v >= p,
+}
+PREDS = [-70000, -4999, -123, -1, 0, 1, 57, 4999, 70000]
+
+
+def _bsi_make(rng, n=300, lo=-5000, hi=5000, depth=DEPTH):
+    cols = np.unique(rng.integers(0, W * 32, size=n))
+    vals = rng.integers(lo, hi, size=cols.size)
+    return cols, vals, jbsi.pack_values(cols, vals, depth=depth, words=W)
+
+
+def _mag_bits(v: int) -> np.ndarray:
+    return np.asarray([(abs(v) >> i) & 1 for i in range(tbsi.MAG_BITS)],
+                      dtype=np.int32)
+
+
+def _sign(v: int) -> str:
+    return "zero" if v == 0 else ("pos" if v > 0 else "neg")
+
+
+def _cols(seg) -> set:
+    return set(tb.unpack_columns(np.asarray(seg)).tolist())
+
+
+def test_bsi_pack_values_match(rng):
+    cols, vals, frag = _bsi_make(rng)
+    assert np.array_equal(tbsi.pack_values(cols, vals, DEPTH, W), frag)
+    for x, y in zip(tbsi.unpack_values(frag), jbsi.unpack_values(frag)):
+        assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("op", list(BSI_OPS))
+@pytest.mark.parametrize("pred", PREDS)
+def test_bsi_range_op_matches_jax(rng, op, pred):
+    """range_op and range_op_dyn (one predicate) against the JAX ops and
+    the dict oracle."""
+    cols, vals, frag = _bsi_make(rng)
+    want = _np(jbsi.range_op(frag, op, pred))
+    _eq(want, tbsi.range_op(_t(frag), op, pred))
+    _eq(jbsi.range_op_dyn(frag, op, _sign(pred), jnp.asarray(_mag_bits(pred))),
+        tbsi.range_op_dyn(_t(frag), op, _sign(pred),
+                          torch.as_tensor(_mag_bits(pred))))
+    assert _cols(want) == {int(c) for c, v in zip(cols, vals)
+                           if BSI_OPS[op](v, pred)}
+
+
+def test_bsi_range_op_zero_with_negative_zero_sign():
+    # A column whose magnitude is 0 but sign bit is set still holds value 0.
+    frag = np.zeros((2 + 4, W), dtype=np.uint32)
+    frag[tbsi.EXISTS_ROW, 0] = 0b1
+    frag[tbsi.SIGN_ROW, 0] = 0b1
+    for op, pred, want in (("eq", 0, {0}), ("lt", 0, set()),
+                           ("gt", -1, {0})):
+        got = tbsi.range_op(_t(frag), op, pred)
+        assert _cols(tb.to_numpy(got)) == want
+        _eq(jbsi.range_op(frag, op, pred), got)
+        _eq(jbsi.range_op(frag, op, pred),
+            tbsi.range_op_dyn(_t(frag), op, _sign(pred),
+                              torch.as_tensor(_mag_bits(pred))))
+
+
+def test_bsi_range_between(rng):
+    cols, vals, frag = _bsi_make(rng)
+    for lo, hi in ((-100, 250), (-4000, -5), (7, 7), (6000, 9000)):
+        want = _np(jbsi.range_between(frag, lo, hi))
+        _eq(want, tbsi.range_between(_t(frag), lo, hi))
+        _eq(want, tbsi.range_between_dyn(
+            _t(frag), _sign(lo), torch.as_tensor(_mag_bits(lo)),
+            _sign(hi), torch.as_tensor(_mag_bits(hi))))
+        assert _cols(want) == {int(c) for c, v in zip(cols, vals)
+                               if lo <= v <= hi}
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_bsi_sum_matches_jax(rng, filtered):
+    cols, vals, frag = _bsi_make(rng)
+    keep = cols[: cols.size // 2] if filtered else cols
+    filt = jb.pack_columns(keep, words=W) if filtered else None
+    want = _np(jbsi.sum_counts(frag, filt))
+    got = tbsi.sum_counts(_t(frag), None if filt is None else _t(filt))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    s, n = tbsi.weighted_sum(got.numpy())
+    assert (s, n) == jbsi.weighted_sum(want)
+    assert (s, n) == (int(vals[: keep.size].sum()), keep.size)
+
+
+def _min_max_both(frag, filt, want_max):
+    want = jbsi.reconstruct_min_max(*[np.asarray(x) for x in
+                                      jbsi.min_max_bits(frag, filt,
+                                                        want_max=want_max)])
+    out = tbsi.min_max_bits(_t(frag), None if filt is None else _t(filt),
+                            want_max=want_max)
+    got = tbsi.reconstruct_min_max(*[x.numpy() for x in out])
+    assert got == want
+    return got
+
+
+@pytest.mark.parametrize("want_max", [False, True])
+def test_bsi_min_max_matches_jax(rng, want_max):
+    cols, vals, frag = _bsi_make(rng)
+    target = int(vals.max() if want_max else vals.min())
+    assert _min_max_both(frag, None, want_max) == \
+        (target, int((vals == target).sum()))
+    # with a filter
+    cols = np.array([1, 2, 3, 4])
+    frag = jbsi.pack_values(cols, np.array([10, -20, 30, -40]), depth=8,
+                            words=W)
+    filt = jb.pack_columns(np.array([1, 3]), words=W)
+    assert _min_max_both(frag, filt, want_max) == \
+        ((30, 1) if want_max else (10, 1))
+
+
+@pytest.mark.parametrize("case", [
+    [5, 7, 9], [-5, -7, -9], [-5, 0, 5], [0], [-3, -3, 8],
+])
+def test_bsi_min_max_small(case):
+    frag = jbsi.pack_values(np.arange(len(case)), np.array(case), depth=8,
+                            words=W)
+    for want_max in (False, True):
+        target = max(case) if want_max else min(case)
+        assert _min_max_both(frag, None, want_max) == \
+            (target, case.count(target))
+
+
+def test_bsi_min_max_empty_returns_zero_count():
+    frag = np.zeros((2 + 4, W), dtype=np.uint32)
+    assert _min_max_both(frag, None, False) == (0, 0)
+
+
+def test_bsi_dyn_forms_over_a_batch_of_predicates(rng):
+    """The ``_dyn`` forms with a ``[B, 63]`` bit tensor over a ``[S,
+    rows, W]`` stack: each batch row equals its predicate run alone
+    (JAX, per shard) — for one sign per batch, as a slot fixes it —
+    and so do sum_counts under the ``[B, S, W]`` result as a filter and
+    min_max_bits per shard."""
+    S = 3
+    frags = np.stack([_bsi_make(rng)[2] for _ in range(S)])
+    stack = _t(frags)
+    for sign, preds in (("pos", [1, 57, 4999, 70000, 300]),
+                        ("neg", [-1, -123, -4999, -70000])):
+        bits = torch.as_tensor(np.stack([_mag_bits(p) for p in preds]))
+        for op in BSI_OPS:
+            got = tbsi.range_op_dyn(stack, op, sign, bits)
+            assert tuple(got.shape) == (len(preds), S, W)
+            for b, p in enumerate(preds):
+                for s in range(S):
+                    _eq(jbsi.range_op(frags[s], op, p), got[b, s])
+        hi = torch.as_tensor(np.stack([_mag_bits(p + 400)
+                                       for p in preds]))
+        hi_sign = "pos" if sign == "pos" else "neg"
+        btw = tbsi.range_between_dyn(stack, sign, bits, hi_sign, hi)
+        sums = tbsi.sum_counts(stack, btw)           # [B, S, 2, depth+1]
+        assert tuple(sums.shape) == (len(preds), S, 2, DEPTH + 1)
+        for b, p in enumerate(preds):
+            if (p + 400 > 0) != (hi_sign == "pos") or p + 400 == 0:
+                continue   # the slot's sign would differ from this one
+            for s in range(S):
+                seg = jbsi.range_between(frags[s], p, p + 400)
+                _eq(seg, btw[b, s])
+                assert np.array_equal(sums[b, s].numpy(),
+                                      _np(jbsi.sum_counts(frags[s], seg)))
+    for want_max in (False, True):
+        bits, neg, cnt = tbsi.min_max_bits(stack, want_max=want_max)
+        for s in range(S):
+            want = jbsi.min_max_bits(frags[s], want_max=want_max)
+            assert np.array_equal(bits[s].numpy(), _np(want[0]))
+            assert int(neg[s]) == int(want[1])
+            assert int(cnt[s]) == int(want[2])

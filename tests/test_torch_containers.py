@@ -201,7 +201,7 @@ def ragged():
     packs = [tc.pack_words(*CASES[n]) for n in STACK_NAMES]
     assert len({p.keys.size for p in packs}) == 3
     assert len({p.payload.size for p in packs}) > 3
-    return packs, tc.stack_packed(packs, tc.tiles_of(ROWS, WORDS))
+    return packs, tc.stack_packed(packs, tc.tiles_of(ROWS, WORDS), "cpu")
 
 
 def test_stacked_shard_axis_matches_per_shard(ragged):
@@ -271,8 +271,8 @@ def test_ragged_layout_is_exact_and_aligned(ragged):
                                   p.payload[off: off + size])
         assert int((st.slots[i] >= 0).sum()) == p.keys.size
     padded = tc.Packed(*tc.pad_packed(packs[0]), 0, 0)
-    for a, b in zip(tc.stack_packed([padded], tiles),
-                    tc.stack_packed(packs[:1], tiles)):
+    for a, b in zip(tc.stack_packed([padded], tiles, "cpu"),
+                    tc.stack_packed(packs[:1], tiles, "cpu")):
         assert torch.equal(a, b)
 
 
@@ -286,7 +286,8 @@ def test_slot_map_drops_keys_beyond_rows():
     p = tc.pack_words(wide, wval)
     tiles = tc.tiles_of(ROWS, WORDS)
     assert int(p.keys.max()) >= tiles
-    st = tc.stack_packed([tc.pack_words(*CASES["run_64"]), p], tiles)
+    st = tc.stack_packed([tc.pack_words(*CASES["run_64"]), p], tiles,
+                         "cpu")
     assert int(st.slots.max()) == st.types.numel() - 1
     assert int((st.slots[1] >= 0).sum()) == int((p.keys < tiles).sum())
     got = tb.to_numpy(tk.decode_block_plain(*st, rows=ROWS, words=WORDS))
@@ -317,3 +318,36 @@ def test_upload_decode_matches_jax(pallas):
                                        words=WORDS))
     assert got.device.type == "cpu"
     assert np.array_equal(tb.to_numpy(got), want)
+
+
+def test_plain_decode_matches_pallas_on_a_bsi_fragment(pallas):
+    """A 22-row BSI fragment (depth 20) at config 4's density — about
+    1000 set columns a container, so array containers of 500-1000 words
+    — through the plain decode, alone and in a ragged stack of two
+    shards, against the JAX Pallas kernel and the dense oracle."""
+    from pilosa_tpu.ops import bsi as jbsi
+    rng = np.random.default_rng(4)
+    dense, packs = [], []
+    for _ in range(2):
+        cols = np.unique(rng.integers(0, WORDS * 32, size=2000))
+        vals = rng.integers(0, 1_000_000, size=cols.size)
+        d = jbsi.pack_values(cols, vals, depth=20, words=WORDS)
+        flat = d.reshape(-1)
+        idx = np.flatnonzero(flat)
+        dense.append(d)
+        packs.append(tc.pack_words(idx, flat[idx]))
+    rows = dense[0].shape[0]
+    assert rows == 22
+    assert packs[0].type_histogram()["array"] > 0
+    for p, d in zip(packs, dense):
+        want = np.asarray(jk.decode_block(
+            *_jax_arrays(p), rows=rows, words=WORDS,
+            a_bucket=tc.pow2_bucket(p.a_max),
+            r_bucket=tc.pow2_bucket(p.r_max)))
+        assert np.array_equal(want, d)
+        got = tk.decode_block_plain(*_torch_arrays(p), rows=rows,
+                                    words=WORDS)
+        assert np.array_equal(tb.to_numpy(got), want)
+    st = tc.stack_packed(packs, tc.tiles_of(rows, WORDS), "cpu")
+    got = tk.decode_block(*st, rows=rows, words=WORDS)
+    assert np.array_equal(tb.to_numpy(got), np.stack(dense))

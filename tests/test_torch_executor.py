@@ -3,14 +3,18 @@
 package's ``Executor(use_mesh=True)`` — the executor the server and the
 SSB bench legs build.
 
-Two corpora, each built from a seed into a JAX holder and a port holder:
-a 3-shard SSB star-schema corpus (pilosa_tpu_torch/ssb.py, the copy of
-bench.build_ssb) queried with its three shapes, and the small corpus of
-tests/test_differential.py queried with that file's generator pattern
-(its BSI branches dropped: BSI is not in this slice of the port).  Every
-query runs on the port's stacked and per-shard paths, dense-resident and
-compressed-resident, and must equal the JAX answers (the JAX side runs
-in both residencies on the SSB corpus, dense on the generated one).
+Three corpora, each built from a seed into a JAX holder and a port
+holder: a 3-shard SSB star-schema corpus (pilosa_tpu_torch/ssb.py, the
+copy of bench.build_ssb) queried with its three shapes; the small corpus
+of tests/test_differential.py, int field included, queried with that
+file's generator pattern (BSI conditions, Sum, Min and Max too); and
+BASELINE config 4 (pilosa_tpu_torch/bsi64.py) cut to 3 shards at its
+full depth.  Every query runs on the port's stacked and per-shard paths,
+dense-resident and compressed-resident, and must equal the JAX answers
+(the JAX side runs in both residencies on the SSB and config-4 corpora,
+dense on the generated one).  The grouped multi-call path, its chunking,
+the prepared-statement cache and the result cache are held against the
+per-call path and the JAX package.
 
 Every comparison is EXACT (result ``to_dict()`` equality): answers are
 integers and column ids, so there is no tolerance to state.
@@ -23,11 +27,13 @@ torch = pytest.importorskip("torch")
 
 from pilosa_tpu.core import SHARD_WIDTH  # noqa: E402
 from pilosa_tpu.executor import Executor as JaxExecutor  # noqa: E402
+from pilosa_tpu.storage import FieldOptions as JaxFieldOptions  # noqa: E402
 from pilosa_tpu.storage import Holder as JaxHolder  # noqa: E402
 from pilosa_tpu.storage import fragment as jax_fragment  # noqa: E402
 from pilosa_tpu.storage import membudget as jax_membudget  # noqa: E402
-from pilosa_tpu_torch import ssb  # noqa: E402
+from pilosa_tpu_torch import bsi64, ssb  # noqa: E402
 from pilosa_tpu_torch.executor import ExecutionError, Executor  # noqa: E402
+from pilosa_tpu_torch.executor import executor as port_exmod  # noqa: E402
 from pilosa_tpu_torch.ops import kernels  # noqa: E402
 from pilosa_tpu_torch.storage import Holder  # noqa: E402
 from pilosa_tpu_torch.storage import fragment as port_fragment  # noqa: E402
@@ -68,52 +74,67 @@ def ssb_corpus():
     return jh, th, hist
 
 
-def _diff_fill(h):
-    """tests/test_differential.py's corpus without its int field."""
+def _diff_fill(h, field_options):
+    """tests/test_differential.py's corpus (over 3 shards): two set
+    fields and the int field ``v`` in [-500, 500)."""
     rng = np.random.default_rng(77)
     idx = h.create_index("d")
     a = idx.create_field("a")
     b = idx.create_field("b")
+    v = idx.create_field("v", field_options(type="int", min=-500, max=500))
     n = 6000
     cols = rng.integers(0, 3 * SHARD_WIDTH, size=n)
     a.import_bits(rng.integers(0, 10, size=n), cols)
     b.import_bits(rng.integers(0, 6, size=n), cols)
+    vcols = np.unique(cols[: n // 2])
+    v.import_values(vcols, rng.integers(-500, 500, size=vcols.size))
     idx.add_existence(cols)
+
+
+def _holders(fill):
+    """(JAX holder, port holder), both filled by ``fill(h, options)``."""
+    from pilosa_tpu_torch.storage import FieldOptions
+    jh, th = JaxHolder(None), Holder(None)
+    fill(jh, JaxFieldOptions)
+    fill(th, FieldOptions)
+    return jh, th
 
 
 @pytest.fixture(scope="module")
 def diff_corpus():
-    jh, th = JaxHolder(None), Holder(None)
-    _diff_fill(jh)
-    _diff_fill(th)
-    return jh, th
+    return _holders(_diff_fill)
 
 
 def gen_bitmap(rng, depth=0):
-    """test_differential.gen_bitmap without the BSI conditions, plus Xor
-    and Shift."""
-    choice = rng.integers(0, 8 if depth < 2 else 2)
+    """test_differential.gen_bitmap, plus Xor and Shift."""
+    choice = rng.integers(0, 10 if depth < 2 else 4)
     if choice == 0:
         return f"Row(a={rng.integers(0, 12)})"   # sometimes empty rows
     if choice == 1:
         return f"Row(b={rng.integers(0, 8)})"
-    if choice == 7:
+    if choice == 2:
+        op = rng.choice([">", "<", ">=", "<=", "==", "!="])
+        return f"Row(v {op} {rng.integers(-600, 600)})"
+    if choice == 3:
+        lo = int(rng.integers(-550, 400))
+        return f"Row({lo} < v < {lo + int(rng.integers(1, 400))})"
+    if choice == 9:
         return f"Shift({gen_bitmap(rng, depth + 1)}, n={rng.integers(0, 70)})"
     kids = ", ".join(gen_bitmap(rng, depth + 1)
                      for _ in range(rng.integers(2, 4)))
-    if choice == 2:
-        return f"Intersect({kids})"
-    if choice == 3:
-        return f"Union({kids})"
     if choice == 4:
-        return f"Difference({kids})"
+        return f"Intersect({kids})"
     if choice == 5:
+        return f"Union({kids})"
+    if choice == 6:
+        return f"Difference({kids})"
+    if choice == 7:
         return f"Xor({kids})"
     return f"Not({gen_bitmap(rng, depth + 1)})"
 
 
 def gen_query(rng):
-    kind = rng.integers(0, 8)
+    kind = rng.integers(0, 11)
     bm = gen_bitmap(rng)
     if kind == 0:
         return bm
@@ -129,6 +150,10 @@ def gen_query(rng):
         return f"{rng.choice(['MinRow', 'MaxRow'])}(field=b)"
     if kind == 6:
         return f"Options({bm}, excludeRowAttrs=true)"
+    if kind == 7:
+        return f"Sum({bm}, field=v)"
+    if kind in (8, 9):
+        return f"{'Min' if kind == 8 else 'Max'}({bm}, field=v)"
     return "GroupBy(Rows(b), Rows(a), " + bm + ")"
 
 
@@ -232,9 +257,7 @@ def test_generated_workload_matches_jax(diff_corpus, diff_workload,
 
 
 def test_writes_then_reads_match_jax():
-    jh, th = JaxHolder(None), Holder(None)
-    _diff_fill(jh)
-    _diff_fill(th)
+    jh, th = _holders(_diff_fill)
     jex = JaxExecutor(jh, use_mesh=True)
     tex = Executor(th, device="cpu")
     try:
@@ -249,10 +272,20 @@ def test_writes_then_reads_match_jax():
 
 
 def test_bsi_calls_are_refused_until_their_slice(diff_corpus):
-    _, th = diff_corpus
+    """BSI calls on a field that is not an int field are refused with the
+    JAX package's ExecutionError (the BSI calls themselves are ported)."""
+    jh, th = diff_corpus
     ex = Executor(th, device="cpu")
-    with pytest.raises(ExecutionError):
-        ex.execute("d", "Sum(field=a)")
+    jex = JaxExecutor(jh, use_mesh=True)
+    try:
+        for q in ("Sum(field=a)", "Min(Row(b=1), field=b)", "Max(field=x)"):
+            with pytest.raises(ExecutionError):
+                ex.execute("d", q)
+            with pytest.raises(ValueError):
+                jex.execute("d", q)
+    finally:
+        ex.close()
+        jex.close()
 
 
 def test_default_device_is_cuda_and_never_falls_back(diff_corpus,
@@ -333,3 +366,249 @@ def test_mixed_bucket_shards_form_one_group_per_row_capacity(wide,
     finally:
         jex.close()
         ex.close()
+
+
+# -- BSI calls -----------------------------------------------------------------
+
+BSI_QUERIES = [
+    "Sum(field=v)", "Min(field=v)", "Max(field=v)",
+    "Sum(Row(a=3), field=v)", "Min(Row(b=2), field=v)",
+    "Max(Row(b=2), field=v)", "Max(Row(a=11), field=v)",
+    "Count(Row(v > 17))", "Count(Row(v >= -17))", "Count(Row(v < 0))",
+    "Count(Row(v <= -499))", "Count(Row(v == 3))", "Count(Row(v != 3))",
+    "Count(Row(v != null))", "Count(Row(v > 900))", "Count(Row(v < -900))",
+    "Count(Row(-40 <= v <= 40))", "Count(Row(-600 < v < -450))",
+    "Row(v == -3)", "Row(v > 480)",
+    "Sum(Row(v > 100), field=v)", "Sum(Row(v < -100), field=v)",
+    "Min(Row(v > 2000), field=v)",
+    "TopN(a, Row(v > 0), n=3)",
+    "GroupBy(Rows(b), Rows(a), Row(v < -250))",
+    "Count(Intersect(Row(v > -100), Row(a=2)))",
+]
+
+
+@pytest.fixture(scope="module")
+def bsi_want(diff_corpus):
+    """The JAX answers to BSI_QUERIES, dense-resident (as
+    ``diff_workload``)."""
+    jh, _ = diff_corpus
+    budget = jax_membudget.DEFAULT_BUDGET
+    old = budget.limit_bytes
+    budget.limit_bytes = None
+    jex = JaxExecutor(jh, use_mesh=True)
+    try:
+        return [_norm(jex.execute("d", q)) for q in BSI_QUERIES]
+    finally:
+        jex.close()
+        budget.limit_bytes = old
+
+
+def test_bsi_calls_match_jax(diff_corpus, bsi_want, residency):
+    """Sum / Min / Max, every BSI condition (the six ops, Between,
+    negative values, out-of-range empty and full-range notnull), Count of
+    a BSI predicate, TopN and GroupBy under a BSI filter: one call per
+    request, on both port paths, equal to the JAX executor."""
+    _, th = diff_corpus
+    ports = _port_executors(th)
+    try:
+        for name, ex in ports.items():
+            for q, w in zip(BSI_QUERIES, bsi_want):
+                assert _norm(ex.execute("d", q)) == w, (name, q)
+        assert th.fragment("d", "v", "bsig_v", 0).device_form() == residency
+    finally:
+        for ex in ports.values():
+            ex.close()
+
+
+# -- BASELINE config 4 at 3 shards ---------------------------------------------
+
+N_CFG4_SHARDS = 3
+
+
+@pytest.fixture(scope="module")
+def cfg4_corpus():
+    """Config 4 at its density (about 15.5k values a shard) and depth 20,
+    cut to 3 shards: JAX holder, port holder, (cols, vals, segs)."""
+    n = bsi64.N_VALUES * N_CFG4_SHARDS // bsi64.N_SHARDS
+    jh, th = JaxHolder(None), Holder(None)
+    bsi64.build(jh, np.random.default_rng(64), JaxFieldOptions,
+                n_shards=N_CFG4_SHARDS, n_values=n)
+    oracle = bsi64.build(th, np.random.default_rng(64),
+                         n_shards=N_CFG4_SHARDS, n_values=n)
+    return jh, th, oracle
+
+
+def test_config4_matches_jax_and_the_oracle(cfg4_corpus, residency):
+    """8 Sums a request (the grouped path on the stacked branch, call by
+    call on the per-shard one), the GroupBy, and Min / Max / Count under
+    the range predicate, against ``JaxExecutor(use_mesh=True)`` and the
+    numpy oracle.  Compressed, each Sum decodes the 22-row BSI stack
+    (the plain decode on the CPU)."""
+    jh, th, (cols, vals, segs) = cfg4_corpus
+    rng = np.random.default_rng(4)
+    jex = JaxExecutor(jh, use_mesh=True)
+    ports = _port_executors(th)
+    try:
+        frag = th.fragment(bsi64.INDEX, "v", "bsig_v", 0)
+        assert th.field(bsi64.INDEX, "v").options.bit_depth == 20
+        assert frag.max_row_id() == 21 and frag.device_form() == residency
+        for _ in range(2):
+            xs = rng.integers(0, bsi64.V_MAX, size=8)
+            q = bsi64.sum_request(xs)
+            want = bsi64.normalize(jex.execute(bsi64.INDEX, q))
+            assert want == [bsi64.oracle_sum(vals, int(x)) for x in xs]
+            for name, ex in ports.items():
+                assert bsi64.normalize(ex.execute(bsi64.INDEX, q)) == \
+                    want, name
+        x = int(xs[0])
+        q = (f"{bsi64.group_by_query(x)} Min(Row(v > {x}), field=v) "
+             f"Max(Row(v > {x}), field=v) Count(Row(v > {x}))")
+        want = bsi64.normalize(jex.execute(bsi64.INDEX, q))
+        assert want == [bsi64.oracle_group_by(vals, segs, x),
+                        bsi64.oracle_min_max(vals, x, False),
+                        bsi64.oracle_min_max(vals, x, True),
+                        int((vals > x).sum())]
+        for name, ex in ports.items():
+            assert bsi64.normalize(ex.execute(bsi64.INDEX, q)) == want, name
+        assert ports["stacked"].prepared.hits >= 1
+    finally:
+        jex.close()
+        for ex in ports.values():
+            ex.close()
+
+
+# -- the grouped multi-call path -------------------------------------------------
+
+GROUPED_CALLS = [
+    "Count(Row(a=1))", "Count(Row(a=2))", "Count(Row(a=40))",
+    "Count(Intersect(Row(a=3), Row(b=1)))",
+    "Count(Intersect(Row(a=4), Row(b=2)))",
+    "Sum(Row(v > 10), field=v)", "Sum(Row(v > -200), field=v)",
+    "Sum(Row(v < 0), field=v)", "Sum(Row(v > 300), field=v)",
+    "Sum(Row(a=5), field=v)", "Sum(Row(a=6), field=v)",
+    "Sum(field=v)",
+    "TopN(a, Row(b=1), n=3)", "TopN(a, Row(b=4), n=0)",
+    "TopN(a, Row(b=9), n=2)", "TopN(b, n=2)", "TopN(b, n=4)",
+    "TopN(a, Row(v > 0), n=2)", "Min(Row(a=1), field=v)", "Rows(b)"]
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_grouped_path_matches_per_call_and_jax(diff_corpus, residency,
+                                               chunked, monkeypatch):
+    """One request of Count / Sum / TopN groups (filtered, filter-less,
+    row ids past the rows, a BSI predicate of each sign) beside
+    singletons and calls that never batch.  With ``chunked`` the batch
+    temp budget is patched small so every filtered group splits into
+    chunks of 1 (filter-less groups stay one chunk).  The answers equal
+    the same calls run one by one and the JAX executor's."""
+    jh, th = diff_corpus
+    jex = JaxExecutor(jh, use_mesh=True)
+    ex = Executor(th, device="cpu")
+    ex.prepared = None             # the grouped path itself, not a replay
+    if chunked:
+        monkeypatch.setattr(port_exmod, "BATCH_TEMP_BYTES", 1)
+        monkeypatch.setattr(port_exmod, "BATCH_CHUNK_MIN", 1)
+    try:
+        request = " ".join(GROUPED_CALLS)
+        want = _norm(jex.execute("d", request))
+        n0 = ex.stacked.batch_chunks
+        got = _norm(ex.execute("d", request))
+        chunks = ex.stacked.batch_chunks - n0
+        one_by_one = [_norm(ex.execute("d", c))[0] for c in GROUPED_CALLS]
+        assert got == want == one_by_one
+        # count groups: 2 (Row, Intersect); sum: 3 (v-pred, Row, none);
+        # topn: 3 (Row(b) filter, none, and the BSI-filtered singleton
+        # is not a group)
+        assert chunks == (5 + 2 + 2 + 2 + 1 + 1 if chunked else 6)
+    finally:
+        jex.close()
+        ex.close()
+
+
+# -- prepared statements (the cases of tests/test_prepared.py) ------------------
+
+def test_prepared_statements_match_jax(diff_corpus):
+    """A template's first run builds the entry, repeats hit it (a Count,
+    a multi-call batch, Sum and TopN under BSI predicates across every
+    resolve branch), values that fail a guard fall back to the classic
+    path, and a schema-epoch bump rebuilds the entry — every answer equal
+    to the classic grouped path and to the JAX executor."""
+    jh, th = diff_corpus
+    jex = JaxExecutor(jh, use_mesh=True)
+    cached = Executor(th, device="cpu")
+    classic = Executor(th, device="cpu")
+    classic.prepared = None
+    prep = cached.prepared
+
+    def check(qs):
+        for q in qs:
+            got = _norm(cached.execute("d", q))
+            assert got == _norm(classic.execute("d", q)) == \
+                _norm(jex.execute("d", q)), q
+
+    try:
+        check([f"Count(Row(a={r}))" for r in (1, 5, 0, 9, 400)])
+        assert prep.hits == 4 and prep.misses == 1
+        rng = np.random.default_rng(11)
+        check([" ".join(f"Count(Intersect(Row(a={x}), Row(b={y})))"
+                        for x, y in rng.integers(0, 8, size=(4, 2)))
+               for _ in range(3)])
+        check([f"Sum(Row(v > {x}), field=v) Sum(Row(v > {x + 7}), field=v)"
+               for x in (0, 100, -100, 499)])
+        check([f"TopN(a, Row(v > {x}), n=3)" for x in (0, 50, -50)])
+        # the regimes of _resolve_bsi: the entry of a positive predicate
+        # must not serve zero, negative, clamped or out-of-range values
+        hits, guard = prep.hits, prep.guard_misses
+        check([f"Count(Row(v < {x}))"
+               for x in (5, 7, -5, 0, 499, 500, 501, -501, 1000, -1000)])
+        assert prep.guard_misses > guard and prep.hits > hits
+        check([f"Count(Row({lo} <= v <= {hi}))"
+               for lo, hi in ((0, 10), (-10, 10), (-500, 500), (5, 5),
+                              (600, 2000))])
+        # a structural literal (n) change: an equality guard misses
+        guard = prep.guard_misses
+        check(["TopN(a, Row(v > 10), n=2)"])
+        assert prep.guard_misses == guard + 1
+        # a schema-epoch bump (DDL) drops the entry: rebuilt, not replayed
+        q = "Count(Row(a=3))"
+        check([q])
+        misses = prep.misses
+        th.index("d").create_field("tmp_epoch")
+        th.index("d").delete_field("tmp_epoch")
+        check([q])
+        assert prep.misses == misses + 1
+    finally:
+        jex.close()
+        cached.close()
+        classic.close()
+
+
+# -- the result cache ------------------------------------------------------------
+
+def test_result_cache_hits_then_misses_after_a_write():
+    """With a limit set, a repeat request is answered from the cache; a
+    write bumps a fragment generation, so the next repeat misses and
+    sees the write.  Off (limit 0) on a bare executor, as in JAX."""
+    jh, th = _holders(_diff_fill)
+    ex = Executor(th, device="cpu")
+    jex = JaxExecutor(jh, use_mesh=True)
+    cache = ex.result_cache
+    try:
+        assert cache.limit_bytes == 0
+        q = "Count(Row(a=2)) Sum(Row(b=1), field=v) TopN(a, n=2)"
+        ex.execute("d", q)
+        assert (cache.hits, cache.misses) == (0, 0)
+        cache.limit_bytes = 1 << 20
+        first = ex.execute("d", q)
+        assert (cache.hits, cache.misses) == (0, 1)
+        assert ex.execute("d", q) == first
+        assert cache.hits == 1
+        for h in (th, jh):
+            assert h.field("d", "a").set_bit(2, 12345)
+        after = ex.execute("d", q)
+        assert cache.misses == 2 and cache.invalidates == 1
+        assert after[0] == first[0] + 1
+        assert _norm(after) == _norm(jex.execute("d", q))
+    finally:
+        ex.close()
+        jex.close()
