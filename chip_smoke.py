@@ -33,11 +33,26 @@ its own lines and its seconds:
    run must launch both kernels.  Printed: qps, request p50, launches
    and batch chunks per request, prepared hits, the GroupBy time,
    resident MB.
-   With ``--profile`` each run of phases 5 and 6 ends with one request
-   under torch.profiler: the card's busy and idle share and its top
-   kernels.
-7. the ``kernels`` JSON line, the nvidia-smi line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+7. served — the port's server (``pilosa_tpu_torch.server``) on the card
+   in a fresh data dir: ``ssb`` and its four fields created over HTTP,
+   the 256-shard corpus loaded through ``import-roaring`` (one POST per
+   field and shard), the mix as HTTP POSTs from 1 client and then from
+   8 concurrent clients, every answer equal to the oracle; compressed-
+   resident (96 MB budget; both kernels must launch, counts reset just
+   before the run and read just after), then restarted on the same data
+   dir dense-resident, where 1,048,576 new ``rev`` bits stream through
+   ``/ingest`` and, after the ack, the mix must equal the updated oracle
+   with the dense stacks taking overlays, not re-stages; last
+   ``python3 -m pilosa_tpu_torch server`` as a subprocess (``/status``,
+   one Set + Count, SIGTERM, exit 0).  Printed: load seconds, qps and
+   p50 per client count, launches per request, ingest records/s,
+   overlays and re-stages.
+   With ``--profile`` each run of phases 5, 6 and 7 ends with one
+   request under torch.profiler: the card's busy and idle share and its
+   top kernels.
+8. the ``kernels`` JSON line, a JSON line of the phases' records, the
+   ``served`` JSON line, the nvidia-smi line, and last the result line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the result line.  It imports
 nothing of JAX or the JAX package.
@@ -307,16 +322,17 @@ def bound(rec) -> tuple[float, str]:
 
 # -- phase 5: the SSB request mix ------------------------------------------
 
-def profile_request(ex, index: str, query: str, label: str):
-    """One request under torch.profiler: the card's busy time (the sum of
-    its kernel and copy durations) against the request's wall time, and
-    the kernels that took most of it."""
+def profile_request(run, label: str):
+    """One request (``run()``) under torch.profiler: the card's busy time
+    (the sum of its kernel and copy durations) against the request's
+    wall time, and the kernels that took most of it.  CUPTI records
+    every kernel of the process, a server thread's too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ex.execute(index, query)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = []
@@ -383,8 +399,8 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False):
     finally:
         gc.callbacks.remove(on_gc)
     if profile:
-        profile_request(ex, ssb.SSB_INDEX, ssb.ssb_batch(batches[-1]),
-                        label)
+        profile_request(lambda: ex.execute(
+            ssb.SSB_INDEX, ssb.ssb_batch(batches[-1])), label)
     launches = dict(kernels.LAUNCHES)
     requests = len(batches) + int(profile)
     stats = DEFAULT_BUDGET.stats()
@@ -532,8 +548,8 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
            cfg4_oracle_topn(vals, segs, x, 5)])
     answers.append(got)
     if profile:
-        profile_request(ex, bsi64.INDEX, bsi64.sum_request(xs_all[-1]),
-                        f"bsi64-{label}")
+        profile_request(lambda: ex.execute(
+            bsi64.INDEX, bsi64.sum_request(xs_all[-1])), f"bsi64-{label}")
     launches = dict(kernels.LAUNCHES)
     stats = DEFAULT_BUDGET.stats()
     hits = ex.prepared.hits
@@ -556,6 +572,321 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
         **{k: (json.dumps(v) if isinstance(v, (dict, list)) else v)
            for k, v in rec.items()})
     return answers, rec
+
+
+# -- phase 7: the served path -------------------------------------------------
+
+SERVED_CLIENTS = 8
+SERVED_REQUESTS_8 = 2          # requests per client of the 8-client run
+INGEST_BITS = 1 << 20          # new rev bits streamed through /ingest
+INGEST_POSTS = 16
+
+
+def http(port: int, method: str, path: str, body=None,
+         ctype: str = "application/json", timeout: float = 600):
+    """One request to the served API; returns the parsed JSON body and
+    raises on any status other than 200."""
+    import urllib.request
+    if body is not None and not isinstance(body, bytes):
+        body = json.dumps(body).encode()
+    req = urllib.request.Request(f"http://localhost:{port}{path}",
+                                 data=body, method=method)
+    if body is not None:
+        req.add_header("Content-Type", ctype)
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        data = resp.read()
+    return json.loads(data) if data.strip() else {}
+
+
+def start_server(data_dir: str, device, **kw):
+    from pilosa_tpu_torch.server.server import Config, Server
+    srv = Server(Config(data_dir=data_dir, bind="localhost:0",
+                        device=str(device), metric_poll_interval=0, **kw))
+    srv.open()
+    return srv
+
+
+def roaring_bodies(holder, n_shards: int) -> list:
+    """The client's side of the load: every (field, shard) fragment of
+    the in-memory corpus as a pilosa-roaring body."""
+    from pilosa_tpu_torch import ssb
+    from pilosa_tpu_torch.storage.roaring_io import pack_roaring
+    return [(name, shard, pack_roaring(*holder.fragment(
+                ssb.SSB_INDEX, name, "standard", shard).pairs()))
+            for shard in range(n_shards) for name, _ in ssb.SSB_FIELDS]
+
+
+def load_served(srv, bodies) -> float:
+    """Create ``ssb`` and its four fields over HTTP and POST every
+    roaring body to ``import-roaring``, one POST per (field, shard),
+    from 8 client threads.  Returns the load's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pilosa_tpu_torch import ssb
+    t0 = time.perf_counter()
+    http(srv.port, "POST", f"/index/{ssb.SSB_INDEX}",
+         {"options": {"trackExistence": False}})
+    for name, _rows in ssb.SSB_FIELDS:
+        http(srv.port, "POST", f"/index/{ssb.SSB_INDEX}/field/{name}", {})
+
+    def post(job):
+        name, shard, body = job
+        http(srv.port, "POST", f"/index/{ssb.SSB_INDEX}/field/{name}/"
+             f"import-roaring/{shard}", body,
+             ctype="application/octet-stream")
+
+    with ThreadPoolExecutor(SERVED_CLIENTS) as pool:
+        list(pool.map(post, bodies))
+    return time.perf_counter() - t0
+
+
+def topn_table(holder, n_shards: int) -> np.ndarray:
+    """``int64[region, category, rev]``: bits of each rev row under each
+    (region, category) pair over every shard, counted from the stored
+    words — the TopN oracle that stays exact when ingest adds rev bits
+    to columns that already carry one."""
+    from pilosa_tpu_torch import ssb
+    tab = np.zeros((5, 12, 8), dtype=np.int64)
+    for shard in range(n_shards):
+        dense = {name: holder.fragment(ssb.SSB_INDEX, name, "standard",
+                                       shard).to_dense()[:rows]
+                 for name, rows in ssb.SSB_FIELDS[1:]}
+        on = dense["region"].any(axis=0)
+        reg = dense["region"].argmax(axis=0)[on]
+        cat = dense["category"].argmax(axis=0)[on]
+        for m in range(8):
+            np.add.at(tab[:, :, m], (reg, cat),
+                      np.bitwise_count(dense["rev"][m][on]).astype(np.int64))
+    return tab
+
+
+def served_oracle(hist, tab, shards, call):
+    """``ssb.oracle``, with TopN answered from ``tab`` when given."""
+    from pilosa_tpu_torch import ssb
+    if call[0] != 1 or tab is None:
+        return ssb.oracle(hist, shards, call)
+    counts = tab[call[2], call[3]]
+    order = sorted(range(counts.size), key=lambda m: (-counts[m], m))
+    return [{"id": m, "count": int(counts[m])}
+            for m in order[:5] if counts[m] > 0]
+
+
+def served_batches() -> list:
+    """The requests of ``run_ssb`` (one warm, then N_BATCHES timed, from
+    the same seed), then SERVED_REQUESTS_8 more for each of
+    SERVED_CLIENTS clients: the 1-client numbers compare with the
+    in-process ones request for request."""
+    from pilosa_tpu_torch import ssb
+    rng = np.random.default_rng(SEED + 1)
+    return [ssb.ssb_calls(rng, BATCH) for _ in range(
+        1 + N_BATCHES + SERVED_CLIENTS * SERVED_REQUESTS_8)]
+
+
+def served_mix(srv, hist, tab, n_shards: int, label: str):
+    """The SSB mix as HTTP POSTs of 24 calls (``served_batches``): one
+    warm request, then N_BATCHES from one client, then
+    SERVED_REQUESTS_8 from each of SERVED_CLIENTS concurrent clients;
+    every answer equal to the oracle.  Returns the record."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pilosa_tpu_torch import ssb
+    shards = list(range(n_shards))
+    n8 = SERVED_CLIENTS * SERVED_REQUESTS_8
+    batches = served_batches()
+    want = [[served_oracle(hist, tab, shards, c) for c in b]
+            for b in batches]
+
+    def one(i):
+        t0 = time.perf_counter()
+        got = http(srv.port, "POST", f"/index/{ssb.SSB_INDEX}/query",
+                   ssb.ssb_batch(batches[i]).encode())["results"]
+        dt = time.perf_counter() - t0
+        if got != want[i]:
+            bad = next(j for j, (a, b) in enumerate(zip(got, want[i]))
+                       if a != b)
+            raise AssertionError(
+                f"served {label}: {ssb.ssb_query(batches[i][bad])} -> "
+                f"{got[bad]}, oracle {want[i][bad]}")
+        return dt
+
+    one(0)                                   # warm: stacks staged
+    lat1 = [one(i) for i in range(1, 1 + N_BATCHES)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVED_CLIENTS) as pool:
+        lat8 = list(pool.map(one, range(1 + N_BATCHES, len(batches))))
+    wall8 = time.perf_counter() - t0
+    rec = {"qps_1": BATCH * len(lat1) / sum(lat1),
+           "p50_ms_1": statistics.median(lat1) * 1e3,
+           "ms_1": [round(x * 1e3, 3) for x in lat1],
+           "qps_8": BATCH * n8 / wall8,
+           "p50_ms_8": statistics.median(lat8) * 1e3,
+           "requests": len(batches)}
+    say("served", run=label, clients=1, requests=len(lat1),
+        qps=rec["qps_1"], p50_ms=rec["p50_ms_1"])
+    say("served", run=label, clients=SERVED_CLIENTS, requests=len(lat8),
+        qps=rec["qps_8"], p50_ms=rec["p50_ms_8"])
+    return rec
+
+
+def ingest_served(srv, holder, n_shards: int, seed: int) -> dict:
+    """Stream INGEST_BITS new rev bits over every shard through /ingest
+    (INGEST_POSTS framed POSTs, each acked after its group commit) into
+    columns of live facts, and apply the same bits to ``holder``, the
+    oracle's state.  Returns the record."""
+    from pilosa_tpu_torch import ssb
+    from pilosa_tpu_torch.core import SHARD_WIDTH, SHARD_WORDS
+    from pilosa_tpu_torch.ingest import wire
+    rng = np.random.default_rng(seed)
+    per = INGEST_BITS // n_shards
+    rows, cols = [], []
+    for shard in range(n_shards):
+        live = np.unique(holder.fragment(ssb.SSB_INDEX, "year", "standard",
+                                         shard)._idx % SHARD_WORDS)
+        w = rng.choice(live, size=per)
+        cols.append(shard * SHARD_WIDTH + w * 32 + rng.integers(0, 32, per))
+        rows.append(rng.integers(0, 8, per))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    order = rng.permutation(rows.size)
+    rows, cols = rows[order], cols[order]
+    posts = [wire.encode_records(r, c) for r, c in
+             zip(np.array_split(rows, INGEST_POSTS),
+                 np.array_split(cols, INGEST_POSTS))]
+    t0 = time.perf_counter()
+    acked = 0
+    for body in posts:
+        ack = http(srv.port, "POST",
+                   f"/index/{ssb.SSB_INDEX}/field/rev/ingest", body,
+                   ctype="application/octet-stream")
+        acked += ack["records"]
+    secs = time.perf_counter() - t0
+    if acked != rows.size:
+        raise AssertionError(f"ingest acked {acked} of {rows.size} records")
+    holder.index(ssb.SSB_INDEX).field("rev").import_bits(rows, cols)
+    rec = {"records": int(rows.size), "posts": INGEST_POSTS,
+           "seconds": secs, "records_per_s": rows.size / secs}
+    say("served", run="ingest", **rec)
+    return rec
+
+
+def cli_server_roundtrip(device) -> dict:
+    """``python3 -m pilosa_tpu_torch server`` as a subprocess: /status,
+    one Set + Count, SIGTERM, exit 0."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "pilosa_tpu_torch", "server",
+               "-d", d, "-b", f"localhost:{port}"]
+        if torch.device(device).type != "cuda":
+            cmd += ["--device", str(device)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 120
+            while True:
+                try:
+                    st = http(port, "GET", "/status", timeout=5)
+                    break
+                except OSError:
+                    if proc.poll() is not None or \
+                            time.monotonic() > deadline:
+                        raise AssertionError(
+                            "the CLI server did not come up: "
+                            + proc.stdout.read().decode()[-2000:])
+                    time.sleep(0.2)
+            up = time.perf_counter() - t0
+            http(port, "POST", "/index/cli", {})
+            http(port, "POST", "/index/cli/field/f", {})
+            http(port, "POST", "/index/cli/query", b"Set(7, f=3)")
+            got = http(port, "POST", "/index/cli/query",
+                       b"Count(Row(f=3))")["results"]
+            if got != [1] or st["state"] != "NORMAL":
+                raise AssertionError(f"CLI server answered {got}, {st}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out = proc.stdout.read().decode()
+        if rc != 0:
+            raise AssertionError(f"the CLI server exited {rc}: {out[-2000:]}")
+    rec = {"up_s": up, "seconds": time.perf_counter() - t0, "exit": rc,
+           "pid_gone": not os.path.exists(f"/proc/{proc.pid}")}
+    say("served", run="cli", **rec)
+    return rec
+
+
+def run_served(holder, hist, device, n_shards: int = N_SHARDS,
+               profile: bool = False) -> dict:
+    """The port's server on ``device`` over the SSB corpus loaded through
+    HTTP: the mix compressed-resident (96 MB budget; both kernels must
+    launch), then on the same data dir dense-resident (no budget, as the
+    in-process dense run) with a streamed ingest of new rev bits, whose
+    dense stacks must take overlays; last the CLI server."""
+    import tempfile
+    from pilosa_tpu_torch import ssb
+    from pilosa_tpu_torch.ops import kernels
+    rec = {}
+    t0 = time.perf_counter()
+    bodies = roaring_bodies(holder, n_shards)
+    rec["pack_s"] = time.perf_counter() - t0
+    # the in-process run's profiled request, for a like-for-like profile
+    prof_body = ssb.ssb_batch(served_batches()[N_BATCHES]).encode()
+    query_path = f"/index/{ssb.SSB_INDEX}/query"
+    with tempfile.TemporaryDirectory() as data_dir:
+        srv = start_server(data_dir, device, device_budget_mb=BUDGET_MB)
+        try:
+            rec["load_s"] = load_served(srv, bodies)
+            say("served", run="load", shards=n_shards, posts=len(bodies),
+                body_mb=sum(len(b[2]) for b in bodies) / 2**20,
+                pack_seconds=rec["pack_s"], seconds=rec["load_s"])
+            kernels.reset_launches()
+            rec["compressed"] = served_mix(srv, hist, None, n_shards,
+                                           "compressed")
+            launches = dict(kernels.LAUNCHES)
+            rec["compressed"]["launches"] = launches
+            rec["compressed"]["launches_per_request"] = {
+                k: n / rec["compressed"]["requests"]
+                for k, n in launches.items()}
+            for name, n in launches.items():
+                if n <= 0 and torch.device(device).type == "cuda":
+                    raise AssertionError(f"the compressed served run never "
+                                         f"launched {name}")
+            say("served", run="compressed", launches=json.dumps(launches))
+            if profile:
+                profile_request(lambda: http(
+                    srv.port, "POST", query_path, prof_body),
+                    "served_compressed")
+        finally:
+            srv.close()
+        srv = start_server(data_dir, device, compressed_resident=False)
+        try:
+            rec["dense"] = served_mix(srv, hist, None, n_shards, "dense")
+            if profile:
+                profile_request(lambda: http(
+                    srv.port, "POST", query_path, prof_body),
+                    "served_dense")
+            st = srv.api.executor.stacked
+            b0, o0 = st.stack_builds, st.overlays
+            rec["ingest"] = ingest_served(srv, holder, n_shards, SEED + 6)
+            tab = topn_table(holder, n_shards)
+            rec["after_ingest"] = served_mix(srv, hist, tab, n_shards,
+                                             "dense_after_ingest")
+            rec["ingest"]["overlays"] = st.overlays - o0
+            rec["ingest"]["restages"] = st.stack_builds - b0
+            say("served", run="ingest", overlays=rec["ingest"]["overlays"],
+                restages=rec["ingest"]["restages"])
+            if rec["ingest"]["overlays"] <= 0:
+                raise AssertionError("the dense served run took no ingest "
+                                     "overlay")
+        finally:
+            srv.close()
+    rec["cli"] = cli_server_roundtrip(device)
+    return rec
 
 
 def main(argv) -> int:
@@ -644,19 +975,28 @@ def main(argv) -> int:
                                  f"launched {name}")
     say("bsi64", seconds=time.perf_counter() - t0)
 
+    # the served path: HTTP API, load, concurrent clients, ingest, CLI
+    t0 = time.perf_counter()
+    served = run_served(holder, hist, device, profile=profile)
+    say("served", seconds=time.perf_counter() - t0)
+
     src = "pilosa_tpu_torch/csrc/container_kernels.cu"
     lines = []
-    for name, rec, replaces, shape, launches in (
+    served_launches = served["compressed"]["launches_per_request"]
+    for name, rec, replaces, shape, launches, per_served in (
             ("decode_block", dec, f"{JAX_KERNELS}:245", "ssb_topn_filter",
-             comp_rec["launches"]["decode_block"]),
+             comp_rec["launches"]["decode_block"],
+             served_launches["decode_block"]),
             ("fused_row_counts", fus, f"{JAX_KERNELS}:326",
-             "ssb_topn_filter", comp_rec["launches"]["fused_row_counts"]),
+             "ssb_topn_filter", comp_rec["launches"]["fused_row_counts"],
+             served_launches["fused_row_counts"]),
             ("decode_block", bsi_dec, f"{JAX_KERNELS}:245", "bsi64_bsig_v",
-             c4_comp["launches_phase"]["decode_block"])):
+             c4_comp["launches_phase"]["decode_block"], None)):
         b_ms, b_by = bound(rec)
         lines.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "shape": shape,
                       "launches": launches,
+                      "launches_per_served_request": per_served,
                       "max_abs_err": rec["err"], "ms": rec["ms"],
                       "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
@@ -665,6 +1005,7 @@ def main(argv) -> int:
                               "budget_mb": BUDGET_MB},
                       "bsi64": {"dense": c4_dense, "compressed": c4_comp,
                                 "budget_mb": BUDGET_MB}}))
+    print(json.dumps({"served": served}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,5 +11,8 @@ of the JAX package.  Its two container kernels are hand-written CUDA for
 Entry points take an explicit device: ``Executor(holder, device=None)``
 runs on ``cuda`` and raises without a card; pass ``device="cpu"`` for the
 plain PyTorch paths.  ``convert.holder_from_arrays`` builds a holder from
-plain arrays.
+plain arrays.  ``python -m pilosa_tpu_torch server`` serves the HTTP API
+on the card (``--device cpu`` for the plain paths).
 """
+
+__version__ = "0.1.0"

@@ -22,10 +22,8 @@ exceeds the summed bounds — i.e. when no pruned row can possibly reach
 the top n, ties included.  Otherwise it reports a candidate fallback and
 the executor runs the full scan.
 
-Port copy of the JAX package's ``cache/rank.py``: the PyTorch port keeps
-its own copy so that it imports nothing of the JAX package.  The
-``explain`` hooks of ``topn_from_rank`` (query EXPLAIN notes) are outside
-this slice and are dropped.
+Port copy of the JAX package's ``cache/rank.py``: the PyTorch port
+keeps its own copy so that it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -218,13 +216,20 @@ def topn_from_rank(field, shards, n: int, stats=None):
     pairs = sorted(
         (Pair(r, c) for r, c in totals.items() if c > 0),
         key=lambda p: (-p.count, p.id))
+    from ..utils import explain as qexplain
     if bound == 0:
         if stats is not None:
             stats.count("rankcache.hit")
+        qexplain.note("caches", {"cache": "rank", "outcome": "prune",
+                                 "candidates": len(candidates),
+                                 "bound": 0})
         return pairs[:n] if n else pairs
     if n and len(pairs) >= n and pairs[n - 1].count > bound:
         if stats is not None:
             stats.count("rankcache.hit")
+        qexplain.note("caches", {"cache": "rank", "outcome": "prune",
+                                 "candidates": len(candidates),
+                                 "bound": bound})
         return pairs[:n]
     # coverage unproven: full scan, and mark churn-degraded caches so the
     # next query rebuilds them instead of falling back forever
@@ -233,4 +238,7 @@ def topn_from_rank(field, shards, n: int, stats=None):
             rc.invalidate()
     if stats is not None:
         stats.count("rankcache.fallback")
+    qexplain.note("caches", {"cache": "rank", "outcome": "fallback",
+                             "candidates": len(candidates),
+                             "bound": bound})
     return None

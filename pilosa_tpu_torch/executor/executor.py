@@ -38,10 +38,23 @@ Deviations from the JAX module:
   it.  ``batch_chunk_size`` stays the one sizing rule, and a filter-less
   Sum / TopN group runs as one chunk.
 * The batched groups go to the stacked executor directly; the
-  cross-query dispatch batcher is not ported yet.
-* Not carried over: the whole-query program, the degraded-answer guard
-  of the cache fill, deadlines, stats, profiling, the warm-start corpus
-  recorder and the explain hooks.
+  cross-query dispatch batcher is not ported yet: ``batcher`` and
+  ``wholequery`` (the JAX executor's attributes for it and the
+  whole-query program) are always None.
+* Carried over from the JAX module's request stages: the ``ctx``
+  deadline (installed as current, checked between per-call dispatches
+  and before the one device-to-host fetch), the ``stats`` timers and
+  counters, the degraded-answer guard of the cache fill, and the
+  tracing span, profile stages and explain notes.  Not carried over:
+  the whole-query program and the warm-start corpus recorder.
+* One request's device work at a time: the dispatch through the fetch
+  (and a prepared replay) runs under the executor's ``_device_lock``,
+  as the JAX package serialises its dispatch.  The server runs each
+  request on its own thread; the card runs one stream either way, so
+  concurrency gains only the overlap of one request's host work (HTTP,
+  parse, translate, JSON) with another's device work, while each
+  request in flight holds up to ``BATCH_TEMP_BYTES`` of temporaries:
+  eight unserialised SSB requests exhausted the 80 GB card.
 """
 
 from __future__ import annotations
@@ -287,14 +300,14 @@ def _resolve_pendings(results):
 
 
 def resolve_device(device) -> torch.device:
-    """The executor's device: ``None`` means ``cuda``, which must exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is present; pass device='cpu' to run the "
-                "plain PyTorch paths on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    """The executor's device: ``None`` means ``cuda``; a CUDA device must
+    exist."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present; pass device='cpu' to run the "
+            "plain PyTorch paths on the CPU")
+    return device
 
 
 class Executor:
@@ -302,18 +315,30 @@ class Executor:
     GROUP_GRID_MAX = 1 << 20
     GROUP_GRID_PREFIX_MAX = 16384
 
-    def __init__(self, holder, device=None, stacked: bool = True):
+    def __init__(self, holder, device=None, stacked: bool = True,
+                 stats=None):
+        """``stats``: a StatsClient for per-phase timings
+        (parse/translate/dispatch/fetch) and cache counters, surfaced at
+        /debug/vars; None records nothing."""
         self.holder = holder
         self.device = resolve_device(device)
         self.compiler = PlanCompiler(self.device)
+        from ..utils.stats import NopStatsClient
+        self.stats = stats if stats is not None else NopStatsClient()
         from .translator import Translator
         self.translator = Translator(holder)
         # Generation-keyed result cache (cache/results.py), disabled
         # (limit 0) until the caller sets ``result_cache.limit_bytes``.
         from ..cache.results import ResultCache
-        self.result_cache = ResultCache()
+        self.result_cache = ResultCache(stats=self.stats)
+        # Not ported yet (see the module docstring): the cross-query
+        # dispatch batcher and the whole-query program.
+        self.batcher = None
+        self.wholequery = None
         self.stacked = None
         self.prepared = None
+        from ..utils.locks import make_rlock
+        self._device_lock = make_rlock("executor-device")
         if stacked:
             from ..parallel.stacked import StackedExecutor
             from .prepared import PreparedCache
@@ -327,10 +352,38 @@ class Executor:
     # -- entry point (executor.go:113 Execute) -----------------------------
 
     def execute(self, index_name: str, query, shards=None,
-                translate: bool = True) -> list[Any]:
+                translate: bool = True, ctx=None) -> list[Any]:
         """Run a PQL request (text or parsed) and return one result per
         call.  ``translate=False`` skips key translation (already
-        translated requests, executor.go:147)."""
+        translated requests, executor.go:147).
+
+        ``ctx``: optional QueryContext (utils/deadline.py).  Defaults to
+        the caller's active context; installed as current for the whole
+        execution, and checked here between per-call dispatches and
+        before the blocking fetch."""
+        from ..utils.deadline import activate, check_current, current
+        if ctx is None:
+            ctx = current()
+        with activate(ctx):
+            return self._execute_ctx(index_name, query, shards, translate,
+                                     check_current)
+
+    def _execute_ctx(self, index_name: str, query, shards, translate,
+                     check_current) -> list[Any]:
+        from ..utils import profile as qprof
+        from ..utils.tracing import GLOBAL_TRACER
+        check_current("execute")
+        with GLOBAL_TRACER.span("executor.execute") as espan:
+            espan.set_tag("index", index_name)
+            return self._execute_stages(index_name, query, shards,
+                                        translate, check_current, qprof)
+
+    def _execute_stages(self, index_name: str, query, shards, translate,
+                        check_current, qprof) -> list[Any]:
+        from ..utils import degraded
+        from ..utils import explain as qexplain
+        from ..utils import tenant as qtenant
+        stats = self.stats
         # Result-cache lookup first (before the parse): the key holds the
         # query text (an AST keys on its repr), the shard set and the
         # index's fragment generation vector, so any mutation misses.
@@ -343,54 +396,122 @@ class Executor:
                     shards = sorted(idx0.available_shards())
                 from ..cache.results import gen_vector
                 from ..core import attr_epoch, schema_epoch
+                from ..utils.tracing import GLOBAL_TRACER
                 qrepr = query if isinstance(query, str) else repr(query)
                 qkey = ("local", index_name, qrepr, tuple(shards),
                         bool(translate))
                 ckey = qkey + (gen_vector(self.holder, index_name,
                                           set(shards)),
                                schema_epoch(), attr_epoch())
-                out = cache.lookup(ckey)
+                with GLOBAL_TRACER.span("resultcache.lookup") as span, \
+                        qprof.stage("resultcache.lookup") as pnode:
+                    out = cache.lookup(ckey)
+                    outcome = "hit" if out is not None else "miss"
+                    span.set_tag("outcome", outcome)
+                    if pnode is not None:
+                        pnode.tags["outcome"] = outcome
+                qexplain.note("caches", {
+                    "cache": "result", "scope": "local",
+                    "outcome": outcome,
+                    "key": {"index": index_name, "shards": len(shards),
+                            "genVector": hash(ckey[5]) & 0xFFFFFFFF,
+                            "schemaEpoch": ckey[6],
+                            "attrEpoch": ckey[7]}})
                 if out is not None:
                     return out
         if isinstance(query, str):
             if translate and self.prepared is not None:
-                hit, out = self.prepared.attempt(index_name, query, shards)
+                with stats.timer("query.prepared"), \
+                        qprof.stage("prepared") as pnode, \
+                        self._device_lock:
+                    hit, out = self.prepared.attempt(index_name, query,
+                                                     shards)
+                    if pnode is not None:
+                        pnode.tags["outcome"] = "hit" if hit else "miss"
                 if hit:
-                    # prepared entries exist only for Count/Sum/TopN
-                    # templates: read-only by construction
-                    if ckey is not None:
-                        cache.fill(qkey, ckey, out)
+                    stats.count("query.prepared.hit")
+                    qexplain.note("plan", {"mode": "prepared",
+                                           "shards": len(shards or ())})
+                    if ckey is not None and not degraded.is_degraded():
+                        # prepared entries exist only for Count/Sum/TopN
+                        # templates — read-only by construction; a
+                        # quarantined-degraded answer stays uncached
+                        cache.fill(qkey, ckey, out,
+                                   tenant=qtenant.current_or_none())
                     return out
+                stats.count("query.prepared.miss")
                 if out is not None:
                     query = out  # the parsed (tagged) AST
             if isinstance(query, str):
-                query = parse(query)
+                with stats.timer("query.parse"), qprof.stage("parse"):
+                    query = parse(query)
         idx = self.holder.index(index_name)
         if idx is None:
             raise ExecutionError(f"index not found: {index_name}")
         if translate:
-            query = self.translator.translate_query(index_name, query)
+            with stats.timer("query.translate"), qprof.stage("translate"):
+                query = self.translator.translate_query(index_name, query)
         if shards is None:
             shards = sorted(idx.available_shards())
-        # Grouping reorders dispatch, which is only sound when no call
-        # mutates state a later call could read: mixed write/read
-        # requests run strictly in order, as in the reference.
-        read_only = not any(c.name in WRITE_CALLS for c in query.calls)
-        if self.stacked is not None and len(query.calls) > 1 and read_only:
-            results = self._execute_calls_grouped(index_name, query.calls,
-                                                  shards)
-        else:
-            results = [self._execute_call(index_name, c, shards)
-                       for c in query.calls]
-        results = _resolve_pendings(results)
+        with self._device_lock:
+            results = self._dispatch_fetch(index_name, query, shards,
+                                           check_current, qprof)
         if translate and self.translator.needs_translation(index_name):
             results = self.translator.translate_results(
                 index_name, query.calls, results)
-        if ckey is not None:
+        if ckey is not None and not degraded.is_degraded():
+            # degraded answers (quarantined fragments serving empty rows)
+            # are never memoized: a healthy repeat must recompute
             from ..cache.results import query_is_readonly
             if query_is_readonly(query):
-                cache.fill(qkey, ckey, results)
+                cache.fill(qkey, ckey, results,
+                           tenant=qtenant.current_or_none())
         return results
+
+    def _dispatch_fetch(self, index_name: str, query, shards,
+                        check_current, qprof) -> list[Any]:
+        """Dispatch every call, then the one device-to-host fetch."""
+        from ..utils import explain as qexplain
+        stats = self.stats
+        # Grouping reorders dispatch, which is only sound when no call
+        # mutates state a later call could read: mixed write/read
+        # requests run strictly in order, as in the reference.
+        with stats.timer("query.dispatch"), \
+                qprof.stage("dispatch") as dnode:
+            if dnode is not None:
+                # device-budget counters bracketing the dispatch: the
+                # deltas attribute upload/eviction traffic to THIS query
+                # (approximate under concurrency — they are process-wide)
+                from ..storage.membudget import DEFAULT_BUDGET
+                up0, ev0 = (DEFAULT_BUDGET.upload_bytes,
+                            DEFAULT_BUDGET.evictions)
+                dnode.tags["calls"] = len(query.calls)
+                dnode.tags["shards"] = len(shards)
+            read_only = not any(c.name in WRITE_CALLS for c in query.calls)
+            if self.stacked is not None and len(query.calls) > 1 \
+                    and read_only:
+                qexplain.note("plan", {"mode": "legacy-grouped",
+                                       "calls": len(query.calls),
+                                       "shards": len(shards)})
+                results = self._execute_calls_grouped(index_name,
+                                                      query.calls, shards)
+            else:
+                qexplain.note("plan", {"mode": "legacy-per-call",
+                                       "calls": len(query.calls),
+                                       "readOnly": read_only,
+                                       "shards": len(shards)})
+                results = []
+                for c in query.calls:
+                    check_current("call dispatch")
+                    results.append(self._execute_call(index_name, c,
+                                                      shards))
+            if dnode is not None:
+                dnode.tags["uploadBytes"] = \
+                    DEFAULT_BUDGET.upload_bytes - up0
+                dnode.tags["evictions"] = DEFAULT_BUDGET.evictions - ev0
+        check_current("result fetch")
+        with stats.timer("query.fetch"), qprof.stage("fetch"):
+            return _resolve_pendings(results)
 
     # -- batched multi-call execution --------------------------------------
 
@@ -722,7 +843,7 @@ class Executor:
                 and attr_name is None \
                 and f.options.cache_type in ("ranked", "lru"):
             from ..cache.rank import topn_from_rank
-            pairs = topn_from_rank(f, shards, n)
+            pairs = topn_from_rank(f, shards, n, stats=self.stats)
             if pairs is not None:
                 return pairs
 

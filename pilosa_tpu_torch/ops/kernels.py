@@ -61,7 +61,10 @@ from . import bitset, containers
 
 # Kernel launches per wrapper — counted only where a CUDA kernel is
 # launched (never for the plain version, never for a degenerate shortcut).
+# The server launches from many request threads: increments take
+# _launches_lock, since ``+=`` on a dict item is not atomic.
 LAUNCHES = {"decode_block": 0, "fused_row_counts": 0}
+_launches_lock = threading.Lock()
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "container_kernels.cu"
@@ -75,8 +78,9 @@ BUILD_INFO: dict = {}
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def resolve(device) -> str:
@@ -192,7 +196,8 @@ def _launch(name: str, st: containers.PackedStack, *args):
             *(a.data_ptr() for a in st), *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    with _launches_lock:
+        LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,11 @@ writes the decoded words (``_fused_entry``).  On the CPU both wrappers
 run their plain PyTorch versions.
 
 Stacks are cached against the fragments' data generations and charged to
-the device budget (``_placed_groups``).
+the device budget (``_placed_groups``).  A cached dense stack whose
+members have journaled ingest flushes since it was staged absorbs them
+as one indexed OR over ``(member, row, word)`` (``_refresh_overlays``,
+the JAX module's overlay refresh) instead of a re-stage;
+``stack_builds`` and ``overlays`` count the two.
 
 Reducers: ``count_async`` (Count), ``segments`` (bitmap calls),
 ``row_counts_async`` (TopN, Rows, MinRow/MaxRow),
@@ -51,9 +55,14 @@ Deviations from the JAX module, by design:
 * One device, no shard schedule: every reducer runs over all of its
   shards at once, and the batched reducers are called by the executor
   directly — there is no cross-query dispatch batcher yet.
+* The overlay refresh returns new stacked tensors (ingest/delta.py
+  ``apply_stack_overlay``), as the JAX module's un-donated scatter does,
+  so a request that captured the old stack reads one consistent state.
+  It is serialized under ``_ov_lock`` (the JAX module takes its executor
+  lock).
 * Not in this slice: the over-budget shard schedule that streams slices
-  with a background prefetch, the dispatch batcher, the ingest overlay
-  refresh of cached stacks, and the multi-process mesh paths.
+  with a background prefetch, the dispatch batcher, and the
+  multi-process mesh paths.
 """
 
 from __future__ import annotations
@@ -142,6 +151,13 @@ class StackedExecutor:
         # Leaf lock for _stack_cache dict ops only: budget eviction
         # callbacks race query threads on the dict.
         self._sc_lock = make_lock("stack-cache")
+        # Serializes overlay refreshes of cached stacks (the JAX module
+        # takes its executor lock there).
+        self._ov_lock = make_lock("stack-overlay")
+        # stacks staged from fragments, and ingest overlays OR'd into
+        # cached stacks instead of a re-stage
+        self.stack_builds = 0
+        self.overlays = 0
         # row-count groups answered through the fused_row_counts entry
         self.fused_calls = 0
         # batched chunks dispatched (executor._run_batched_groups)
@@ -167,16 +183,22 @@ class StackedExecutor:
         return fr.device_sig(self.device)
 
     def _stack_token(self, keys, holder, index, shards):
-        """(per-shard fragment rows, token).  The token holds every
-        member's (device_gen, signature): a mutation, a budget change
-        that flips a fragment between dense and compressed residency, or
-        another backend all mint a new token and rebuild the stack."""
+        """(per-shard fragment rows, token, epochs).  The token holds
+        every member's (device_gen, signature): a mutation, a budget
+        change that flips a fragment between dense and compressed
+        residency, or another backend all mint a new token and rebuild
+        the stack.  ``epochs`` are the members' ingest epochs: a cached
+        stack at the current token but older epochs takes the journal's
+        overlay instead."""
         frags = [[holder.fragment(index, field, view, shard)
                   for field, view in keys] for shard in shards]
         token = tuple(
             -1 if fr is None else (fr.device_gen, self._frag_sig(fr))
             for row in frags for fr in row)
-        return frags, token
+        epochs = tuple(
+            0 if fr is None else fr.ingest_epoch
+            for row in frags for fr in row)
+        return frags, token, epochs
 
     def _placed_groups(self, keys, holder, index, shards):
         """Group shards by input-shape signature over fragment keys
@@ -185,7 +207,7 @@ class StackedExecutor:
         ``placed_per_key[i]`` is None when key i's fragment is absent in
         the whole group, a ``PackedStack`` for a compressed entry, else
         the dense ``[S, rows, W]`` stack."""
-        frags, token = self._stack_token(keys, holder, index, shards)
+        frags, token, epochs = self._stack_token(keys, holder, index, shards)
         ckey = (index, tuple(keys), tuple(shards))
         skey = ("stack", id(self), ckey)
         with self._sc_lock:
@@ -193,8 +215,21 @@ class StackedExecutor:
             if cached is not None and cached[0] == token:
                 self._stack_cache.move_to_end(ckey)
         if cached is not None and cached[0] == token:
+            if cached[2] != epochs:
+                # the stack is current at its device_gen token, but
+                # member fragments have journaled ingest flushes since:
+                # OR the missing chunks into the resident stacked blocks
+                # instead of re-staging them
+                out = self._refresh_overlays(ckey, token, frags, shards,
+                                             keys, epochs, cached)
+                if out is not None:
+                    return out
+                # a member folded its journal meanwhile: stage afresh
+                return self._placed_groups(keys, holder, index, shards)
             self._budget.touch(skey)
             return cached[1]
+
+        self.stack_builds += 1
 
         groups: dict[tuple, list[tuple[int, list]]] = {}
         for shard, row in zip(shards, frags):
@@ -253,7 +288,7 @@ class StackedExecutor:
                         del s._stack_cache[ck]
 
         with self._sc_lock:
-            self._stack_cache[ckey] = (token, out)
+            self._stack_cache[ckey] = (token, out, epochs)
             trimmed = []
             while len(self._stack_cache) > self.stack_cache_max:
                 trimmed.append(self._stack_cache.popitem(last=False)[0])
@@ -262,6 +297,67 @@ class StackedExecutor:
         for old_key in trimmed:
             self._budget.unregister(("stack", id(self), old_key))
         return out
+
+    def _refresh_overlays(self, ckey, token, frags, shards, keys,
+                          new_epochs, cached):
+        """OR journaled ingest flushes into the resident stacked blocks
+        of a token-valid cache entry and return its groups.  Per dense
+        group and key: gather every member fragment's unseen journal
+        chunks, dedupe them on the host, and run one indexed OR over the
+        ``[S, rows, W]`` stack — KBs of overlay transfer instead of a
+        re-stage.  Compressed entries never appear here (their fragments
+        fold instead of journaling).  A racing duplicate application is
+        harmless: an OR of bits already present changes nothing.  Returns
+        None when a member folded its journal after the token was read
+        (the chunks it held are gone from the journal, so only a re-stage
+        can reach them)."""
+        from ..ingest.delta import apply_stack_overlay, merge_chunks
+        nk = len(keys)
+        row_of = {s: i for i, s in enumerate(shards)}
+        with self._ov_lock:
+            with self._sc_lock:
+                cur = self._stack_cache.get(ckey)
+            if cur is None or cur[0] != token:
+                cur = cached   # evicted meanwhile: refresh the caller's copy
+            if cur[2] == new_epochs:
+                return cur[1]
+            groups, old_epochs = cur[1], cur[2]
+            out = []
+            for shard_list, placed, sig in groups:
+                placed = list(placed)
+                for ki in range(nk):
+                    s_k = sig[ki]
+                    if s_k is None or s_k[0] == "z":
+                        continue
+                    members, idxs, vals = [], [], []
+                    for j, shard in enumerate(shard_list):
+                        fr = frags[row_of[shard]][ki]
+                        if fr is None:
+                            continue
+                        at = row_of[shard] * nk + ki
+                        di, dv = merge_chunks(fr.delta_chunks(old_epochs[at]))
+                        if fr.device_gen != token[at][0]:
+                            return None
+                        if di.size:
+                            members.append(
+                                np.full(di.size, j, dtype=np.int64))
+                            idxs.append(di)
+                            vals.append(dv)
+                    if not members:
+                        continue
+                    placed[ki] = apply_stack_overlay(
+                        placed[ki], np.concatenate(members),
+                        np.concatenate(idxs), np.concatenate(vals),
+                        SHARD_WORDS)
+                    self.overlays += 1
+                out.append((shard_list, placed, sig))
+            with self._sc_lock:
+                cur2 = self._stack_cache.get(ckey)
+                if cur2 is not None and cur2[0] == token:
+                    self._stack_cache[ckey] = (token, out, new_epochs)
+                    self._stack_cache.move_to_end(ckey)
+            self._budget.touch(("stack", id(self), ckey))
+            return out
 
     def _place_host_block(self, frs, shape) -> torch.Tensor:
         """Cold staging: densify the group's fragments into one host block

@@ -8,8 +8,6 @@ views: "standard" for set bits, time-quantum views for timestamped bits, and
 
 Port copy of the JAX package's ``storage/field.py``: the PyTorch port
 keeps its own copy so that it imports nothing of the JAX package.
-``ingest_import`` (the streaming-ingest group commit, which feeds the
-device delta overlay) waits for the ingest slice and is dropped.
 """
 
 from __future__ import annotations
@@ -435,6 +433,49 @@ class Field:
                 else:
                     frag.bulk_import(vr[sel], vc[sel] % SHARD_WIDTH,
                                      clear=clear)
+
+    def ingest_import(self, rows: np.ndarray, cols: np.ndarray,
+                      timestamps=None) -> int:
+        """Group-commit import for the streaming ingest path
+        (docs/ingest.md): same view fan-out as ``import_bits`` but each
+        fragment takes its batch through ``Fragment.ingest_apply`` — one
+        WAL frame, one gen bump, one rank-cache touch per FLUSH, with
+        the new bits riding the device delta overlay instead of
+        invalidating resident device state.  Mutex/bool fields fall back
+        to ``mutex_import`` (their implied clears cannot overlay); the
+        flush is still one batch per fragment.  Returns changed bits."""
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        view_bits: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        if timestamps is None:
+            view_bits[VIEW_STANDARD] = (rows, cols)
+        else:
+            timed: dict[str, tuple[list, list]] = {}
+            for r, c, ts in zip(rows, cols, timestamps):
+                if ts is not None:
+                    for vn in tq.views_by_time(
+                            VIEW_STANDARD, ts, self.options.time_quantum):
+                        timed.setdefault(vn, ([], []))
+                        timed[vn][0].append(r)
+                        timed[vn][1].append(c)
+            view_bits[VIEW_STANDARD] = (rows, cols)
+            for vn, (tr, tc) in timed.items():
+                view_bits[vn] = (np.asarray(tr, dtype=np.int64),
+                                 np.asarray(tc, dtype=np.int64))
+        changed = 0
+        for vname, (vr, vc) in view_bits.items():
+            view = self._create_view_if_not_exists(vname)
+            shards = vc // SHARD_WIDTH
+            for shard in np.unique(shards):
+                sel = shards == shard
+                frag = view.create_fragment_if_not_exists(int(shard))
+                if self.options.type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL):
+                    changed += frag.mutex_import(vr[sel],
+                                                 vc[sel] % SHARD_WIDTH)
+                else:
+                    changed += frag.ingest_apply(vr[sel],
+                                                 vc[sel] % SHARD_WIDTH)
+        return changed
 
     def import_values(self, cols: np.ndarray, values: np.ndarray,
                       clear: bool = False) -> None:

@@ -41,9 +41,11 @@ hooks are copied.  ``device()`` is rewritten to keep one torch mirror per
 device, and ``device_sig`` takes the device whose container-kernel
 backend ("cuda" or "torch") it records; a compressed fragment's
 signature drops the JAX package's pow2 buckets (see ``device_sig``).
-The ingest delta overlay (``ingest_apply``, the journal, and its branch
-in ``device()``) waits for the ingest slice and is dropped, so
-``device_gen`` always equals ``gen``.
+The ingest delta overlay is carried: ``ingest_apply`` journals a flush's
+new words, ``delta_chunks`` / ``fold_delta`` read and retire the
+journal, and ``device()`` ORs unseen chunks into a resident mirror
+(ingest/delta.py) — so ``device_gen`` lags ``gen`` while a journal is
+live, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ from ..utils import events
 from ..utils.durable import checksum, durable_replace, fsync_dir, fsync_file
 from ..utils.faults import FAULTS
 from ..utils.locks import make_lock, make_rlock
-from .membudget import DEFAULT_BUDGET, HOST_STAGE_BUDGET
+from . import membudget as _membudget
+from .membudget import DEFAULT_BUDGET, HOST_STAGE_BUDGET, INGEST_DELTA_BUDGET
 from .roaring_io import SnapshotFormatError, pack_snapshot, unpack_snapshot
 
 # On-disk snapshot format: see storage/roaring_io.py (pack_snapshot /
@@ -215,11 +218,21 @@ class Fragment:
         # mirrors alive (and a recreated fragment can never alias a stale
         # cache entry).
         self.gen = next(self._GEN)
-        # device_gen: the gen the device-resident forms (mirrors, stacked
-        # blocks, packed streams) reflect.  The JAX package's ingest delta
-        # overlay lets it lag gen; the port has no overlay, so every
-        # mutation re-anchors it to gen.
+        # Ingest delta overlay (docs/ingest.md): device_gen is the gen the
+        # device-resident forms (mirrors, stacked blocks, packed streams)
+        # reflect.  Ingest flushes (ingest_apply) update the sparse store
+        # and bump gen WITHOUT invalidating device state — the new bits
+        # ride in the journal, a list of (epoch, flat word idx, word val)
+        # chunks OR'd into resident device tensors as overlays.  Any other
+        # mutation (or a fold) clears the journal and re-anchors
+        # device_gen = gen, so device consumers see exactly one of: a
+        # current form, a current-at-device_gen form plus the journal that
+        # upgrades it, or a dirty flag.
         self.device_gen = self.gen
+        self.ingest_epoch = 0
+        self._journal: list[tuple[int, np.ndarray, np.ndarray]] = []
+        self._journal_bytes = 0
+        self._mirror_epoch: dict = {}
         # Corruption quarantine (docs/robustness.md): non-None = the
         # reason string.  Quarantined fragments answer reads as EMPTY,
         # refuse writes with FragmentQuarantinedError, and are healed
@@ -477,6 +490,7 @@ class Fragment:
         self._device_dirty = True
         self.gen = next(self._GEN)  # derived caches must not serve stale
         self.device_gen = self.gen
+        self._clear_journal()
         self._stage = None
         if self._wal_file is not None:
             try:
@@ -649,7 +663,27 @@ class Fragment:
         self._device_dirty = True
         self._dirty_data = True
         self.gen = next(self._GEN)
+        # any non-ingest mutation (or an explicit fold) supersedes the
+        # overlay journal: device forms rebuild from the sparse store,
+        # which already holds every journaled bit
         self.device_gen = self.gen
+        self._clear_journal()
+
+    def _clear_journal(self):
+        if self._journal:
+            self._journal.clear()
+            self._journal_bytes = 0
+            INGEST_DELTA_BUDGET.unregister(("delta", id(self)))
+        self._mirror_epoch.clear()
+
+    def _fold_journal_locked(self):
+        """Merge step: device forms rebuild from the (already-current)
+        sparse store on next use.  NOT a data mutation — gen is
+        unchanged, so result caches keyed on it stay valid; only the
+        device-residency anchor moves."""
+        self._device_dirty = True
+        self.device_gen = self.gen
+        self._clear_journal()
 
     def _note_rank(self, rows):
         """Incremental rank-cache maintenance after a successful mutation
@@ -1095,6 +1129,7 @@ class Fragment:
     def _drop_stage(self):
         HOST_STAGE_BUDGET.unregister(("stage", id(self)))
         HOST_STAGE_BUDGET.unregister(("packed", id(self)))
+        INGEST_DELTA_BUDGET.unregister(("delta", id(self)))
         self._stage = None
         self._packed = None
 
@@ -1116,8 +1151,12 @@ class Fragment:
                 return p[1]
             packed = containers.pack_words(self._idx, self._val)
             # exact packed bytes supersede the census upper bound as the
-            # density-heuristic input, for free.  Keyed by device_gen,
-            # like every device-facing form.
+            # density-heuristic input, for free.  Keyed by device_gen, not
+            # gen: while an ingest journal is active the device-facing
+            # pack/estimate are FROZEN at the journal's base so stack
+            # tokens stay stable between folds (a compressed fragment
+            # never journals, so packing sees an empty journal, where
+            # the two gens agree).
             self._comp_est = (self.device_gen, packed.nbytes)
             if HOST_STAGE_BUDGET.limit_bytes != 0:
                 self._packed = (self.device_gen, packed)
@@ -1200,6 +1239,83 @@ class Fragment:
                 return None
             return p[1].type_histogram()
 
+    # -- ingest delta overlay (docs/ingest.md) -----------------------------
+
+    def ingest_apply(self, rows: np.ndarray, cols: np.ndarray) -> int:
+        """Group-commit apply of a flush's set bits for this fragment:
+        ONE sparse-store merge, ONE WAL frame, ONE generation bump, ONE
+        rank-cache touch — and, when a device-resident form exists, the
+        new words land in the overlay journal instead of invalidating it
+        (mirrors/stacks OR the journal in at next use; the sparse store
+        is the source of truth either way, so every host read is current
+        immediately).  Returns the changed-bit count; a fully idempotent
+        re-ingest (no bit changed) is a no-op — no WAL frame, no gen
+        bump — which is what makes client retries after a 503 safe."""
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        if rows.size == 0:
+            return 0
+        with self._lock:
+            self._check_writable()
+            limit = _membudget.INGEST_DELTA_LIMIT_BYTES
+            if int(rows.max()) >= self._cap_rows:
+                # capacity growth changes the device tensor shape — no
+                # overlay can cover that; _ensure_rows folds the journal
+                self._ensure_rows(int(rows.max()))
+            # Overlay only for dense-form fragments: compressed packed
+            # streams cannot absorb a scatter — those fold per flush (the
+            # flush is still one gen bump, the win over per-call
+            # bulk_import remains).  A dirty device state doesn't matter:
+            # consumers built later stage from the sparse store (already
+            # current) and record the epochs they captured.
+            overlay = limit > 0 and self.device_form() == "dense"
+            nidx, nval = _pairs_to_words(rows, cols)
+            changed = self._or_words(nidx, nval)
+            if changed == 0:
+                return 0
+            if not overlay:
+                self._mark_device_dirty()
+            else:
+                self._dirty_data = True
+                self.gen = next(self._GEN)
+                self.ingest_epoch += 1
+                self._journal.append((self.ingest_epoch, nidx, nval))
+                self._journal_bytes += int(nidx.nbytes + nval.nbytes)
+                INGEST_DELTA_BUDGET.register(
+                    ("delta", id(self)), self._journal_bytes,
+                    lambda: None)  # accounting-only; folds are cooperative
+                # per-fragment share of the delta budget: one hot
+                # fragment must not monopolise it before the committer's
+                # cross-fragment merge pass can react
+                if self._journal_bytes > max(limit // 8, 1 << 20):
+                    self._fold_journal_locked()
+            self._note_rank(rows)
+            self._log_ops(_OP_SET, rows, cols)
+            return changed
+
+    def delta_chunks(self, after_epoch: int) -> list:
+        """Journal chunks newer than ``after_epoch`` — what a device
+        consumer (mirror, stacked block) must OR in to reach the current
+        generation.  Chunks are immutable once appended; the list copy
+        makes iteration safe outside the lock."""
+        with self._lock:
+            return [c for c in self._journal if c[0] > after_epoch]
+
+    def delta_bytes(self) -> int:
+        return self._journal_bytes
+
+    def fold_delta(self) -> bool:
+        """Fold the overlay journal into a plain device-dirty state (the
+        background-merge step): the next staging rebuilds mirrors/stacks
+        and the packed form from the sparse store, which already holds
+        every journaled bit.  Returns True if there was anything to
+        fold."""
+        with self._lock:
+            if not self._journal:
+                return False
+            self._fold_journal_locked()
+            return True
+
     def device(self, target):
         """The device-resident dense mirror on ``target`` (a torch device;
         uploads if stale): int32 words holding the uint32 bit patterns,
@@ -1211,11 +1327,12 @@ class Fragment:
         (compressed bytes on the wire) and decodes it to the dense mirror
         ON the device (ops/containers.py upload_decode, which goes through
         the decode kernel on a CUDA device); the rest upload the host
-        dense block.  Every mirror registers with the fragment's
-        DeviceBudget at its dense bytes; under a configured limit the LRU
-        mirror is dropped and re-uploaded on next use.  (The JAX package's
-        ingest delta overlay branch is outside this slice and is
-        dropped.)"""
+        dense block.  A resident mirror that has not seen every journaled
+        ingest flush absorbs the unseen chunks as one indexed OR
+        (ingest/delta.py ``apply_overlay``) instead of a re-upload.  Every
+        mirror registers with the fragment's DeviceBudget at its dense
+        bytes; under a configured limit the LRU mirror is dropped and
+        re-uploaded on next use."""
         import torch
 
         target = torch.device(target)
@@ -1225,6 +1342,19 @@ class Fragment:
                 self._device_dirty = False
             mirror = self._mirrors.get(target)
             key = (id(self), target)
+            if mirror is not None and \
+                    self._mirror_epoch.get(target, 0) < self.ingest_epoch \
+                    and self._journal:
+                # OR the journal chunks this mirror hasn't seen into it
+                # ON the device — a flush's worth of words travels
+                # instead of the whole dense tensor
+                from ..ingest.delta import apply_overlay, merge_chunks
+                chunks = self.delta_chunks(self._mirror_epoch.get(target, 0))
+                didx, dval = merge_chunks(chunks)
+                if didx.size:
+                    mirror = apply_overlay(mirror, didx, dval, SHARD_WORDS)
+                    self._mirrors[target] = mirror
+                self._mirror_epoch[target] = self.ingest_epoch
             if mirror is None:
                 if self.device_form() == "compressed":
                     from ..ops.containers import upload_decode
@@ -1234,6 +1364,9 @@ class Fragment:
                     from ..ops.bitset import from_numpy
                     mirror = from_numpy(self.staged_dense(), target)
                 self._mirrors[target] = mirror
+                # fresh uploads stage from the sparse store, which holds
+                # every journaled bit already
+                self._mirror_epoch[target] = self.ingest_epoch
                 self.budget.register(
                     key, self._cap_rows * SHARD_WORDS * 4,
                     lambda t=target: self._evict_mirror(t))

@@ -20,6 +20,9 @@ bit.
 
 Port copy of the JAX package's ``storage/roaring_io.py``: the PyTorch
 port keeps its own copy so that it imports nothing of the JAX package.
+One change: a run container's runs expand in one vectorized step, where
+the JAX module loops over runs (the served load of the SSB corpus spent
+most of its unpack time in that loop); the positions are the same.
 """
 
 from __future__ import annotations
@@ -259,8 +262,13 @@ def _unpack_roaring(data: bytes, row_id_cap: int | None = None
             run_count = struct.unpack_from("<H", data, off)[0]
             runs = np.frombuffer(data, dtype="<u2", count=run_count * 2,
                                  offset=off + 2).reshape(run_count, 2)
-            for start, last in runs.astype(np.int64):
-                positions.append(base + np.arange(start, last + 1))
+            # every run's [start, last] at once (a run with last <
+            # start is empty, as np.arange makes it)
+            first = runs[:, 0].astype(np.int64)
+            lens = np.maximum(runs[:, 1].astype(np.int64) - first + 1, 0)
+            skip = np.cumsum(lens) - lens
+            positions.append(base + np.repeat(first - skip, lens)
+                             + np.arange(int(lens.sum())))
         else:
             raise RoaringFormatError(f"unknown container type {ctype}")
 

@@ -46,6 +46,8 @@ tests/test_storage.py
 tests/test_torch_bitset.py
 tests/test_torch_containers.py
 tests/test_torch_executor.py
+tests/test_torch_ingest.py
+tests/test_torch_server.py
 tests/test_torch_storage.py
 tests/test_translate.py
 tests/test_wholequery.py
