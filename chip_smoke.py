@@ -11,7 +11,10 @@ those paths against its plain PyTorch version.  Phases, each printing
 its own lines and its seconds:
 
 1. card   — the device name and power limit; fails without CUDA.
-2. build  — compiles ``pilosa_tpu_torch/csrc`` with nvcc (timed).
+2. build  — compiles ``pilosa_tpu_torch/csrc`` with nvcc (timed), and
+   the prepared cache's C fingerprint scanner
+   (``pilosa_tpu_torch/native``) with cc, which must build and agree
+   with the Python fingerprint.
 3. corpus — builds the SSB corpus from a seed (pilosa_tpu_torch/ssb.py).
 4. kernels against plain — each kernel's wrapper on card tensors, on the
    boundary container packs (each alone, then all in one ragged stack)
@@ -19,20 +22,33 @@ its own lines and its seconds:
    list (which must form ONE signature group over all 256 shards),
    bit-exact against its plain version; times (CUDA events) beside the
    bound.
-5. ssb    — the ``_ssb_batch`` mix (multi-call requests: the grouped
-   path), dense-resident (no budget) and compressed-resident (96 MB
-   budget); every answer equals the numpy oracle, both forms agree, and
-   the compressed run must launch both kernels (counts reset just before
-   it, read just after; printed per request too).
+5. ssb    — the ``_ssb_batch`` mix (multi-call requests), dense-
+   resident (no budget) and compressed-resident (96 MB budget), each
+   through the default path — the whole request as one whole-query
+   program through the dispatch batcher, captured into a CUDA graph on
+   its signature's second sighting and replayed after — and through the
+   grouped path (``whole_query=False``), three passes over the same
+   requests; every answer equals the numpy oracle and all four runs
+   agree.  The default path must take no fallback and replay graphs;
+   the compressed runs must launch both kernels, and the compressed
+   default run must launch both inside replayed graphs (counts reset
+   just before each run, read just after; a replay counts the launches
+   its graph recorded at capture).  Printed per run: whole-query
+   requests, fallbacks by node, graphs captured and held, replays,
+   capture ms, the graph pool's reserved MB, launches per request.
 6. bsi64  — config 4 (pilosa_tpu_torch/bsi64.py): the corpus at 64
    shards; ``decode_block`` on the packed ``bsig_v`` stack the stacked
    executor places, bit-exact against its plain version and timed; then
    requests of 64 ``Sum(Row(v > X), field=v)`` calls, the GroupBy and a
    Min / Max / Count / TopN request under the same predicate, dense and
-   compressed, every answer equal to the numpy oracle; the compressed
-   run must launch both kernels.  Printed: qps, request p50, launches
-   and batch chunks per request, prepared hits, the GroupBy time,
-   resident MB.
+   compressed, on the default path and (one 64-Sum request after the
+   warm one) the grouped path, every answer equal to the numpy oracle;
+   each 64-Sum request must fall back as ``batch-chunks`` and run the
+   number of chunks the ``batch_chunk_size`` rule gives (8 at 64
+   shards), and nothing else may fall back; the compressed runs must
+   launch both kernels.  Printed: qps, request p50, launches and batch
+   chunks per request, prepared hits, the GroupBy time, resident MB and
+   the whole-query counters.
 7. served — the port's server (``pilosa_tpu_torch.server``) on the card
    in a fresh data dir: ``ssb`` and its four fields created over HTTP,
    the 256-shard corpus loaded through ``import-roaring`` (one POST per
@@ -42,11 +58,19 @@ its own lines and its seconds:
    before the run and read just after), then restarted on the same data
    dir dense-resident, where 1,048,576 new ``rev`` bits stream through
    ``/ingest`` and, after the ack, the mix must equal the updated oracle
-   with the dense stacks taking overlays, not re-stages; last
-   ``python3 -m pilosa_tpu_torch server`` as a subprocess (``/status``,
-   one Set + Count, SIGTERM, exit 0).  Printed: load seconds, qps and
-   p50 per client count, launches per request, ingest records/s,
-   overlays and re-stages.
+   with the dense stacks taking overlays, not re-stages.  The servers
+   run their defaults (whole-query programs through the batcher), which
+   must take no fallback; before the ingest the dense server also takes
+   the fusible leg — 8 clients sending requests of 3 Counts and 1 TopN
+   only — which must fuse tickets (a launch with more than one, from
+   the batcher's ``snapshot()``) and replay graphs.  After the ingest a
+   second server on the same data dir runs the grouped path
+   (``whole_query=False``, no batcher) on the same requests, printed
+   beside the default path's calls/s and p50.  Last ``python3 -m
+   pilosa_tpu_torch server`` as a subprocess (``/status``, one Set +
+   Count, SIGTERM, exit 0).  Printed: load seconds, qps and p50 per
+   client count, launches per request, ingest records/s, overlays and
+   re-stages, the fusible leg's fused launches and batch sizes.
    With ``--profile`` each run of phases 5, 6 and 7 ends with one
    request under torch.profiler: the card's busy and idle share and its
    top kernels.
@@ -359,11 +383,55 @@ def check_answers(label: str, hist, shards, calls, got):
                              f"{got[bad]}, oracle {want[bad]}")
 
 
-def run_ssb(holder, hist, device, label: str, profile: bool = False):
+class FallbackLog:
+    """The executor's logger stand-in: counts ``wholequery.fallback``
+    events by node."""
+
+    def __init__(self):
+        self.nodes: dict = {}
+
+    def event(self, name, **fields):
+        if name == "wholequery.fallback":
+            self.nodes[fields["node"]] = self.nodes.get(fields["node"], 0) + 1
+
+    def info(self, msg):
+        pass
+
+    error = debug = info
+
+
+def wq_record(ex, log: FallbackLog, requests: int) -> dict:
+    """The whole-query counters of one run: requests, fallbacks by node,
+    graphs captured and held, replays, capture ms, the graph pool's
+    reserved MB, and launches per request with the replayed share
+    (a replay counts the launches its graph recorded at capture)."""
+    from pilosa_tpu_torch.ops import kernels
+    snap = ex.wholequery.snapshot()
+    pool = ex.wholequery.pool_reserved_bytes() \
+        if torch.device(ex.device).type == "cuda" else None
+    return {"wq_requests": ex.wq_requests,
+            "wq_fallbacks": dict(log.nodes),
+            "graphs_captured": snap["captures"], "graphs_held":
+            snap["graphs"], "replays": snap["replays"],
+            "eager_runs": snap["eagerRuns"],
+            "capture_ms": snap["captureS"] * 1e3,
+            "pool_mb": None if pool is None else pool / 2**20,
+            "launches_replayed": dict(kernels.REPLAYED),
+            "launches_per_request": {k: n / requests for k, n in
+                                     kernels.LAUNCHES.items()}}
+
+
+def run_ssb(holder, hist, device, label: str, profile: bool = False,
+            whole_query: bool = True):
     """Warm, then time N_BATCHES requests of BATCH mixed SSB calls over
-    all shards; every answer must equal the oracle.  Each timed request
-    also records the milliseconds the Python garbage collector held the
-    host inside it (``batch_gc_ms``).  Returns (answers, record)."""
+    all shards, then the same N_BATCHES twice more: on the default path a
+    whole-query signature runs eagerly on its first sighting, is captured
+    into a CUDA graph and replayed on its second (pass 2) and replays
+    after (pass 3); every answer must equal the oracle.  ``whole_query``:
+    the default path (whole-query programs through the dispatch batcher)
+    or the grouped path.  Each timed request also records the
+    milliseconds the Python garbage collector held the host inside it
+    (``batch_gc_ms``).  Returns (answers, record)."""
     from pilosa_tpu_torch import ssb
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import kernels
@@ -371,8 +439,11 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False):
     shards = list(range(N_SHARDS))
     rng = np.random.default_rng(SEED + 1)
     batches = [ssb.ssb_calls(rng, BATCH) for _ in range(N_BATCHES + 1)]
-    ex = Executor(holder, device=device)
+    ex = Executor(holder, device=device, whole_query=whole_query)
+    log = FallbackLog()
+    ex.logger = log
     gc_s = [0.0, 0.0]              # [start of the open pause, paused total]
+    label = label + ("" if whole_query else "_grouped")
 
     def on_gc(phase, info):
         if phase == "start":
@@ -380,54 +451,68 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False):
         else:
             gc_s[1] += time.perf_counter() - gc_s[0]
 
+    def one(calls):
+        gc_s[1] = 0.0
+        t0 = time.perf_counter()
+        got = ssb.normalize(ex.execute(ssb.SSB_INDEX, ssb.ssb_batch(calls)))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_answers(label, hist, shards, calls, got)
+        return got, dt
+
     kernels.reset_launches()
-    answers, lat, gc_ms = [], [], []
+    answers, lat, gc_ms, lat_capture, lat_replay = [], [], [], [], []
     gc.callbacks.append(on_gc)
     try:
         for i, calls in enumerate(batches):
-            gc_s[1] = 0.0
-            t0 = time.perf_counter()
-            got = ssb.normalize(ex.execute(ssb.SSB_INDEX,
-                                           ssb.ssb_batch(calls)))
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            got, dt = one(calls)
             if i:                  # batch 0 warms: stacks staged, cached
                 lat.append(dt)
                 gc_ms.append(round(gc_s[1] * 1e3, 3))
-            check_answers(label, hist, shards, calls, got)
             answers.append(got)
+        for lat_pass in (lat_capture, lat_replay):
+            for calls in batches[1:]:
+                lat_pass.append(one(calls)[1])
     finally:
         gc.callbacks.remove(on_gc)
     if profile:
         profile_request(lambda: ex.execute(
             ssb.SSB_INDEX, ssb.ssb_batch(batches[-1])), label)
     launches = dict(kernels.LAUNCHES)
-    requests = len(batches) + int(profile)
+    requests = len(batches) + 2 * len(lat_replay) + int(profile)
     stats = DEFAULT_BUDGET.stats()
     chunks = ex.stacked.batch_chunks
+    wq = wq_record(ex, log, requests)
     ex.close()
-    rec = {"qps": BATCH * len(lat) / sum(lat),
+    rec = {"whole_query": whole_query,
+           "qps": BATCH * len(lat) / sum(lat),
            "batch_chunks_per_request": chunks / requests,
            "resident_mb": stats["residentBytes"] / 2**20,
            "compressed_mb": stats["compressedBytes"] / 2**20,
            "batch_p50_ms": statistics.median(lat) * 1e3,
            "batch_ms": [round(x * 1e3, 3) for x in lat],
+           "capture_pass_p50_ms": statistics.median(lat_capture) * 1e3,
+           "replay_qps": BATCH * len(lat_replay) / sum(lat_replay),
+           "replay_p50_ms": statistics.median(lat_replay) * 1e3,
+           "replay_ms": [round(x * 1e3, 3) for x in lat_replay],
            "batch_gc_ms": gc_ms,
-           "launches": launches, "requests": requests,
-           "launches_per_request": {k: n / requests
-                                    for k, n in launches.items()}}
+           "launches": launches, "requests": requests, **wq}
     say("ssb", run=label, shards=N_SHARDS, calls_per_batch=BATCH,
         batches=len(lat), qps=rec["qps"], batch_p50_ms=rec["batch_p50_ms"],
+        capture_pass_p50_ms=rec["capture_pass_p50_ms"],
+        replay_qps=rec["replay_qps"], replay_p50_ms=rec["replay_p50_ms"],
         resident_mb=rec["resident_mb"], compressed_mb=rec["compressed_mb"],
         launches=json.dumps(launches), requests=requests,
-        launches_per_request=json.dumps(rec["launches_per_request"]),
-        batch_chunks_per_request=rec["batch_chunks_per_request"])
+        batch_chunks_per_request=rec["batch_chunks_per_request"],
+        **{k: (json.dumps(v) if isinstance(v, dict) else v)
+           for k, v in wq.items()})
     return answers, rec
 
 
 # -- phase 6: BASELINE config 4 --------------------------------------------
 
 CFG4_REQUESTS = 6     # timed 64-Sum requests per residency, after one warm
+CFG4_REQUESTS_GROUPED = 1     # the same on the grouped path
 
 
 def cfg4_corpus(n_shards: int):
@@ -490,12 +575,29 @@ def cfg4_oracle_topn(vals, segs, x: int, n: int) -> list:
     return [(int(i), int(counts[i])) for i in order[:n] if counts[i] > 0]
 
 
+def cfg4_predicted_chunks(n_shards: int) -> int:
+    """Dispatch chunks of one 64-Sum request by the JAX package's
+    ``batch_chunk_size`` rule (the port's copy): each Sum's filter
+    ``Row(v > X)`` takes bsi.MAG_BITS params slots.  More than one chunk
+    is the whole-query program's ``batch-chunks`` fallback."""
+    from pilosa_tpu_torch import bsi64
+    from pilosa_tpu_torch.executor.executor import batch_chunk_size
+    from pilosa_tpu_torch.ops import bsi
+    chunk = batch_chunk_size(bsi.MAG_BITS, n_shards)
+    return -(-bsi64.SUMS_PER_REQUEST // chunk)
+
+
 def run_cfg4(holder, oracle, device, label: str, n_shards: int,
-             profile: bool = False):
-    """Warm, then time CFG4_REQUESTS requests of 64 Sums; then the GroupBy
-    (warmed with another literal, as bench.py times it) and one request of
-    Min / Max / Count / TopN under a range predicate.  Every answer must
-    equal the numpy oracle.  Returns (answers, record)."""
+             profile: bool = False, whole_query: bool = True,
+             n_requests: int = CFG4_REQUESTS):
+    """Warm, then time ``n_requests`` requests of 64 Sums; then the
+    GroupBy (warmed with another literal, as bench.py times it) and one
+    request of Min / Max / Count / TopN under a range predicate.  Every
+    answer must equal the numpy oracle.  ``whole_query``: the default
+    path or the grouped path.  On the default path every 64-Sum request
+    must fall back as ``batch-chunks`` exactly when the chunk rule gives
+    it more than one chunk, and nothing else may fall back.  Returns
+    (answers, record)."""
     from pilosa_tpu_torch import bsi64
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import kernels
@@ -503,8 +605,11 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
     cols, vals, segs = oracle
     rng = np.random.default_rng(SEED + 5)
     xs_all = [rng.integers(0, bsi64.V_MAX, size=bsi64.SUMS_PER_REQUEST)
-              for _ in range(CFG4_REQUESTS + 1)]
-    ex = Executor(holder, device=device)
+              for _ in range(n_requests + 1)]
+    ex = Executor(holder, device=device, whole_query=whole_query)
+    log = FallbackLog()
+    ex.logger = log
+    label = label + ("" if whole_query else "_grouped")
     t_phase = time.perf_counter()
 
     def check(what, got, want):
@@ -528,6 +633,18 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
     n_req = len(xs_all)
     sum_launches = dict(kernels.LAUNCHES)
     chunks = (ex.stacked.batch_chunks - chunks0) / n_req
+    predicted = cfg4_predicted_chunks(n_shards)
+    # one chunk runs inside the whole-query program, several fall back to
+    # the grouped path's chunks
+    want = predicted if predicted > 1 or not whole_query else 0
+    if chunks != want:
+        raise AssertionError(f"config 4 {label}: {chunks} batch chunks a "
+                             f"64-Sum request, the rule gives {want}")
+    if whole_query and log.nodes != (
+            {"batch-chunks": n_req} if predicted > 1 else {}):
+        raise AssertionError(f"config 4 {label}: 64-Sum fallbacks "
+                             f"{log.nodes}, the rule predicts "
+                             f"{n_req if predicted > 1 else 0}")
     ex.execute(bsi64.INDEX, bsi64.group_by_query(1))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -547,14 +664,21 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
            bsi64.oracle_min_max(vals, x, True), int((vals > x).sum()),
            cfg4_oracle_topn(vals, segs, x, 5)])
     answers.append(got)
+    if whole_query and sum(log.nodes.values()) != n_req * (predicted > 1):
+        raise AssertionError(f"config 4 {label}: the GroupBy or the Min / "
+                             f"Max / Count / TopN request fell back: "
+                             f"{log.nodes}")
     if profile:
         profile_request(lambda: ex.execute(
             bsi64.INDEX, bsi64.sum_request(xs_all[-1])), f"bsi64-{label}")
     launches = dict(kernels.LAUNCHES)
     stats = DEFAULT_BUDGET.stats()
     hits = ex.prepared.hits
+    wq = wq_record(ex, log, n_req + 3 + int(profile))
     ex.close()
-    rec = {"qps": bsi64.SUMS_PER_REQUEST * len(lat) / sum(lat),
+    rec = {"whole_query": whole_query,
+           "predicted_chunks_per_sum_request": predicted,
+           "qps": bsi64.SUMS_PER_REQUEST * len(lat) / sum(lat),
            "requests_per_s": len(lat) / sum(lat),
            "request_p50_ms": statistics.median(lat) * 1e3,
            "request_ms": [round(t * 1e3, 3) for t in lat],
@@ -566,7 +690,7 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
            "group_by_ms": gb_ms,
            "resident_mb": stats["residentBytes"] / 2**20,
            "compressed_mb": stats["compressedBytes"] / 2**20,
-           "seconds": time.perf_counter() - t_phase}
+           "seconds": time.perf_counter() - t_phase, **wq}
     say("bsi64", run=label, shards=n_shards,
         sums_per_request=bsi64.SUMS_PER_REQUEST, requests=len(lat),
         **{k: (json.dumps(v) if isinstance(v, (dict, list)) else v)
@@ -726,6 +850,67 @@ def served_mix(srv, hist, tab, n_shards: int, label: str):
     return rec
 
 
+FUSIBLE_REQUESTS = 4           # requests per client of the fusible leg
+
+
+def fusible_calls(rng) -> list:
+    """One request of the fusible leg: three Q1-style Counts and one
+    Q2-style TopN, in that order, so every request lowers to the same
+    whole-query program (a count node of 3 rows, a row_counts node of
+    1) — no GroupBy, whose group_counts node never fuses."""
+    return [(0, int(rng.integers(0, 7)), int(rng.integers(0, 5)), 0)
+            for _ in range(3)] + \
+        [(1, 0, int(rng.integers(0, 5)), int(rng.integers(0, 12)))]
+
+
+def served_fusible(srv, hist, n_shards: int) -> dict:
+    """SERVED_CLIENTS concurrent clients, each sending FUSIBLE_REQUESTS
+    requests of ``fusible_calls``: the dispatch batcher must fuse their
+    whole-query tickets — some launch with more than 1 ticket, from its
+    ``snapshot()`` — and every answer must equal the oracle."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pilosa_tpu_torch import ssb
+    shards = list(range(n_shards))
+    rng = np.random.default_rng(SEED + 7)
+    reqs = [fusible_calls(rng)
+            for _ in range(SERVED_CLIENTS * FUSIBLE_REQUESTS)]
+    b = srv.api.executor.batcher
+    f0, s0 = b.fused_launches, b.single_launches
+
+    def client(k):
+        lat = []
+        for calls in reqs[k::SERVED_CLIENTS]:
+            t0 = time.perf_counter()
+            got = http(srv.port, "POST", f"/index/{ssb.SSB_INDEX}/query",
+                       ssb.ssb_batch(calls).encode())["results"]
+            lat.append(time.perf_counter() - t0)
+            want = [ssb.oracle(hist, shards, c) for c in calls]
+            if got != want:
+                raise AssertionError(f"fusible leg: {ssb.ssb_batch(calls)}"
+                                     f" -> {got}, oracle {want}")
+        return lat
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVED_CLIENTS) as pool:
+        lat = [x for ls in pool.map(client, range(SERVED_CLIENTS))
+               for x in ls]
+    wall = time.perf_counter() - t0
+    snap = b.snapshot()
+    rec = {"requests": len(reqs),
+           "calls_per_s": sum(len(r) for r in reqs) / wall,
+           "p50_ms": statistics.median(lat) * 1e3,
+           "fused_launches": b.fused_launches - f0,
+           "single_launches": b.single_launches - s0,
+           "batch_size": snap["batchSize"]}
+    say("served", run="fusible", clients=SERVED_CLIENTS,
+        **{k: (json.dumps(v) if isinstance(v, dict) else v)
+           for k, v in rec.items()})
+    if rec["fused_launches"] <= 0 or \
+            snap["batchSize"]["count"] <= snap["batchSize"]["le_1"]:
+        raise AssertionError(f"the fusible leg never fused a launch: {snap}")
+    return rec
+
+
 def ingest_served(srv, holder, n_shards: int, seed: int) -> dict:
     """Stream INGEST_BITS new rev bits over every shard through /ingest
     (INGEST_POSTS framed POSTs, each acked after its group commit) into
@@ -820,6 +1005,23 @@ def cli_server_roundtrip(device) -> dict:
     return rec
 
 
+def served_wq(srv, label: str, replays: bool) -> dict:
+    """A served run's whole-query record: no request may fall back, and
+    with ``replays`` (a run that repeats a signature) the card must have
+    replayed captured graphs."""
+    ex = srv.api.executor
+    rec = {"wq_requests": ex.wq_requests, "wq_fallbacks": ex.wq_fallbacks,
+           **ex.wholequery.snapshot()}
+    say("served", run=f"{label}_wholequery",
+        **{k: json.dumps(v) if isinstance(v, dict) else v
+           for k, v in rec.items()})
+    if ex.wq_fallbacks or not ex.wq_requests or (
+            replays and torch.device(ex.device).type == "cuda"
+            and not rec["replays"]):
+        raise AssertionError(f"served {label}: whole-query {rec}")
+    return rec
+
+
 def run_served(holder, hist, device, n_shards: int = N_SHARDS,
                profile: bool = False) -> dict:
     """The port's server on ``device`` over the SSB corpus loaded through
@@ -857,6 +1059,8 @@ def run_served(holder, hist, device, n_shards: int = N_SHARDS,
                     raise AssertionError(f"the compressed served run never "
                                          f"launched {name}")
             say("served", run="compressed", launches=json.dumps(launches))
+            rec["compressed_wholequery"] = served_wq(srv, "compressed",
+                                                     False)
             if profile:
                 profile_request(lambda: http(
                     srv.port, "POST", query_path, prof_body),
@@ -870,6 +1074,7 @@ def run_served(holder, hist, device, n_shards: int = N_SHARDS,
                 profile_request(lambda: http(
                     srv.port, "POST", query_path, prof_body),
                     "served_dense")
+            rec["fusible"] = served_fusible(srv, hist, n_shards)
             st = srv.api.executor.stacked
             b0, o0 = st.stack_builds, st.overlays
             rec["ingest"] = ingest_served(srv, holder, n_shards, SEED + 6)
@@ -883,8 +1088,24 @@ def run_served(holder, hist, device, n_shards: int = N_SHARDS,
             if rec["ingest"]["overlays"] <= 0:
                 raise AssertionError("the dense served run took no ingest "
                                      "overlay")
+            rec["dense_wholequery"] = served_wq(srv, "dense", True)
         finally:
             srv.close()
+        # a second server over the same data dir: the grouped path with
+        # no batcher, against the same updated oracle
+        srv = start_server(data_dir, device, compressed_resident=False,
+                           whole_query=False, dispatch_batch=False)
+        try:
+            rec["grouped_after_ingest"] = served_mix(
+                srv, hist, tab, n_shards, "dense_grouped_after_ingest")
+        finally:
+            srv.close()
+        for n in ("1", "8"):
+            say("served", clients=n, dense_after_ingest_qps=rec[
+                "after_ingest"][f"qps_{n}"], grouped_qps=rec[
+                "grouped_after_ingest"][f"qps_{n}"],
+                dense_after_ingest_p50_ms=rec["after_ingest"][f"p50_ms_{n}"],
+                grouped_p50_ms=rec["grouped_after_ingest"][f"p50_ms_{n}"])
     rec["cli"] = cli_server_roundtrip(device)
     return rec
 
@@ -912,6 +1133,16 @@ def main(argv) -> int:
     for line in kernels.BUILD_INFO.get("ptxas", "").splitlines():
         if "registers" in line or "bytes smem" in line or "Compiling" in line:
             say("build", ptxas=line.strip())
+    # the prepared cache's C fingerprint scanner (a host helper, built
+    # with cc at first use) must build on the card's machine
+    from pilosa_tpu_torch.executor.prepared import _fingerprint_py
+    from pilosa_tpu_torch.native import fingerprint_native
+    probe = "Count(Row(f=3)) TopN(g, Row(h=-12), n=5)"
+    nat = fingerprint_native(probe)
+    if nat is None or (nat[0], nat[1].tolist()) != _fingerprint_py(probe):
+        raise AssertionError(f"the native fingerprint scanner did not "
+                             f"build or disagrees: {nat}")
+    say("build", native_fingerprint=nat[0])
 
     t0 = time.perf_counter()
     holder = Holder(None)
@@ -931,21 +1162,38 @@ def main(argv) -> int:
                                  f"at the SSB shapes: {rec['err']}")
     say("kernels", seconds=time.perf_counter() - t0)
 
-    # dense-resident: no budget, so every fragment stays dense
+    # dense-resident: no budget, so every fragment stays dense; each
+    # residency through the default path (whole-query programs through
+    # the batcher) and the grouped path
     t0 = time.perf_counter()
     DEFAULT_BUDGET.limit_bytes = None
     dense_ans, dense_rec = run_ssb(holder, hist, device, "dense", profile)
+    dense_g_ans, dense_g_rec = run_ssb(holder, hist, device, "dense",
+                                       whole_query=False)
     # compressed-resident: the 96 MB budget packs the sparse fragments
     DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
     DEFAULT_BUDGET.shrink_to_limit()
     comp_ans, comp_rec = run_ssb(holder, hist, device, "compressed",
                                  profile)
-    if comp_ans != dense_ans:
-        raise AssertionError("dense and compressed answers differ")
-    for name, n in comp_rec["launches"].items():
+    comp_g_ans, comp_g_rec = run_ssb(holder, hist, device, "compressed",
+                                     whole_query=False)
+    if not comp_ans == dense_ans == dense_g_ans == comp_g_ans:
+        raise AssertionError("the SSB answers differ between residencies "
+                             "or paths")
+    for rec in (dense_rec, comp_rec):
+        if rec["wq_fallbacks"] or not rec["replays"]:
+            raise AssertionError(f"SSB whole-query: fallbacks "
+                                 f"{rec['wq_fallbacks']}, replays "
+                                 f"{rec['replays']}")
+    for rec in (comp_rec, comp_g_rec):
+        for name, n in rec["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"the compressed SSB run never "
+                                     f"launched {name}")
+    for name, n in comp_rec["launches_replayed"].items():
         if n <= 0:
-            raise AssertionError(f"the compressed SSB run never launched "
-                                 f"{name}")
+            raise AssertionError(f"no replayed whole-query graph of the "
+                                 f"compressed SSB run launched {name}")
     say("ssb", seconds=time.perf_counter() - t0)
 
     # config 4: the BSI Sum / range / GroupBy path over 64 shards
@@ -958,6 +1206,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     c4_dense_ans, c4_dense = run_cfg4(cfg4, oracle, device, "dense",
                                       bsi64.N_SHARDS, profile)
+    # the grouped path over fewer 64-Sum requests: on the default path
+    # they fall back to it anyway
+    c4_dense_g_ans, c4_dense_g = run_cfg4(
+        cfg4, oracle, device, "dense", bsi64.N_SHARDS, whole_query=False,
+        n_requests=CFG4_REQUESTS_GROUPED)
     DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
     DEFAULT_BUDGET.shrink_to_limit()
     bsi_dec = check_bsi_stack(cfg4, device, bsi64.N_SHARDS)
@@ -966,13 +1219,22 @@ def main(argv) -> int:
                              f"version on bsig_v: {bsi_dec['err']}")
     c4_comp_ans, c4_comp = run_cfg4(cfg4, oracle, device, "compressed",
                                     bsi64.N_SHARDS, profile)
+    c4_comp_g_ans, c4_comp_g = run_cfg4(
+        cfg4, oracle, device, "compressed", bsi64.N_SHARDS,
+        whole_query=False, n_requests=CFG4_REQUESTS_GROUPED)
     if c4_comp_ans != c4_dense_ans:
         raise AssertionError("config 4: dense and compressed answers "
                              "differ")
-    for name, n in c4_comp["launches_phase"].items():
-        if n <= 0:
-            raise AssertionError(f"the compressed config-4 run never "
-                                 f"launched {name}")
+    k = CFG4_REQUESTS_GROUPED + 1      # the 64-Sum requests both ran
+    for g_ans in (c4_dense_g_ans, c4_comp_g_ans):
+        if g_ans[:k] != c4_dense_ans[:k] or g_ans[k] != c4_dense_ans[-2]:
+            raise AssertionError("config 4: the default and grouped "
+                                 "paths' answers differ")
+    for rec in (c4_comp, c4_comp_g):
+        for name, n in rec["launches_phase"].items():
+            if n <= 0:
+                raise AssertionError(f"the compressed config-4 run never "
+                                     f"launched {name}")
     say("bsi64", seconds=time.perf_counter() - t0)
 
     # the served path: HTTP API, load, concurrent clients, ingest, CLI
@@ -983,27 +1245,40 @@ def main(argv) -> int:
     src = "pilosa_tpu_torch/csrc/container_kernels.cu"
     lines = []
     served_launches = served["compressed"]["launches_per_request"]
-    for name, rec, replaces, shape, launches, per_served in (
+    # launches: the compressed default-path run (whole-query; a replay
+    # counts the launches its graph recorded, of which "replayed"), and
+    # the grouped run of the same requests
+    for name, rec, replaces, shape, run, grouped, per_served in (
             ("decode_block", dec, f"{JAX_KERNELS}:245", "ssb_topn_filter",
-             comp_rec["launches"]["decode_block"],
+             comp_rec, comp_g_rec["launches"],
              served_launches["decode_block"]),
             ("fused_row_counts", fus, f"{JAX_KERNELS}:326",
-             "ssb_topn_filter", comp_rec["launches"]["fused_row_counts"],
+             "ssb_topn_filter", comp_rec, comp_g_rec["launches"],
              served_launches["fused_row_counts"]),
             ("decode_block", bsi_dec, f"{JAX_KERNELS}:245", "bsi64_bsig_v",
-             c4_comp["launches_phase"]["decode_block"], None)):
+             c4_comp, c4_comp_g["launches_phase"], None)):
         b_ms, b_by = bound(rec)
+        launches = run["launches" if "launches" in run
+                       else "launches_phase"][name]
         lines.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "shape": shape,
                       "launches": launches,
+                      "launches_replayed": run["launches_replayed"][name],
+                      "launches_per_request": run[
+                          "launches_per_request"][name],
+                      "launches_grouped_run": grouped[name],
                       "launches_per_served_request": per_served,
                       "max_abs_err": rec["err"], "ms": rec["ms"],
                       "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ssb": {"dense": dense_rec, "compressed": comp_rec,
+                              "dense_grouped": dense_g_rec,
+                              "compressed_grouped": comp_g_rec,
                               "budget_mb": BUDGET_MB},
                       "bsi64": {"dense": c4_dense, "compressed": c4_comp,
+                                "dense_grouped": c4_dense_g,
+                                "compressed_grouped": c4_comp_g,
                                 "budget_mb": BUDGET_MB}}))
     print(json.dumps({"served": served}))
     print(card)

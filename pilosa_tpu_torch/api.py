@@ -11,8 +11,7 @@ waits for the port's cluster plane, so the cluster-state gate is gone
 (a lone node is always NORMAL) and the forwarded-import entry points
 (``apply_import_local``) are folded into the local ones.  There is no
 warm-start coordinator: ``/status`` reports READY at once, as a bare JAX
-``API`` does.  ``recalculate_caches`` runs without a dispatch batcher to
-yield to.
+``API`` does.
 """
 
 from __future__ import annotations
@@ -44,17 +43,28 @@ class ConflictError(ApiError):
 
 class API:
     def __init__(self, holder: Holder, stats=None, use_mesh: bool = True,
-                 device=None):
+                 device=None, dispatch_batch: bool = True,
+                 dispatch_batch_max: int = 32,
+                 dispatch_batch_window_us: float = 200.0,
+                 whole_query: bool = True,
+                 whole_query_fallback: str = "legacy"):
         """``use_mesh=True`` (the default, config-gated by the server)
         executes served queries over stacked shard groups
         (parallel/stacked.py) — the production equivalent of the
         reference's worker pool + mapReduce (executor.go:80-110, 2455).
         ``device``: the torch device queries run on; None means ``cuda``
-        and raises without a card (executor.resolve_device)."""
+        and raises without a card (executor.resolve_device).  The
+        ``dispatch_batch*`` and ``whole_query*`` arguments go to the
+        Executor."""
         self.holder = holder
         self.stats = stats if stats is not None else StatsClient()
-        self.executor = Executor(holder, device=device, stacked=use_mesh,
-                                 stats=self.stats)
+        self.executor = Executor(
+            holder, device=device, stacked=use_mesh, stats=self.stats,
+            dispatch_batch=dispatch_batch,
+            dispatch_batch_max=dispatch_batch_max,
+            dispatch_batch_window_us=dispatch_batch_window_us,
+            whole_query=whole_query,
+            whole_query_fallback=whole_query_fallback)
 
     # -- query (api.go:135 Query) ------------------------------------------
 
@@ -281,8 +291,19 @@ class API:
 
     def recalculate_caches(self):
         """(api.go RecalculateCaches): eagerly rebuild every fragment's
-        rank cache so the next TopN doesn't pay the lazy rebuild."""
+        rank cache so the next TopN doesn't pay the lazy rebuild.
+
+        Rebuilds run as BACKGROUND work through the dispatch batcher:
+        between fragments the loop yields while foreground tickets are
+        queued, so a holder-wide recalculation can't starve live queries
+        of the dispatcher (or the interpreter lock)."""
+        from contextlib import nullcontext
         from .cache.rank import iter_rank_caches
-        for frag, cache in iter_rank_caches(self.holder):
-            with frag._lock:
-                cache.build(frag)
+        batcher = self.executor.batcher
+        bg = batcher.background() if batcher is not None else nullcontext()
+        with bg:
+            for frag, cache in iter_rank_caches(self.holder):
+                if batcher is not None:
+                    batcher.yield_to_foreground()
+                with frag._lock:
+                    cache.build(frag)

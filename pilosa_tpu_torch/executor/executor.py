@@ -11,16 +11,28 @@ branch (the JAX package's ``mesh is None``), evaluating each shard's
 device mirrors in turn.
 
 A read request goes through the JAX package's request stages
-(``_execute_stages``), minus its whole-query program: the result cache
-(cache/results.py; off while ``result_cache.limit_bytes`` is 0, as on a
-bare JAX executor) → the prepared-statement cache (executor/prepared.py,
-on when ``stacked``) → parse → translate → the grouped path for a
-multi-call read-only request on the stacked branch, else call by call →
-ONE device-to-host fetch of every pending part → the cache fill.  The
+(``_execute_stages``): the result cache (cache/results.py; off while
+``result_cache.limit_bytes`` is 0, as on a bare JAX executor) → the
+prepared-statement cache (executor/prepared.py, on when ``stacked``) →
+parse → translate → on the stacked branch, the whole-query program
+(``_try_whole_query``: the whole read request lowered to reducer nodes
+and run as ONE program through the dispatch batcher,
+parallel/wholequery.py — one captured CUDA graph per signature on the
+card), else, for a shape outside its fallback matrix, the grouped path
+for a multi-call read-only request, else call by call → ONE
+device-to-host fetch of every pending part → the cache fill.  The
 grouped path batches same-shape Count / Sum / TopN calls into one
 ``[B, P]`` params matrix per group and runs each group in chunks through
-the stacked executor's batched reducers (``_run_batched_groups``, which
-the prepared cache replays through too).
+the dispatch batcher's batched reducers (``_run_batched_groups``, which
+the prepared cache falls back to too).
+
+``whole_query`` (default True) and ``whole_query_fallback`` ("legacy"
+reroutes an unsupported shape to the grouped path, counted in
+``wq_fallbacks`` and logged as ``wholequery.fallback``; "error" raises)
+and ``dispatch_batch``, ``dispatch_batch_max`` and
+``dispatch_batch_window_us`` (parallel/batcher.py) take the JAX
+package's defaults.  ``whole_query=False`` restores the grouped path
+exactly.
 
 Calls: Count, Sum, Min, Max (BSI), Row/Range (incl. BSI conditions),
 Intersect, Union, Difference, Xor, Not, Shift, TopN (filtered and
@@ -36,25 +48,20 @@ Deviations from the JAX module:
 * Chunks of a batched group are not padded to a power of two: the
   padding only lets XLA reuse executables, and answers do not depend on
   it.  ``batch_chunk_size`` stays the one sizing rule, and a filter-less
-  Sum / TopN group runs as one chunk.
-* The batched groups go to the stacked executor directly; the
-  cross-query dispatch batcher is not ported yet: ``batcher`` and
-  ``wholequery`` (the JAX executor's attributes for it and the
-  whole-query program) are always None.
+  Sum / TopN group runs as one chunk.  (A captured whole-query graph's
+  params are padded: graphs are fixed-shape.)
 * Carried over from the JAX module's request stages: the ``ctx``
   deadline (installed as current, checked between per-call dispatches
   and before the one device-to-host fetch), the ``stats`` timers and
   counters, the degraded-answer guard of the cache fill, and the
   tracing span, profile stages and explain notes.  Not carried over:
-  the whole-query program and the warm-start corpus recorder.
-* One request's device work at a time: the dispatch through the fetch
-  (and a prepared replay) runs under the executor's ``_device_lock``,
-  as the JAX package serialises its dispatch.  The server runs each
-  request on its own thread; the card runs one stream either way, so
-  concurrency gains only the overlap of one request's host work (HTTP,
-  parse, translate, JSON) with another's device work, while each
-  request in flight holds up to ``BATCH_TEMP_BYTES`` of temporaries:
-  eight unserialised SSB requests exhausted the 80 GB card.
+  the warm-start corpus recorder.
+* Device launches are serialised by ``_device_lock``, the dispatch
+  batcher's launch lock: one launch's temporaries at a time (eight
+  unserialised dense SSB requests exhausted the 80 GB card), while a
+  request waits for its ticket without the lock, so concurrent requests
+  can fuse.  The per-shard branch (``stacked=False``, no batcher) runs
+  its dispatch through the fetch under the same lock.
 """
 
 from __future__ import annotations
@@ -185,7 +192,7 @@ def _batch_chunks(params_mat: np.ndarray, n_shards: int,
         yield lo, sub.shape[0], sub
 
 
-def _run_batched_groups(stacked, holder, index, shards, groups, results):
+def _run_batched_groups(batcher, holder, index, shards, groups, results):
     """Dispatch batched call groups chunk-wise and fill ``results``.
 
     ``groups``: iterable of (kind, slotted, params_mat, call_idxs, extra);
@@ -193,12 +200,15 @@ def _run_batched_groups(stacked, holder, index, shards, groups, results):
     field/view/ids_n with one (ids, n) pair per call.  Shared by the
     grouped path and the prepared-statement cache so the chunking policy
     lives in exactly one place.  Every chunk of every group is dispatched
-    before any result is fetched."""
+    before any result is fetched.  Each chunk rides the cross-query
+    batcher as one ticket, so concurrent requests replaying the same
+    prepared template fuse into one launch."""
     from ..parallel.stacked import field_rows
     groups = list(groups)
     if not groups:
         return
-    per_dev = max(1, len(shards))   # one device: every shard a launch
+    stacked = batcher.stacked
+    per_dev = stacked.stacked_per_device(len(shards))
 
     def _n_split(kind, slotted):
         # count plans always gather per-row temps; sum/topn without a
@@ -210,20 +220,26 @@ def _run_batched_groups(stacked, holder, index, shards, groups, results):
             return 0
         return field_rows(holder, index, extra["field"], extra["view"])
 
+    group_chunks = [
+        list(_batch_chunks(params_mat, _n_split(kind, slotted),
+                           _row_weight(kind, slotted, extra)))
+        for kind, slotted, params_mat, _ci, extra in groups]
+    # the batch axis split to honor the workspace: visible, not silent
+    n_splits = sum(len(ch) - 1 for ch in group_chunks if len(ch) > 1)
+    if n_splits:
+        batcher.stats.count("query.batch_temp_splits", n_splits)
     for gi, (kind, slotted, params_mat, call_idxs, extra) \
             in enumerate(groups):
-        for lo, n_c, sub in _batch_chunks(
-                params_mat, _n_split(kind, slotted),
-                _row_weight(kind, slotted, extra)):
+        for lo, n_c, sub in group_chunks[gi]:
             stacked.batch_chunks += 1
             if kind == "count":
-                parts = stacked.count_batch_async(
+                parts = batcher.count_batch(
                     slotted, sub, holder, index, shards)
                 grp = _PendingGroup.counts(parts, call_idxs[lo: lo + n_c])
                 for i in call_idxs[lo: lo + n_c]:
                     results[i] = grp
             elif kind == "sum":
-                parts = stacked.bsi_sum_batch_async(
+                parts = batcher.bsi_sum_batch(
                     extra["field"], extra["view"], slotted, sub, holder,
                     index, shards)
                 for b in range(n_c):
@@ -231,7 +247,7 @@ def _run_batched_groups(stacked, holder, index, shards, groups, results):
                         parts, lambda hp, b=b, base=extra["base"]:
                         _sum_fin(hp, b, base))
             else:  # topn
-                parts = stacked.row_counts_batch_async(
+                parts = batcher.row_counts_batch(
                     extra["field"], extra["view"], slotted, sub, holder,
                     index, shards)
                 for b in range(n_c):
@@ -250,6 +266,95 @@ def _sum_fin(hp, b, base):
         total += s
         cnt += c_
     return ValCount(total + cnt * base, cnt)
+
+
+# -- whole-query host finalizers ---------------------------------------------
+# Applied to the fetched device parts of one whole-query launch; each
+# mirrors the corresponding grouped-path reduction byte-for-byte.
+
+def _wq_sum_fin(hp, b, base):
+    total, cnt = 0, 0
+    for p in hp:
+        s, c_ = bsi.weighted_sum(np.asarray(p[b]))
+        total += s
+        cnt += c_
+    return ValCount(total + cnt * base, cnt)
+
+
+def _wq_topn_rank(stacked, hp, b, ids, n):
+    counts = stacked.merge_counts([p[b] for p in hp])
+    return rank_counts(counts, n or None, ids)
+
+
+def _wq_seg_result(hp, b, groups, empty, attrs):
+    segs: dict[int, np.ndarray] = {}
+    zero = np.zeros(SHARD_WORDS, dtype=np.uint32)
+    for shard_list, arr in zip(groups, hp):
+        for i, shard in enumerate(shard_list):
+            segs[shard] = arr[i, b].astype(np.uint32)
+    for shard in empty:
+        segs[shard] = zero
+    return RowResult(segs, attrs=attrs)
+
+
+def _wq_minmax_fin(hp, groups, base, want_max):
+    acc = ValCount()
+    j = 0
+    for shard_list in groups:
+        bits, neg, cnt = hp[j], hp[j + 1], hp[j + 2]
+        j += 3
+        for i in range(len(shard_list)):
+            val, c = bsi.reconstruct_min_max(
+                np.asarray(bits[i]), int(neg[i]), int(cnt[i]))
+            vc = ValCount(val + base if c else 0, c)
+            acc = acc.larger(vc) if want_max else acc.smaller(vc)
+    return acc
+
+
+def _wq_minrow_fin(hp, want_max):
+    counts = np.asarray(hp[0][0], dtype=np.int64) if hp \
+        else np.zeros(0, dtype=np.int64)
+    nz = np.nonzero(counts)[0]
+    if nz.size == 0:
+        return ValCount(0, 0)
+    rid = int(nz[-1] if want_max else nz[0])
+    return ValCount(rid, int(counts[rid]))
+
+
+def _wq_rows_fin(hp, limit, previous):
+    row_ids: set[int] = set()
+    for p in hp:
+        row_ids.update(int(i) for i in np.nonzero(np.asarray(p[0]))[0])
+    out = sorted(row_ids)
+    if previous is not None:
+        out = [r for r in out if r > previous]
+    if limit is not None:
+        out = out[:limit]
+    return RowIdentifiers(rows=out)
+
+
+def _wq_groupby_fin(hp, combos, last_ids, last_field, prev_ids, limit):
+    acc = None
+    for p in hp:
+        a = np.asarray(p, dtype=np.int64)
+        acc = a.copy() if acc is None else acc_counts(acc, a)
+    out: list[GroupCount] = []
+    for ci, combo in enumerate(combos):
+        for rid in last_ids:
+            cnt = (int(acc[ci, rid]) if acc is not None
+                   and rid < acc.shape[1] else 0)
+            if cnt > 0:
+                group = [FieldRow(fn, ri) for fn, ri in combo]
+                group.append(FieldRow(last_field, rid))
+                out.append(GroupCount(group, cnt))
+    out.sort(key=lambda g: tuple(
+        (fr.field, fr.row_id) for fr in g.group))
+    if prev_ids is not None:
+        out = [g for g in out
+               if tuple(fr.row_id for fr in g.group) > prev_ids]
+    if limit is not None:
+        out = out[:limit]
+    return out
 
 
 def _host(t) -> np.ndarray:
@@ -316,10 +421,21 @@ class Executor:
     GROUP_GRID_PREFIX_MAX = 16384
 
     def __init__(self, holder, device=None, stacked: bool = True,
-                 stats=None):
+                 stats=None, dispatch_batch: bool = True,
+                 dispatch_batch_max: int = 32,
+                 dispatch_batch_window_us: float = 200.0,
+                 whole_query: bool = True,
+                 whole_query_fallback: str = "legacy"):
         """``stats``: a StatsClient for per-phase timings
         (parse/translate/dispatch/fetch) and cache counters, surfaced at
-        /debug/vars; None records nothing."""
+        /debug/vars; None records nothing.  ``dispatch_batch*``: the
+        cross-query dispatch batcher (parallel/batcher.py) — with it off
+        the batcher still fronts every stacked dispatch but calls
+        directly.  ``whole_query``: run each read request as ONE program
+        (parallel/wholequery.py); off restores the grouped per-stage
+        path exactly.  ``whole_query_fallback``: "legacy" reroutes
+        unsupported shapes to the grouped path (counted + logged);
+        "error" raises instead."""
         self.holder = holder
         self.device = resolve_device(device)
         self.compiler = PlanCompiler(self.device)
@@ -331,21 +447,37 @@ class Executor:
         # (limit 0) until the caller sets ``result_cache.limit_bytes``.
         from ..cache.results import ResultCache
         self.result_cache = ResultCache(stats=self.stats)
-        # Not ported yet (see the module docstring): the cross-query
-        # dispatch batcher and the whole-query program.
         self.batcher = None
         self.wholequery = None
         self.stacked = None
         self.prepared = None
+        self.whole_query = bool(whole_query)
+        self.whole_query_fallback = whole_query_fallback
+        # The Server injects its Logger so wholequery.fallback events land
+        # in the server log; None (bare executors) stays silent.
+        self.logger = None
+        self.wq_requests = 0
+        self.wq_fallbacks = 0
+        self.wq_last_fallback = ""
         from ..utils.locks import make_rlock
         self._device_lock = make_rlock("executor-device")
         if stacked:
+            from ..parallel.batcher import DispatchBatcher
             from ..parallel.stacked import StackedExecutor
+            from ..parallel.wholequery import WholeQueryRunner
             from .prepared import PreparedCache
             self.stacked = StackedExecutor(self.device)
+            self.batcher = DispatchBatcher(
+                self.stacked, enabled=dispatch_batch,
+                max_batch=dispatch_batch_max,
+                window_us=dispatch_batch_window_us, stats=self.stats,
+                launch_lock=self._device_lock)
             self.prepared = PreparedCache(self)
+            self.wholequery = WholeQueryRunner(self.stacked)
 
     def close(self):
+        if self.batcher is not None:
+            self.batcher.close()
         if self.stacked is not None:
             self.stacked.close()
 
@@ -422,8 +554,7 @@ class Executor:
         if isinstance(query, str):
             if translate and self.prepared is not None:
                 with stats.timer("query.prepared"), \
-                        qprof.stage("prepared") as pnode, \
-                        self._device_lock:
+                        qprof.stage("prepared") as pnode:
                     hit, out = self.prepared.attempt(index_name, query,
                                                      shards)
                     if pnode is not None:
@@ -453,9 +584,13 @@ class Executor:
                 query = self.translator.translate_query(index_name, query)
         if shards is None:
             shards = sorted(idx.available_shards())
-        with self._device_lock:
+        if self.batcher is not None:
             results = self._dispatch_fetch(index_name, query, shards,
                                            check_current, qprof)
+        else:
+            with self._device_lock:
+                results = self._dispatch_fetch(index_name, query, shards,
+                                               check_current, qprof)
         if translate and self.translator.needs_translation(index_name):
             results = self.translator.translate_results(
                 index_name, query.calls, results)
@@ -488,7 +623,16 @@ class Executor:
                 dnode.tags["calls"] = len(query.calls)
                 dnode.tags["shards"] = len(shards)
             read_only = not any(c.name in WRITE_CALLS for c in query.calls)
-            if self.stacked is not None and len(query.calls) > 1 \
+            results = None
+            if self.wholequery is not None and self.whole_query and \
+                    read_only:
+                # the whole request as ONE program; unsupported shapes
+                # fall back below, counted
+                results = self._try_whole_query(index_name, query.calls,
+                                                shards)
+            if results is not None:
+                pass
+            elif self.stacked is not None and len(query.calls) > 1 \
                     and read_only:
                 qexplain.note("plan", {"mode": "legacy-grouped",
                                        "calls": len(query.calls),
@@ -583,13 +727,478 @@ class Executor:
                 extra = None
             to_run.append((kind, ds[0]["slotted"], params_mat, idxs, extra))
             batched.update(idxs)
-        _run_batched_groups(self.stacked, self.holder, index, shards,
+        _run_batched_groups(self.batcher, self.holder, index, shards,
                             to_run, results)
 
         for i, c in enumerate(calls):
             if i not in batched:
                 results[i] = self._execute_call(index, c, shards)
         return results
+
+    # -- whole-query programs (parallel/wholequery.py) ---------------------
+    # A read request lowers to a tuple of plan.ReduceNode reducers plus
+    # one params matrix per node, and the WHOLE request runs as one
+    # program.  Shapes the program cannot express raise
+    # WholeQueryUnsupported and the request reroutes to the grouped
+    # per-stage path with ``wholequery.fallback`` counted and a
+    # structured log event naming the unsupported node.
+
+    def _try_whole_query(self, index: str, calls, shards):
+        from ..parallel.wholequery import WholeQueryUnsupported
+        try:
+            results = self._wq_execute(index, calls, shards)
+        except WholeQueryUnsupported as e:
+            self._note_wq_fallback(index, e)
+            return None
+        self.wq_requests += 1
+        self.stats.count("wholequery.requests")
+        return results
+
+    def _note_wq_fallback(self, index: str, e):
+        self.wq_fallbacks += 1
+        self.wq_last_fallback = e.node if not e.detail \
+            else f"{e.node}: {e.detail}"
+        self.stats.count("wholequery.fallback")
+        from ..utils import events, explain as qexplain
+        events.emit("wholequery.fallback", index=index, node=e.node,
+                    detail=e.detail or None)
+        qexplain.note("plan", {"mode": "legacy-fallback", "node": e.node,
+                               "detail": e.detail or None})
+        log = self.logger
+        if log is not None:
+            try:
+                log.event("wholequery.fallback", index=index, node=e.node,
+                          detail=e.detail)
+            # a stale/closed log stream costs a log line, never the
+            # query; the fallback is still counted in the stats above
+            except Exception:
+                pass
+        if self.whole_query_fallback == "error":
+            raise ExecutionError(
+                f"whole-query fallback disabled by the 'error' policy: "
+                f"{e.node}"
+                + (f": {e.detail}" if e.detail else "")) from e
+
+    def _wq_dispatch(self, index: str, shards, program, mats):
+        """One program launch through the dispatch batcher (concurrent
+        same-shape requests fuse along the params batch axis)."""
+        return self.batcher.whole_query(self.wholequery, program, mats,
+                                        self.holder, index, shards)
+
+    @staticmethod
+    def _wq_chunk_guard(mat: np.ndarray, n_split: int,
+                        row_weight: int = 0):
+        """A params batch needing more than one dispatch chunk (device
+        temp budget) stays on the grouped chunked path — the same
+        batch_chunk_size sizing as _batch_chunks."""
+        from ..parallel.wholequery import WholeQueryUnsupported
+        B, P = mat.shape
+        if n_split <= 0:
+            return  # broadcast pass: always one chunk
+        if B > batch_chunk_size(P, n_split, row_weight):
+            raise WholeQueryUnsupported("batch-chunks", f"B={B}")
+
+    def _wq_note_plan(self, out, nodes, **tags):
+        from ..utils import explain as qexplain
+        qexplain.note("plan", {
+            "mode": "wholequery", "program": out.sig,
+            "compile": "cold" if out.compiled else "warm",
+            "nodes": [n.kind for n in nodes], **tags})
+
+    def _wq_run_batched(self, index: str, shards, groups, results):
+        """Whole-query dispatch of standard batched call groups —
+        (kind, slotted, params_mat, call_idxs, extra) with kind in
+        count/sum/topn, the _run_batched_groups contract — as ONE
+        program launch.  Used by the prepared-statement replay so a
+        whole template is one launch; raises WholeQueryUnsupported for
+        shapes the program can't take (the caller falls back)."""
+        from ..parallel.stacked import field_rows
+        from .plan import ReduceNode
+        groups = list(groups)
+        if not groups:
+            return
+        per_dev = self.stacked.stacked_per_device(len(shards))
+        nodes, mats = [], []
+        for kind, slotted, params_mat, call_idxs, extra in groups:
+            n_split = per_dev if (kind == "count" or slotted is not None) \
+                else 0
+            row_weight = 0
+            if kind == "topn" and slotted is not None:
+                row_weight = field_rows(self.holder, index, extra["field"],
+                                        extra.get("view", VIEW_STANDARD))
+            self._wq_chunk_guard(params_mat, n_split, row_weight)
+            if kind == "count":
+                nodes.append(ReduceNode("count", slotted))
+            elif kind == "sum":
+                nodes.append(ReduceNode(
+                    "bsi_sum", slotted, (extra["field"], extra["view"])))
+            else:  # topn
+                nodes.append(ReduceNode(
+                    "row_counts", slotted,
+                    (extra["field"], extra.get("view", VIEW_STANDARD))))
+            mats.append(params_mat)
+        out = self._wq_dispatch(index, shards, tuple(nodes), mats)
+        self._wq_note_plan(out, nodes, shards=len(shards))
+        stacked = self.stacked
+        for gi, (kind, slotted, params_mat, call_idxs, extra) \
+                in enumerate(groups):
+            parts = out.parts[gi]
+            if kind == "count":
+                grp = _PendingGroup.counts(parts, call_idxs)
+                for i in call_idxs:
+                    results[i] = grp
+            elif kind == "sum":
+                base = extra["base"]
+                for b, i in enumerate(call_idxs):
+                    results[i] = _Pending(
+                        parts, lambda hp, b=b, base=base:
+                        _wq_sum_fin(hp, b, base))
+            else:
+                ids_n = extra["ids_n"]
+                for b, i in enumerate(call_idxs):
+                    ids, n = ids_n[b]
+                    results[i] = _Pending(
+                        parts, lambda hp, b=b, ids=ids, n=n:
+                        _wq_topn_rank(stacked, hp, b, ids, n))
+
+    def _wq_execute(self, index: str, calls, shards):
+        """Lower every call of a read request to reducer nodes, launch
+        the whole program once, and wire pending results (resolved by
+        the caller's single fetch).  Raises WholeQueryUnsupported for
+        anything outside the program's fallback matrix; real validation
+        errors raise exactly as the grouped path would."""
+        from ..parallel.stacked import field_rows
+        from .plan import ReduceNode
+        idx = self.holder.index(index)
+        if idx is None:
+            raise ExecutionError(f"index not found: {index}")
+        descs = [self._wq_desc(index, c, shards) for c in calls]
+        results: list = [None] * len(calls)
+        units: list[dict] = []
+        by_gkey: dict = {}
+        for i, d in enumerate(descs):
+            if d["kind"] == "const":
+                results[i] = d["result"]
+                continue
+            gk = d.get("gkey")
+            u = by_gkey.get(gk) if gk is not None else None
+            if u is None:
+                u = {"kind": d["kind"], "descs": [], "idxs": []}
+                if gk is not None:
+                    by_gkey[gk] = u
+                units.append(u)
+            u["descs"].append(d)
+            u["idxs"].append(i)
+        if not units:
+            return results
+
+        per_dev = self.stacked.stacked_per_device(len(shards))
+        nodes, mats, unit_nodes = [], [], []
+        for u in units:
+            kind, ds = u["kind"], u["descs"]
+            lo = len(nodes)
+            d0 = ds[0]
+            if kind in ("count", "segments"):
+                mat = np.stack([d["params"] for d in ds])
+                self._wq_chunk_guard(mat, per_dev)
+                nodes.append(ReduceNode(kind, d0["slotted"]))
+                mats.append(mat)
+            elif kind == "sum":
+                mat = np.stack([d["params"] for d in ds])
+                self._wq_chunk_guard(
+                    mat, per_dev if d0["slotted"] is not None else 0)
+                nodes.append(ReduceNode("bsi_sum", d0["slotted"],
+                                        (d0["field"], d0["view"])))
+                mats.append(mat)
+            elif kind == "topn":
+                mat = np.stack([d["params"] for d in ds])
+                self._wq_chunk_guard(
+                    mat, per_dev if d0["slotted"] is not None else 0,
+                    row_weight=field_rows(self.holder, index,
+                                          d0["field"], VIEW_STANDARD)
+                    if d0["slotted"] is not None else 0)
+                nodes.append(ReduceNode("row_counts", d0["slotted"],
+                                        (d0["field"], VIEW_STANDARD)))
+                mats.append(mat)
+                if d0["tan"]:
+                    # tanimoto rides two extra reducers in the SAME
+                    # program: unfiltered row totals + the source count
+                    nodes.append(ReduceNode(
+                        "row_counts", None, (d0["field"], VIEW_STANDARD)))
+                    mats.append(np.zeros((1, 0), dtype=np.int32))
+                    nodes.append(ReduceNode("count", d0["slotted"]))
+                    mats.append(mat)
+            elif kind == "minmax":
+                nodes.append(ReduceNode(
+                    "bsi_minmax", d0["slotted"],
+                    (d0["field"], d0["view"]),
+                    ("max" if d0["want_max"] else "min",)))
+                mats.append(np.asarray(d0["params"],
+                                       dtype=np.int32).reshape(1, -1))
+            elif kind == "minrow":
+                nodes.append(ReduceNode(
+                    "row_counts", None, (d0["field"], VIEW_STANDARD)))
+                mats.append(np.zeros((1, 0), dtype=np.int32))
+            elif kind == "rows":
+                for vname in d0["views"]:
+                    nodes.append(ReduceNode(
+                        "row_counts", None, (d0["field"], vname)))
+                    mats.append(np.zeros((1, 0), dtype=np.int32))
+            else:  # groupby
+                nodes.append(ReduceNode(
+                    "group_counts", d0["slotted"],
+                    (d0["last_field"], VIEW_STANDARD),
+                    tuple(d0["prefix_keys"]) + (d0["pad_c"],)))
+                mats.append((d0["rids"], d0["params"]))
+            unit_nodes.append((lo, len(nodes)))
+
+        out = self._wq_dispatch(index, shards, tuple(nodes), mats)
+        self._wq_note_plan(out, nodes, calls=len(calls),
+                           shards=len(shards))
+        for u, (lo, hi) in zip(units, unit_nodes):
+            self._wq_wire(u, out, lo, hi, results)
+        return results
+
+    def _wq_wire(self, unit, out, lo, hi, results):
+        """Attach pending finalizers for one unit's calls over its nodes'
+        device parts — each finalizer mirrors the grouped path's host
+        reduction exactly (results stay byte-identical)."""
+        kind, ds, idxs = unit["kind"], unit["descs"], unit["idxs"]
+        stacked = self.stacked
+        if kind == "count":
+            grp = _PendingGroup.counts(out.parts[lo], idxs)
+            for i in idxs:
+                results[i] = grp
+            return
+        if kind == "segments":
+            parts, meta = out.parts[lo], out.meta[lo]
+            for b, i in enumerate(idxs):
+                attrs = ds[b].get("attrs")
+                results[i] = _Pending(
+                    parts, lambda hp, b=b, groups=meta["groups"],
+                    empty=meta["empty"], attrs=attrs:
+                    _wq_seg_result(hp, b, groups, empty, attrs))
+            return
+        if kind == "sum":
+            parts = out.parts[lo]
+            for b, i in enumerate(idxs):
+                base = ds[b]["base"]
+                results[i] = _Pending(
+                    parts, lambda hp, b=b, base=base:
+                    _wq_sum_fin(hp, b, base))
+            return
+        if kind == "topn":
+            d0 = ds[0]
+            parts = [p for j in range(lo, hi) for p in out.parts[j]]
+            k = len(out.parts[lo])
+            ku = len(out.parts[lo + 1]) if d0["tan"] else 0
+            f = d0["f"]
+            for b, i in enumerate(idxs):
+                d = ds[b]
+                results[i] = _Pending(
+                    parts,
+                    lambda hp, b=b, ids=d["ids"], n=d["n"], k=k, ku=ku,
+                    tan=d["tan"], an=d["attr_name"], av=d["attr_values"],
+                    f=f:
+                    self._topn_finalize(
+                        stacked.merge_counts([p[b] for p in hp[:k]]),
+                        stacked.merge_counts([p[0] for p in hp[k:k + ku]])
+                        if tan else None,
+                        sum(int(p[0]) for p in hp[k + ku:]) if tan
+                        else 0,
+                        ids, n, tan, an, av, f))
+            return
+        if kind == "minmax":
+            d0 = ds[0]
+            results[idxs[0]] = _Pending(
+                out.parts[lo],
+                lambda hp, groups=out.meta[lo]["groups"],
+                base=d0["base"], want_max=d0["want_max"]:
+                _wq_minmax_fin(hp, groups, base, want_max))
+            return
+        if kind == "minrow":
+            results[idxs[0]] = _Pending(
+                out.parts[lo],
+                lambda hp, want_max=ds[0]["want_max"]:
+                _wq_minrow_fin(hp, want_max))
+            return
+        if kind == "rows":
+            d0 = ds[0]
+            parts = [p for j in range(lo, hi) for p in out.parts[j]]
+            results[idxs[0]] = _Pending(
+                parts, lambda hp, limit=d0["limit"],
+                previous=d0["previous"]: _wq_rows_fin(hp, limit,
+                                                      previous))
+            return
+        # groupby
+        d0 = ds[0]
+        results[idxs[0]] = _Pending(
+            out.parts[lo],
+            lambda hp, combos=d0["combos"], last_ids=d0["last_ids"],
+            last_field=d0["last_field"], prev_ids=d0["prev_ids"],
+            limit=d0["limit"]:
+            _wq_groupby_fin(hp, combos, last_ids, last_field, prev_ids,
+                            limit))
+
+    def _wq_desc(self, index: str, c: Call, shards) -> dict:
+        """Lower one call to a whole-query unit descriptor, running the
+        same validation (and raising the same errors) as the per-call
+        path.  Raises WholeQueryUnsupported for call shapes outside the
+        program's vocabulary."""
+        from ..parallel.wholequery import WholeQueryUnsupported
+        name = c.name
+        if name == "Count":
+            if len(c.children) != 1:
+                raise ExecutionError("Count() requires one input")
+            slotted, params = parametrize(
+                self._resolve(index, c.children[0]))
+            return {"kind": "count", "gkey": ("count", repr(slotted)),
+                    "slotted": slotted, "params": params}
+        if name == "Sum":
+            f = self._bsi_field(index, c)
+            fp = self._filter_plan(index, c)
+            slotted, params = (None, self._EMPTY_PARAMS) if fp is None \
+                else parametrize(fp)
+            return {"kind": "sum", "gkey": ("sum", f.name, repr(slotted)),
+                    "slotted": slotted, "params": params, "field": f.name,
+                    "view": f.bsi_view_name(), "base": f.options.base}
+        if name in ("Min", "Max"):
+            f = self._bsi_field(index, c)
+            fp = self._filter_plan(index, c)
+            slotted, params = (None, self._EMPTY_PARAMS) if fp is None \
+                else parametrize(fp)
+            return {"kind": "minmax", "gkey": None, "slotted": slotted,
+                    "params": params, "field": f.name,
+                    "view": f.bsi_view_name(), "base": f.options.base,
+                    "want_max": name == "Max"}
+        if name in ("MinRow", "MaxRow"):
+            field_name, ok = c.string_arg("field")
+            if not ok:
+                raise ExecutionError(f"{c.name}(): field required")
+            if self.holder.field(index, field_name) is None:
+                raise ExecutionError(f"field not found: {field_name}")
+            return {"kind": "minrow", "gkey": None, "field": field_name,
+                    "want_max": name == "MaxRow"}
+        if name == "TopN":
+            return self._wq_desc_topn(index, c, shards)
+        if name == "Rows":
+            return self._wq_desc_rows(index, c)
+        if name == "GroupBy":
+            return self._wq_desc_group_by(index, c)
+        if name in BITMAP_CALLS:
+            plan = self._resolve(index, c)
+            slotted, params = parametrize(plan)
+            attrs = None
+            if c.name in ("Row", "Range"):
+                fa = c.field_arg()
+                if fa is not None and isinstance(fa[1], int) \
+                        and not isinstance(fa[1], bool):
+                    f = self.holder.field(index, fa[0])
+                    if f is not None:
+                        attrs = f.row_attrs.attrs(fa[1]) or None
+            return {"kind": "segments",
+                    "gkey": ("segments", repr(slotted)),
+                    "slotted": slotted, "params": params, "attrs": attrs}
+        if name == "Options":
+            raise WholeQueryUnsupported("options",
+                                        "per-call shard overrides")
+        raise ExecutionError(f"unknown call: {name}")
+
+    def _wq_desc_topn(self, index: str, c: Call, shards) -> dict:
+        field_name, ok = c.string_arg("_field")
+        if not ok:
+            raise ExecutionError("TopN() requires a field")
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        n, _ = c.uint_arg("n")
+        ids = c.args.get("ids")
+        tan_thresh, attr_name, attr_values = topn_extras(c)
+        if not c.children and ids is None and tan_thresh is None \
+                and attr_name is None \
+                and f.options.cache_type in ("ranked", "lru"):
+            from ..cache.rank import topn_from_rank
+            pairs = topn_from_rank(f, shards, n, stats=self.stats)
+            if pairs is not None:
+                return {"kind": "const", "result": pairs}
+        fp = self._filter_plan(index, c)
+        slotted, params = (None, self._EMPTY_PARAMS) if fp is None \
+            else parametrize(fp)
+        extras = tan_thresh is not None or attr_name is not None
+        return {"kind": "topn",
+                "gkey": None if extras
+                else ("topn", field_name, repr(slotted)),
+                "slotted": slotted, "params": params,
+                "field": field_name, "ids": ids, "n": n,
+                "tan": tan_thresh, "attr_name": attr_name,
+                "attr_values": attr_values, "f": f}
+
+    def _wq_desc_rows(self, index: str, c: Call) -> dict:
+        from ..parallel.wholequery import WholeQueryUnsupported
+        field_name, ok = c.string_arg("_field")
+        if not ok:
+            raise ExecutionError("Rows() requires a field")
+        f = self.holder.field(index, field_name)
+        if f is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        if c.args.get("column") is not None:
+            # a column probe reads one bit per row — the per-shard path
+            # owns it (no reduction to express)
+            raise WholeQueryUnsupported("rows-column")
+        views = [VIEW_STANDARD]
+        from_arg, to_arg = c.args.get("from"), c.args.get("to")
+        if from_arg or to_arg:
+            quantum = f.options.time_quantum
+            if not quantum:
+                raise ExecutionError(
+                    f"field {field_name!r} has no time quantum")
+            from_time = tq.parse_time(from_arg) if from_arg \
+                else datetime(1, 1, 1)
+            to_time = tq.parse_time(to_arg) if to_arg \
+                else datetime(9999, 1, 1)
+            views = tq.views_by_time_range(VIEW_STANDARD, from_time,
+                                           to_time, quantum)
+        return {"kind": "rows", "gkey": None, "field": field_name,
+                "views": views, "limit": c.args.get("limit"),
+                "previous": c.args.get("previous")}
+
+    def _wq_desc_group_by(self, index: str, c: Call) -> dict:
+        from ..parallel.stacked import StackedExecutor
+        from ..parallel.wholequery import WholeQueryUnsupported
+        names, rows_calls, filt_call, limit = self._group_by_parse(index,
+                                                                   c)
+        fields = self._group_by_grid(index, names, rows_calls)
+        if fields is None:
+            raise WholeQueryUnsupported(
+                "group_counts", "children need Rows execution or the "
+                                "grid bounds failed")
+        prev_ids = self._group_by_previous(c, fields)
+        filter_plan = (self._resolve(index, filt_call)
+                       if filt_call is not None else None)
+        slotted, params = (None, self._EMPTY_PARAMS) \
+            if filter_plan is None else parametrize(filter_plan)
+        prefix_fields = fields[:-1]
+        last_field, last_ids = fields[-1]
+        combos: list[tuple] = [()]
+        for fname, ids in prefix_fields:
+            combos = [cb + ((fname, rid),) for cb in combos
+                      for rid in ids]
+        if not combos or not last_ids:
+            return {"kind": "const", "result": []}
+        if len(combos) > StackedExecutor.GROUP_CHUNK:
+            raise WholeQueryUnsupported(
+                "group_counts",
+                f"{len(combos)} prefix combos exceed one chunk")
+        rids = np.asarray([[rid for _, rid in cb] for cb in combos],
+                          dtype=np.int32).reshape(len(combos),
+                                                  len(prefix_fields))
+        pad_c = 1 << max(0, len(combos) - 1).bit_length()
+        return {"kind": "groupby", "gkey": None, "slotted": slotted,
+                "params": params, "rids": rids, "pad_c": pad_c,
+                "prefix_keys": [(fname, VIEW_STANDARD)
+                                for fname, _ in prefix_fields],
+                "last_field": last_field, "last_ids": last_ids,
+                "combos": combos, "prev_ids": prev_ids, "limit": limit}
 
     # -- dispatch (executor.go:274 executeCall) ----------------------------
 
@@ -653,7 +1262,7 @@ class Executor:
         """Per-shard results of a bitmap plan: host numpy words on the
         stacked path, device tensors on the per-shard path."""
         if self.stacked is not None:
-            return self.stacked.segments(plan, self.holder, index, shards)
+            return self.batcher.segments(plan, self.holder, index, shards)
         return {
             shard: self.compiler.execute_shard(plan, self.holder, index,
                                                shard)
@@ -668,7 +1277,7 @@ class Executor:
             raise ExecutionError("Count() requires one input")
         plan = self._resolve(index, c.children[0])
         if self.stacked is not None:
-            parts = self.stacked.count_async(plan, self.holder, index,
+            parts = self.batcher.count_async(plan, self.holder, index,
                                              shards)
             return _Pending(parts, lambda hp: sum(int(x) for x in hp))
         return sum(
@@ -711,7 +1320,7 @@ class Executor:
         view = f.bsi_view_name()
         base = f.options.base
         if self.stacked is not None:
-            parts = self.stacked.bsi_sum_async(
+            parts = self.batcher.bsi_sum_async(
                 f.name, view, self._filter_plan(index, c), self.holder,
                 index, shards)
 
@@ -746,7 +1355,7 @@ class Executor:
         view = f.bsi_view_name()
         acc = ValCount()
         if self.stacked is not None:
-            per_shard = self.stacked.bsi_min_max(
+            per_shard = self.batcher.bsi_min_max(
                 f.name, view, self._filter_plan(index, c), self.holder,
                 index, shards, want_max=want_max)
         else:
@@ -777,7 +1386,7 @@ class Executor:
         if f is None:
             raise ExecutionError(f"field not found: {field_name}")
         if self.stacked is not None:
-            counts = self.stacked.row_counts(
+            counts = self.batcher.row_counts(
                 field_name, VIEW_STANDARD, None, self.holder, index, shards)
             nz = np.nonzero(counts)[0]
             if nz.size == 0:
@@ -852,15 +1461,15 @@ class Executor:
             # stacked shard axis; tanimoto adds an unfiltered pass + the
             # src count, all dispatched before the fetch
             filter_plan = self._filter_plan(index, c)
-            parts = self.stacked.row_counts_async(
+            parts = self.batcher.row_counts_async(
                 field_name, VIEW_STANDARD, filter_plan,
                 self.holder, index, shards)
             parts_u, parts_src = [], []
             if tan_thresh:
-                parts_u = self.stacked.row_counts_async(
+                parts_u = self.batcher.row_counts_async(
                     field_name, VIEW_STANDARD, None, self.holder, index,
                     shards)
-                parts_src = self.stacked.count_async(
+                parts_src = self.batcher.count_async(
                     filter_plan, self.holder, index, shards)
             k, ku = len(parts), len(parts_u)
             merge = self.stacked.merge_counts
@@ -935,7 +1544,7 @@ class Executor:
             if v is None:
                 continue
             if self.stacked is not None and column is None:
-                counts = self.stacked.row_counts(
+                counts = self.batcher.row_counts(
                     field_name, vname, None, self.holder, index, shards)
                 row_ids.update(int(i) for i in np.nonzero(counts)[0])
                 continue
@@ -1075,7 +1684,7 @@ class Executor:
             mat = np.asarray(
                 [[rid for _, rid in combo] for combo in combos],
                 dtype=np.int64).reshape(len(combos), len(prefix_fields))
-            chunked = self.stacked.group_counts_batch_async(
+            chunked = self.batcher.group_counts_batch_async(
                 (last_field, VIEW_STANDARD), prefix_keys, mat, filter_plan,
                 self.holder, index, shards)
             all_parts = [p for _, _, ps in chunked for p in ps]

@@ -24,6 +24,14 @@ from a param slot gathers ``[B] + lead + (W,)`` rows at once (an id at
 or past the fragment's row count reads as an empty row for that b only),
 BSI magnitude bits come from ``[B, 63]`` columns, and the result is
 ``[B] + lead + (W,)``.
+
+The whole-query program (parallel/wholequery.py) hands ``eval_plan`` its
+``[B, P]`` matrix as a DEVICE tensor instead.  Then nothing reads a
+param on the host: a row id is clamped into range on the device, its
+row gathered, and an id past the row count masked to an empty row with
+``torch.where`` — what the JAX package's traced body does — so the same
+evaluation can be captured once into a CUDA graph and replayed with new
+params.  ``ReduceNode`` is the program's reducer node, copied.
 """
 
 from __future__ import annotations
@@ -106,6 +114,29 @@ class Slot:
 
     def __repr__(self):
         return f"${self.idx}:{self.sign}:{self.width}"
+
+
+@dataclass(frozen=True)
+class ReduceNode:
+    """Whole-query reducer node (the JAX module's, copied).
+
+    A read request lowers to a tuple of these, one per call or batch of
+    same-shape calls, and runs as ONE program (parallel/wholequery.py);
+    ``repr`` of the tuple is the program's shape key, and params ride as
+    runtime arguments, so distinct literals share one program.
+
+    kind: count | segments | row_counts | bsi_sum | bsi_minmax
+          | group_counts
+    plan: the slotted bitmap plan (count/segments) or the slotted
+          filter plan / None (field reducers)
+    primary: (field, view) the reducer reads, () for plan reducers
+    extra: structural extras — ("max",)/("min",) for bsi_minmax,
+          (prefix_keys..., pad_c) for group_counts
+    """
+    kind: str
+    plan: Any = None
+    primary: tuple = ()
+    extra: tuple = ()
 
 
 def parametrize(plan, trace: bool = False):
@@ -475,6 +506,17 @@ def _gather_rows(frag: torch.Tensor, rids: np.ndarray):
     return g
 
 
+def _gather_rows_dev(frag: torch.Tensor, rids: torch.Tensor):
+    """``_gather_rows`` with the ids ``[B]`` on the device: each id is
+    clamped into range, its row gathered, and an id at or past the row
+    count masked to an empty row — no value is read on the host."""
+    rows = frag.shape[-2]
+    g = frag.movedim(-2, 0)[rids.clamp(0, rows - 1).long()]
+    ok = (rids < rows).reshape((-1,) + (1,) * (g.dim() - 1))
+    return torch.where(ok, g, torch.zeros((), dtype=g.dtype,
+                                          device=g.device))
+
+
 def eval_plan(plan, frags: dict[tuple[str, str], Any], params=None, *,
               lead: tuple = (), device=None) -> torch.Tensor:
     """Evaluate a plan over fragment tensors.  ``frags`` maps (field, view)
@@ -486,7 +528,10 @@ def eval_plan(plan, frags: dict[tuple[str, str], Any], params=None, *,
     read them from the host ``params`` vector.  A row id at or past a
     fragment's row count reads as an empty row, as in the JAX module.
     With a ``[B, P]`` params matrix the plan is evaluated for each of its
-    B rows at once and the result is ``[B] + lead + (W,)``."""
+    B rows at once and the result is ``[B] + lead + (W,)``.  A ``[B, P]``
+    int32 tensor on the fragments' device is read only there (the
+    whole-query program's form)."""
+    on_dev = isinstance(params, torch.Tensor)
     batched = params is not None and np.ndim(params) == 2
     dev_params: dict = {}
 
@@ -498,6 +543,10 @@ def eval_plan(plan, frags: dict[tuple[str, str], Any], params=None, *,
         frag = frags.get((field, view))
         if frag is None:
             return None
+        if isinstance(row_id, Slot) and on_dev:
+            if frag.shape[-2] == 0:
+                return None
+            return _gather_rows_dev(frag, params[:, row_id.idx])
         if isinstance(row_id, Slot) and batched:
             return _gather_rows(frag, params[:, row_id.idx])
         rid = int(params[row_id.idx]) if isinstance(row_id, Slot) \
@@ -507,6 +556,8 @@ def eval_plan(plan, frags: dict[tuple[str, str], Any], params=None, *,
         return frag[..., rid, :]
 
     def mag_bits(slot: Slot, dev):
+        if on_dev:
+            return params[..., slot.idx:slot.idx + slot.width]
         # the params go to the device once per evaluation
         if dev not in dev_params:
             dev_params[dev] = params_to(params, dev)

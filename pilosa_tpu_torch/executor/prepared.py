@@ -14,9 +14,13 @@ that, adapted to the plan IR:
    slotted plans + batched dispatch structure are stored as a
    ``PreparedEntry``.
 3. On a hit, the entry rebuilds each group's ``[B, P]`` params matrix from
-   the new literal values with vectorized numpy and dispatches straight to
-   the grouped path (executor ``_run_batched_groups``) — no parsing, no
-   resolution, no per-call Python.
+   the new literal values with vectorized numpy and replays the whole
+   template as ONE whole-query program (executor ``_wq_run_batched``),
+   or, with whole-query off or for a shape it cannot take, through the
+   grouped path (executor ``_run_batched_groups``) — no parsing, no
+   resolution, no per-call Python.  Either way the dispatch rides the
+   cross-query batcher, so concurrent requests replaying one template
+   fuse into one launch.
 
 Safety: replaying a resolved plan with new values is only sound when the
 new values would have taken the same structural branches during
@@ -27,11 +31,9 @@ pinned to exact equality.  Any guard failure falls back to the classic
 path (slower, always correct).  Entries are invalidated by the global
 schema epoch (core.bump_schema_epoch) on DDL or BSI bit-depth growth.
 
-Deviations from the JAX module: the fingerprint is the pure-Python
-regex scanner (the JAX package's ``_fingerprint_py``, which it runs when
-its C scanner is absent; the C scanner waits for the serving slice), and
-a replay always goes through the grouped path, because the whole-query
-program is not ported yet.
+The fingerprint runs the C scanner (native/fingerprint.c) when it is
+built and the text is ASCII with no literal beyond int64, else the
+Python regex; both give the same template and values.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from collections import OrderedDict
 import numpy as np
 
 from ..core import schema_epoch
+from ..native import fingerprint_native
 from ..pql import parse
 from ..pql.ast import LitInt, Query
 from ..utils.locks import make_lock
@@ -64,6 +67,20 @@ _FP = re.compile(
 def fingerprint(query: str):
     """(template, values list): the query text with int literals replaced
     by '?' and the literal values in source order."""
+    template, values = _fingerprint_fast(query)
+    if isinstance(values, np.ndarray):
+        values = values.tolist()
+    return template, values
+
+
+def _fingerprint_fast(query: str):
+    """Hot-path variant: values may come back as an int64 ndarray (C
+    scanner, native/fingerprint.c) or a list of Python ints (regex
+    fallback: non-ASCII text, int64 overflow, missing toolchain).
+    Internal because ndarray values break ``==`` users."""
+    native = fingerprint_native(query)
+    if native is not None:
+        return native
     return _fingerprint_py(query)
 
 
@@ -174,8 +191,10 @@ class PreparedEntry:
         return bool(np.all((v >= self.g_lo) & (v <= self.g_hi)))
 
     def run(self, ex, index: str, values: np.ndarray, shards):
-        """Dispatch all groups through the grouped path, then resolve with
-        one device fetch.  Returns the results list, in call order."""
+        """Dispatch all groups, then resolve with one device fetch.
+        Returns the results list, in call order.  With whole-query on the
+        WHOLE template replays as one program launch; otherwise (or on an
+        unsupported shape) the groups ride the grouped path."""
         from .executor import _resolve_pendings, _run_batched_groups
 
         holder = ex.holder
@@ -185,7 +204,17 @@ class PreparedEntry:
         results: list = [None] * self.n_calls
         groups = [(g.kind, g.slotted, g.build_params(values),
                    g.call_idxs, g.extra) for g in self.groups]
-        _run_batched_groups(ex.stacked, holder, index, shards, groups,
+        if ex.wholequery is not None and ex.whole_query:
+            from ..parallel.wholequery import WholeQueryUnsupported
+            try:
+                ex._wq_run_batched(index, shards, groups, results)
+                ex.wq_requests += 1
+                ex.stats.count("wholequery.requests")
+                return _resolve_pendings(results)
+            except WholeQueryUnsupported as e:
+                ex._note_wq_fallback(index, e)
+                results = [None] * self.n_calls
+        _run_batched_groups(ex.batcher, holder, index, shards, groups,
                             results)
         return _resolve_pendings(results)
 
@@ -213,20 +242,23 @@ class PreparedCache:
         (True, results) on a hit; (False, parsed_query_or_None) on a miss
         — the parsed AST (literal-tagged, tags invisible to the classic
         path) is handed back so the caller never parses twice."""
-        template, values = _fingerprint_py(query)
+        template, values = _fingerprint_fast(query)
         key = (index, template)
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
                 self._entries.move_to_end(key)
-        try:
-            vals = np.asarray(values, dtype=np.int64) if values else \
-                np.zeros(0, dtype=np.int64)
-        except OverflowError:
-            # a literal beyond int64 can't ride the params machinery;
-            # the classic path (arbitrary-precision ints) owns it
-            self.misses += 1
-            return False, None
+        if isinstance(values, np.ndarray):
+            vals = values
+        else:
+            try:
+                vals = np.asarray(values, dtype=np.int64) if values else \
+                    np.zeros(0, dtype=np.int64)
+            except OverflowError:
+                # a literal beyond int64 can't ride the params machinery;
+                # the classic path (arbitrary-precision ints) owns it
+                self.misses += 1
+                return False, None
 
         if entry is _UNCACHEABLE:
             self.misses += 1

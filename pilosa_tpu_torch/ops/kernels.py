@@ -62,9 +62,15 @@ from . import bitset, containers
 # Kernel launches per wrapper — counted only where a CUDA kernel is
 # launched (never for the plain version, never for a degenerate shortcut).
 # The server launches from many request threads: increments take
-# _launches_lock, since ``+=`` on a dict item is not atomic.
+# _launches_lock, since ``+=`` on a dict item is not atomic.  A launch
+# recorded into a CUDA graph (``recording_launches``) runs on each replay
+# of the graph, not at capture: the whole-query runner adds the graph's
+# recorded launches to LAUNCHES, and to REPLAYED, per replay
+# (``count_replay``).
 LAUNCHES = {"decode_block": 0, "fused_row_counts": 0}
+REPLAYED = {"decode_block": 0, "fused_row_counts": 0}
 _launches_lock = threading.Lock()
+_capture = threading.local()
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "container_kernels.cu"
@@ -81,6 +87,30 @@ def reset_launches():
     with _launches_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+            REPLAYED[k] = 0
+
+
+class recording_launches:
+    """Context manager for a CUDA graph capture on this thread: the
+    wrappers' launches inside it are recorded into the dict it returns
+    (kernel -> launches a replay makes) instead of LAUNCHES."""
+
+    def __enter__(self) -> dict:
+        self.rec = {k: 0 for k in LAUNCHES}
+        self.prev = getattr(_capture, "rec", None)
+        _capture.rec = self.rec
+        return self.rec
+
+    def __exit__(self, *exc):
+        _capture.rec = self.prev
+
+
+def count_replay(rec: dict):
+    """Count one replay of a graph whose capture recorded ``rec``."""
+    with _launches_lock:
+        for k, n in rec.items():
+            LAUNCHES[k] += n
+            REPLAYED[k] += n
 
 
 def resolve(device) -> str:
@@ -196,6 +226,10 @@ def _launch(name: str, st: containers.PackedStack, *args):
             *(a.data_ptr() for a in st), *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    rec = getattr(_capture, "rec", None)
+    if rec is not None:
+        rec[name] += 1
+        return
     with _launches_lock:
         LAUNCHES[name] += 1
 

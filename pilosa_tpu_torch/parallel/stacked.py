@@ -53,20 +53,28 @@ Deviations from the JAX module, by design:
 * Every compressed entry takes the fused kernel: the TPU's ``fits_vmem``
   rule does not apply on the card (ops/kernels.py).
 * One device, no shard schedule: every reducer runs over all of its
-  shards at once, and the batched reducers are called by the executor
-  directly — there is no cross-query dispatch batcher yet.
+  shards at once (``stacked_per_device(n)`` is ``n``), so the
+  whole-query program's ``streamed-working-set`` case cannot arise.
+  The executor reaches the reducers through the cross-query dispatch
+  batcher (parallel/batcher.py), which serialises their launches.
+* The whole-query program's cache (``_graphs``, the JAX module's
+  executable cache keyed with ``_exec_seq``) holds captured CUDA graphs.
+  A graph bakes in the addresses of the stacked tensors it read, so each
+  entry keeps its stack alive, and a stack dropped from the stack cache
+  — evicted, trimmed, re-staged or replaced by an overlay refresh —
+  drops every graph captured over it (``_drop_graphs``).
 * The overlay refresh returns new stacked tensors (ingest/delta.py
   ``apply_stack_overlay``), as the JAX module's un-donated scatter does,
   so a request that captured the old stack reads one consistent state.
   It is serialized under ``_ov_lock`` (the JAX module takes its executor
   lock).
 * Not in this slice: the over-budget shard schedule that streams slices
-  with a background prefetch, the dispatch batcher, and the
-  multi-process mesh paths.
+  with a background prefetch, and the multi-process mesh paths.
 """
 
 from __future__ import annotations
 
+import itertools
 import weakref
 from collections import OrderedDict
 
@@ -121,6 +129,39 @@ def _sig_rows(shape) -> int:
     return shape[1] if shape[0] == "z" else shape[0]
 
 
+def _flatten_present(present):
+    """Flatten present (key, placed, sig) entries into the tensor list a
+    whole-query program reads: a compressed entry contributes its five
+    ``PackedStack`` tensors, a dense one its stack.  Returns
+    (flat, layout); ``layout`` — (key, n tensors, sig) per entry — is
+    determined by the sigs and rebuilds the entries (``_unpack_frags``)."""
+    flat, layout = [], []
+    for k, a, s in present:
+        if isinstance(a, containers.PackedStack):
+            flat.extend(a)
+            layout.append((k, len(a), s))
+        else:
+            flat.append(a)
+            layout.append((k, 1, s))
+    return flat, tuple(layout)
+
+
+def _unpack_frags(layout, arrays):
+    """The present entries rebuilt from ``layout`` and the flat tensors;
+    wrap them in ``_Frags`` to decode packed ones on first access."""
+    out, i = [], 0
+    for k, n, s in layout:
+        a = arrays[i] if n == 1 else containers.PackedStack(*arrays[i:i + n])
+        out.append((k, a, s))
+        i += n
+    return out
+
+
+# Monotonic executor ids for program-cache keys: a collected executor's
+# id() can be reused by the next one.
+_EXEC_SEQ = itertools.count()
+
+
 def field_rows(holder, index: str, field: str, view: str) -> int:
     """Max fragment row count for (field, view) — the ``rows`` axis of a
     batched row count's ``[B, S, rows, W]`` masked temporary, which the
@@ -162,15 +203,32 @@ class StackedExecutor:
         self.fused_calls = 0
         # batched chunks dispatched (executor._run_batched_groups)
         self.batch_chunks = 0
+        # whole-query programs (parallel/wholequery.py): key -> entry,
+        # LRU-bounded; entries hold their stacks' tensors and die with
+        # them (_drop_graphs)
+        self._exec_seq = next(_EXEC_SEQ)
+        self._graphs: OrderedDict = OrderedDict()
+        self.graphs_max = 32
         self._finalizer = weakref.finalize(
             self, StackedExecutor._cleanup_budget, self._budget, id(self),
-            self._stack_cache)
+            self._stack_cache, self._graphs)
 
     @staticmethod
-    def _cleanup_budget(budget, exec_id, stack_cache):
+    def _cleanup_budget(budget, exec_id, stack_cache, graphs):
         for ck in list(stack_cache):
             budget.unregister(("stack", exec_id, ck))
         stack_cache.clear()
+        graphs.clear()
+
+    def stacked_per_device(self, n_shards: int) -> int:
+        """Stacked shards a launch covers: every shard, on one device."""
+        return max(1, n_shards)
+
+    def _drop_graphs(self, ckey):
+        """Drop the whole-query programs captured over stack ``ckey``."""
+        with self._sc_lock:
+            for k in [k for k, e in self._graphs.items() if e.ckey == ckey]:
+                del self._graphs[k]
 
     def close(self):
         """Unregister budget entries and drop cached stacks (also runs
@@ -284,18 +342,23 @@ class StackedExecutor:
             if s is not None:
                 with s._sc_lock:
                     cur = s._stack_cache.get(ck)
-                    if cur is not None and cur[0] == tok:
+                    dropped = cur is not None and cur[0] == tok
+                    if dropped:
                         del s._stack_cache[ck]
+                if dropped:
+                    s._drop_graphs(ck)
 
         with self._sc_lock:
             self._stack_cache[ckey] = (token, out, epochs)
             trimmed = []
             while len(self._stack_cache) > self.stack_cache_max:
                 trimmed.append(self._stack_cache.popitem(last=False)[0])
+        self._drop_graphs(ckey)           # programs over a replaced stack
         self._budget.register(skey, nbytes, _evict,
                               compressed_bytes=comp_bytes)
         for old_key in trimmed:
             self._budget.unregister(("stack", id(self), old_key))
+            self._drop_graphs(old_key)
         return out
 
     def _refresh_overlays(self, ckey, token, frags, shards, keys,
@@ -356,6 +419,7 @@ class StackedExecutor:
                 if cur2 is not None and cur2[0] == token:
                     self._stack_cache[ckey] = (token, out, new_epochs)
                     self._stack_cache.move_to_end(ckey)
+            self._drop_graphs(ckey)       # they read the old tensors
             self._budget.touch(("stack", id(self), ckey))
             return out
 
@@ -440,6 +504,29 @@ class StackedExecutor:
             host = bitset.to_numpy(segs)
             for i, shard in enumerate(shard_list):
                 out[shard] = host[i]
+        return out
+
+    def segments_batch(self, slotted, params_mat, holder, index,
+                       shards) -> dict[int, np.ndarray]:
+        """B same-shape bitmap calls over one ``[B, P]`` params matrix
+        (the dispatch batcher's fused ``segments``): {shard: [B, W] host
+        uint32 words}."""
+        keys = plan_inputs(slotted)
+        B = params_mat.shape[0]
+        out: dict[int, np.ndarray] = {}
+        for shard_list, placed, sig in self._placed_groups(
+                keys, holder, index, shards):
+            if all(s is None for s in sig):
+                zero = np.zeros((B, SHARD_WORDS), dtype=np.uint32)
+                for shard in shard_list:
+                    out[shard] = zero
+                continue
+            frags = _Frags(self._present(keys, placed, sig))
+            segs = eval_plan(slotted, frags, params_mat,
+                             lead=(len(shard_list),), device=self.device)
+            host = bitset.to_numpy(segs)                     # [B, S, W]
+            for i, shard in enumerate(shard_list):
+                out[shard] = host[:, i]
         return out
 
     @staticmethod

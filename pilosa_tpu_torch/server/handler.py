@@ -168,6 +168,19 @@ def build_debug_vars(api: API, server=None) -> dict:
             "builds": ex.stacked.stack_builds,
             "overlays": ex.stacked.overlays,
         }
+    # cross-query dynamic batching: fused/single launch counters, the
+    # batch-size histogram and the queue-wait p50/p99
+    if ex.batcher is not None:
+        out["dispatchBatcher"] = ex.batcher.snapshot()
+    # whole-query programs: requests served as one program vs fallbacks
+    # to the grouped path, with the last fallback's node
+    if ex.wholequery is not None:
+        out["wholeQuery"] = {
+            "enabled": ex.whole_query,
+            "requests": ex.wq_requests,
+            "fallbacks": ex.wq_fallbacks,
+            "lastFallback": ex.wq_last_fallback,
+        }
     # overload armor: slot/queue state and armed failpoints (docs/robustness.md); deadline-abort and admission
     # rejection COUNTERS live in "counts" via the stats client
     if server is not None and getattr(server, "admission",
@@ -508,6 +521,10 @@ def build_router(api: API, server=None) -> Router:
         # default scrape that works today.
         exemplars = req.query.get("exemplars", [""])[0] == "true"
         text = api.stats.prometheus_text(exemplars=exemplars)
+        # the batcher's histogram/summary series don't fit the stats
+        # client's counter/gauge model; it exports its own lines
+        if api.executor.batcher is not None:
+            text += api.executor.batcher.prometheus_text()
         if exemplars:
             return ("application/openmetrics-text; version=1.0.0; "
                     "charset=utf-8", text + "# EOF\n")

@@ -577,9 +577,7 @@ class Server:
     it has peers must not answer alone; the cluster plane is not ported)
     and a ``container_kernels`` other than "auto".
 
-    Accepted and unused: ``dispatch_batch*`` and ``whole_query*`` —
-    requests take the grouped multi-call path, which gives the same
-    answers (one log line at start says so); ``decode_workspace_mb``
+    Accepted and unused: ``decode_workspace_mb``
     (no shard schedule slices a decode); the cluster, routing, hedging,
     balancer, anti-entropy and repair keys; the device-runtime
     observability, time-series, SLO, flight-recorder and diagnostics
@@ -642,8 +640,17 @@ class Server:
         if self.config.failpoints:
             from ..utils.faults import FAULTS
             FAULTS.configure(self.config.failpoints)
-        self.api = API(self.holder, stats=self.stats,
-                       use_mesh=self.config.use_mesh, device=self.device)
+        self.api = API(
+            self.holder, stats=self.stats, use_mesh=self.config.use_mesh,
+            device=self.device,
+            dispatch_batch=self.config.dispatch_batch,
+            dispatch_batch_max=self.config.dispatch_batch_max,
+            dispatch_batch_window_us=self.config.dispatch_batch_window_us,
+            whole_query=self.config.whole_query,
+            whole_query_fallback=self.config.whole_query_fallback)
+        # wholequery.fallback events land in the server log (the
+        # executor stays silent standalone)
+        self.api.executor.logger = self.logger
         self.api.executor.result_cache.limit_bytes = \
             max(self.config.result_cache_mb, 0) << 20
         self.api.executor.result_cache.tenant_quota_bytes = \
@@ -726,10 +733,6 @@ class Server:
         self.logger.info(
             f"pilosa-tpu listening on http://{self.config.bind} "
             f"(device {self.device})")
-        if self.config.dispatch_batch or self.config.whole_query:
-            self.logger.info(
-                "dispatch-batch / whole-query are not ported: requests "
-                "take the grouped multi-call path (same answers)")
         if self.config.metric_poll_interval > 0:
             t = threading.Thread(target=self._monitor_runtime, daemon=True)
             t.start()
@@ -770,6 +773,9 @@ class Server:
             self.stats.gauge(f"admission.{pool.name}.in_use", s["inUse"])
             self.stats.gauge(f"admission.{pool.name}.waiting",
                              s["waiting"])
+        batcher = self.api.executor.batcher
+        self.stats.gauge("runtime.batcher_queued",
+                         batcher.pending() if batcher is not None else 0)
 
     def _monitor_runtime(self):
         while not self._closing.wait(self.config.metric_poll_interval):

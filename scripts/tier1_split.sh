@@ -43,12 +43,15 @@ tests/test_pql.py
 tests/test_prepared.py
 tests/test_roaring_golden.py
 tests/test_storage.py
+tests/test_torch_batcher.py
 tests/test_torch_bitset.py
 tests/test_torch_containers.py
 tests/test_torch_executor.py
 tests/test_torch_ingest.py
+tests/test_torch_native.py
 tests/test_torch_server.py
 tests/test_torch_storage.py
+tests/test_torch_wholequery.py
 tests/test_translate.py
 tests/test_wholequery.py
 "

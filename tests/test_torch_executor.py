@@ -500,10 +500,11 @@ def test_grouped_path_matches_per_call_and_jax(diff_corpus, residency,
     singletons and calls that never batch.  With ``chunked`` the batch
     temp budget is patched small so every filtered group splits into
     chunks of 1 (filter-less groups stay one chunk).  The answers equal
-    the same calls run one by one and the JAX executor's."""
+    the same calls run one by one and the JAX executor's.  The grouped
+    path is reached with the whole-query program off."""
     jh, th = diff_corpus
     jex = JaxExecutor(jh, use_mesh=True)
-    ex = Executor(th, device="cpu")
+    ex = Executor(th, device="cpu", whole_query=False)
     ex.prepared = None             # the grouped path itself, not a replay
     if chunked:
         monkeypatch.setattr(port_exmod, "BATCH_TEMP_BYTES", 1)

@@ -10,8 +10,10 @@ mutex and bool fields; ``Set`` and ``Clear``; ``/import`` of bits and of
 values; ``import-roaring`` of a generated fragment holding array, bitmap
 and run containers; ``Count``, ``Intersect``, ``TopN`` with a filter,
 ``Rows``, ``GroupBy``, ``Sum``, ``Min``, ``Max`` and
-``Options(columnAttrs=true)``; ``/export``; the ``/schema`` round trip;
-and the error cases of tests/test_server.py.  Then: data directories
+``Options(columnAttrs=true)``; ``/export``; the ``wholeQuery`` and
+``dispatchBatcher`` sections of ``/debug/vars`` (but for the batcher's
+wall-clock ``windowWaitS``); the ``/schema`` round trip; and the error
+cases of tests/test_server.py.  Then: data directories
 written by either server reopen in the other with the same answers;
 the refusals (no card, ``cluster_hosts``, ``container_kernels``); the
 ``import`` / ``ingest`` / ``export`` CLI against both; and 8 threads of
@@ -259,6 +261,16 @@ def test_scripted_sequence_and_data_dirs(tmp_path):
             both(pair, "GET", f"/export?index=i&field=g&shard={shard}")
         both(pair, "GET", "/internal/shards/max")
         both(pair, "GET", "/internal/fragment/nodes?index=i&shard=1")
+        # /debug/vars' whole-query and dispatch-batcher sections count
+        # the same requests, fallbacks and launches; windowWaitS is a
+        # wall-clock reading and is left out
+        sections = []
+        for srv in pair:
+            snap = json.loads(_raw(srv, "GET", "/debug/vars")[2])
+            snap["dispatchBatcher"].pop("windowWaitS")
+            sections.append((snap["dispatchBatcher"], snap["wholeQuery"]))
+        assert sections[1] == sections[0]
+        assert sections[1][1]["requests"] and sections[1][1]["fallbacks"]
     # swap: the port serves the JAX server's directory and vice versa
     with _pair(tmp_path, jdir="port", pdir="jax") as pair:
         for q in QUERIES:
