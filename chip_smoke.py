@@ -3,10 +3,13 @@
     python3 chip_smoke.py [--profile]
 
 Drives the port's main paths — PQL read requests over the SSB
-star-schema corpus at its full 256 shards, and BASELINE config 4 (BSI
+star-schema corpus at its full 256 shards, BASELINE config 4 (BSI
 Sum / range predicates + GroupBy over 64 shards at depth 20), each
-dense-resident and compressed-resident — through the user entry point
-``pilosa_tpu_torch.executor.Executor``, and holds every CUDA kernel of
+dense-resident and compressed-resident, and BASELINE config 5 over 954
+shards under a device budget smaller than its working set and on four
+cluster nodes — through the user entry points
+``pilosa_tpu_torch.executor.Executor`` and
+``pilosa_tpu_torch.server.Server``, and holds every CUDA kernel of
 those paths against its plain PyTorch version.  Phases, each printing
 its own lines and its seconds:
 
@@ -74,9 +77,39 @@ its own lines and its seconds:
    With ``--profile`` each run of phases 5, 6 and 7 ends with one
    request under torch.profiler: the card's busy and idle share and its
    top kernels.
-8. the ``kernels`` JSON line, a JSON line of the phases' records, the
-   ``served`` JSON line, the nvidia-smi line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+8. cfg5_budget — BASELINE config 5 under the device budget (bench.py
+   ``bench_config5_compressed``, pilosa_tpu_torch/cfg5.py): the sparse
+   corpus of 954 shards (1,000,341,504 columns; 1431 MiB of dense words
+   against a 768 MiB budget), the gate ``TopN(metric, Intersect(Row(seg
+   =0), Row(seg=2)), n=5)`` over every shard equal to ``oracle_topn5``
+   dense- and compressed-resident, both kernels at the first compressed
+   slice's shapes against their plain versions, then four legs —
+   ``resident`` (dense, no budget), ``dense`` and ``compressed`` (768
+   MiB), and ``compressed_ws`` (768 MiB, a 256 MiB decode workspace) —
+   of 32-call requests over the rotating hot / cold quarter subsets,
+   8-call requests over all shards (which the whole-query precheck must
+   refuse as ``streamed-working-set`` exactly when the schedule has
+   more than one slice; the slices must equal the byte reckoning: 4
+   dense, 1 compressed, whose decoded seg stack is 477 MiB, and 2 at
+   the 256 MiB workspace) and one 64-call request over all shards;
+   every answer equal to the
+   oracle, no pin left after a leg, the dense peak at or under the
+   budget, and the compressed leg must launch both kernels.  Printed
+   per leg: slices, prefetch hits and misses, pins, evictions, upload
+   MB, peak MB, calls/s, p50, launches a request and the fallbacks.
+9. cluster — config 5's cluster half (bench.py
+   ``bench_config5_distributed``): four port servers in this process,
+   sharing the card on localhost ports, the dense corpus at 256 shards
+   loaded through node0's ``import-roaring`` (512 POSTs, forwarded to
+   the owners), 64-call requests to node0 from 1 and from 8 clients,
+   every TopN equal to the oracle, the internal wire ``bin1``.  Printed:
+   load seconds, calls/s and p50, the coordinator's fan-out means, each
+   node's launches and graph captures, hedges, retry waves and node
+   states.
+10. the ``kernels`` JSON line, a JSON line of the phases' records, the
+   ``served`` JSON line, the ``cfg5_budget`` / ``cluster`` JSON line,
+   the nvidia-smi line, and last the result line ``{"ok": true,
+   "device": {...}}``.
 
 Any failure raises and exits non-zero before the result line.  It imports
 nothing of JAX or the JAX package.
@@ -101,6 +134,7 @@ BATCH = 24            # calls per request, as bench.bench_ssb
 N_BATCHES = 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (guide table)
 INT32_OPS_PER_S = 67e12        # 32-bit ops outside the tensor cores
+SHARD_BYTES = 32768 * 4        # one row of a shard's dense words
 SLEEP_CYCLES = 50_000_000      # ~25 ms at the H100's boost clock
 # Where the replaced Pallas kernels live: the JAX package's directory,
 # named here only as a path for the report, never imported.
@@ -1110,6 +1144,498 @@ def run_served(holder, hist, device, n_shards: int = N_SHARDS,
     return rec
 
 
+# -- phase 8: BASELINE config 5 under the device budget ----------------------
+
+CFG5_BUDGET_MB = 768
+CFG5_B = 32                    # calls per rotation request (bench.py)
+CFG5_NB = 12                   # timed rotation requests per leg
+CFG5_ALL_B = 8                 # calls per all-shard request on the default
+CFG5_ALL_REQUESTS = 2          # path, which its precheck must refuse
+CFG5_WIDE_B = 64               # calls per wide all-shard request
+CFG5_KEYS = [("metric", "standard"), ("seg", "standard")]
+# the TopN's key list leaves its primary to fused_row_counts: metric
+# occupies the budget but is never decoded
+CFG5_FUSED_ONLY = [frozenset(CFG5_KEYS[:1])]
+CFG5_WORKSPACE_MB = 256        # the decode workspace of leg compressed_ws
+
+
+def cfg5_table(words) -> np.ndarray:
+    """``int64[shard, a, b, m]``: bits of metric row m under seg rows a
+    and b in each shard, counted from the oracle words once, so a
+    TopN over any shard subset is a sum (bench.py ``oracle_topn5``)."""
+    from pilosa_tpu_torch import cfg5
+    n = len(words)
+    tab = np.zeros((n, cfg5.SEG_ROWS, cfg5.SEG_ROWS, cfg5.METRIC_ROWS),
+                   np.int64)
+    for s in range(n):
+        w = words[s]
+        for a in range(cfg5.SEG_ROWS):
+            for b in range(a + 1, cfg5.SEG_ROWS):
+                mask = w[a] & w[b]
+                for m in range(cfg5.METRIC_ROWS):
+                    tab[s, a, b, m] = tab[s, b, a, m] = int(np.bitwise_count(
+                        w[cfg5.SEG_ROWS + m] & mask).sum())
+    return tab
+
+
+def cfg5_rank(tab, shards, a: int, b: int, n: int = 5) -> list:
+    counts = tab[shards, a, b].sum(axis=0)
+    order = sorted(range(counts.size), key=lambda m: (-counts[m], m))
+    return [(m, int(counts[m])) for m in order[:n] if counts[m] > 0]
+
+
+def cfg5_check(label: str, tab, shards, pairs, got):
+    """Every TopN of one request against the table oracle."""
+    pairs_got = [[(p.id, p.count) for p in r] for r in got]
+    for (a, b), g in zip(pairs, pairs_got):
+        want = cfg5_rank(tab, shards, a, b)
+        if g != want:
+            raise AssertionError(f"cfg5 {label}: seg={a},{b} -> {g}, "
+                                 f"oracle {want}")
+
+
+def check_cfg5_shapes(holder, device, shard_slice, a: int = 0,
+                      b: int = 2) -> tuple[dict, dict]:
+    """Both kernels at the shapes the first slice of the compressed
+    schedule gives them: decode_block over the slice's packed seg stack (the
+    filter's operand) and fused_row_counts over its packed metric stack
+    under seg[a] & seg[b], on the stacks the stacked executor places,
+    each against its plain version."""
+    from pilosa_tpu_torch import cfg5
+    from pilosa_tpu_torch.core import SHARD_WORDS
+    from pilosa_tpu_torch.ops import containers, kernels
+    from pilosa_tpu_torch.parallel.stacked import StackedExecutor
+    st = StackedExecutor(device)
+    groups = st._placed_groups(CFG5_KEYS, holder, cfg5.INDEX, shard_slice)
+    dec, fus = _new_rec(), _new_rec()
+    for shard_list, placed, sig in groups:
+        S = len(shard_list)
+        met, seg = placed
+        if not (isinstance(met, containers.PackedStack)
+                and isinstance(seg, containers.PackedStack)):
+            raise AssertionError("a config-5 field is not "
+                                 "compressed-resident")
+        rows = sig[1][1]
+
+        def run(st_=seg, rows=rows):
+            return kernels.decode_block(*st_, rows=rows, words=SHARD_WORDS)
+
+        def plain(st_=seg, rows=rows):
+            return kernels.decode_block_plain(*st_, rows=rows,
+                                              words=SHARD_WORDS)
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        dec["err"] = max(dec["err"], max_abs_err(got, want))
+        dec["ms"] += time_ms(run, iters=10)
+        dec["plain_ms"] += time_ms(plain, iters=2, warmup=1)
+        dec["bytes"] += stack_bytes(seg) + S * rows * SHARD_WORDS * 4
+        filt = (got[:, a] & got[:, b]).contiguous()
+        mrows = sig[0][1]
+
+        def frun(st_=met, rows=mrows):
+            return kernels.fused_row_counts(*st_, filt, rows=rows,
+                                            words=SHARD_WORDS)
+
+        def fplain(st_=met, rows=mrows):
+            return kernels.fused_row_counts_plain(*st_, filt, rows=rows,
+                                                  words=SHARD_WORDS)
+
+        got, want = frun(), fplain()
+        torch.cuda.synchronize()
+        fus["err"] = max(fus["err"], max_abs_err(got, want))
+        fus["ms"] += time_ms(frun, iters=10)
+        fus["plain_ms"] += time_ms(fplain, iters=2, warmup=1)
+        fus["bytes"] += stack_bytes(met) + S * SHARD_WORDS * 4 + \
+            S * mrows * 4
+        fus["ops"] += 2 * met.payload.numel()
+    say("cfg5_budget", kernel_groups=len(groups),
+        group_shards=[len(g[0]) for g in groups],
+        decode_err=dec["err"], fused_err=fus["err"])
+    st.close()
+    return dec, fus
+
+
+def run_cfg5_leg(holder, tab, device, label: str, compressed: bool,
+                 budget_mb, workspace_mb=None):
+    """One leg of ``bench_config5_compressed`` on the port: CFG5_NB
+    requests of CFG5_B calls over the rotating hot / cold quarter
+    subsets (bench.py:528-530), then all-shard requests on the default
+    path — CFG5_ALL_REQUESTS of CFG5_ALL_B calls, which a multi-slice
+    schedule must refuse as ``streamed-working-set`` and run on the
+    grouped path slice by slice, and one of CFG5_WIDE_B calls — every
+    answer equal to the oracle.  ``workspace_mb`` sets the decode
+    workspace for the leg (default: left as it is).  Kernel launches
+    are counted from just before the leg to just after it."""
+    from pilosa_tpu_torch import cfg5
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import stacked as port_stacked
+    from pilosa_tpu_torch.storage import fragment as port_fragment
+    from pilosa_tpu_torch.storage.membudget import DEFAULT_BUDGET
+    n = len(tab)
+    shards = list(range(n))
+    ws0 = port_stacked.DECODE_WORKSPACE_BYTES
+    if workspace_mb is not None:
+        port_stacked.DECODE_WORKSPACE_BYTES = workspace_mb << 20
+    port_fragment.COMPRESSED_RESIDENT = compressed
+    # flush the previous leg's residency so this leg's gauges are its own
+    DEFAULT_BUDGET.limit_bytes = 1
+    DEFAULT_BUDGET.shrink_to_limit()
+    DEFAULT_BUDGET.limit_bytes = None if budget_mb is None \
+        else budget_mb << 20
+    DEFAULT_BUDGET.reset_peak()
+    b0 = DEFAULT_BUDGET.stats()
+    rng = np.random.default_rng(SEED + 50)
+    subsets = [list(map(int, x)) for x in np.array_split(np.arange(n), 4)]
+    order = [subsets[0] if i % 2 == 0 else subsets[1 + (i // 2) % 3]
+             for i in range(CFG5_NB)]
+    ex = Executor(holder, device=device)
+    log = FallbackLog()
+    ex.logger = log
+    kernels.reset_launches()
+
+    def one(sub, B):
+        pairs = cfg5.batch_pairs(rng, B)
+        t0 = time.perf_counter()
+        got = ex.execute(cfg5.INDEX, cfg5.batch_query(pairs), shards=sub)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        cfg5_check(label, tab, shards if sub is None else sub, pairs, got)
+        return dt
+
+    t_leg = time.perf_counter()
+    for sub in subsets:                    # warm: stage, capture
+        one(sub, CFG5_B)
+    lat = [one(sub, CFG5_B) for sub in order]
+    sched = ex.stacked.shard_schedule(holder, cfg5.INDEX, [CFG5_KEYS],
+                                      shards, CFG5_FUSED_ONLY)
+    slices = [len(sl) for sl in sched.slices]
+    del sched
+    p0 = DEFAULT_BUDGET.stats()
+    fb0 = dict(log.nodes)
+    all_lat = [one(None, CFG5_ALL_B) for _ in range(CFG5_ALL_REQUESTS)]
+    fb_all = {k: v - fb0.get(k, 0) for k, v in log.nodes.items()
+              if v - fb0.get(k, 0)}
+    wide_ms = one(None, CFG5_WIDE_B) * 1e3
+    p1 = DEFAULT_BUDGET.stats()
+    launches = dict(kernels.LAUNCHES)
+    requests = len(subsets) + len(order) + CFG5_ALL_REQUESTS + 1
+    snap = ex.wholequery.snapshot()
+    rec = {"compressed": compressed, "budget_mb": budget_mb,
+           "decode_workspace_mb": port_stacked.DECODE_WORKSPACE_BYTES >> 20,
+           "slices_all_shards": slices,
+           "prefetch_hits": p1["prefetchHits"] - p0["prefetchHits"],
+           "prefetch_misses": p1["prefetchMisses"] - p0["prefetchMisses"],
+           "pinned_bytes_end": p1["pinnedBytes"],
+           "evictions": p1["evictions"] - b0["evictions"],
+           "upload_mb": (p1["uploadBytes"] - b0["uploadBytes"]) / 2**20,
+           "peak_resident_mb": p1["peakBytes"] / 2**20,
+           "compressed_mb": p1["compressedBytes"] / 2**20,
+           "calls_per_s": CFG5_B * len(lat) / sum(lat),
+           "p50_ms": statistics.median(lat) * 1e3,
+           "ms": [round(x * 1e3, 3) for x in lat],
+           "all_shard_ms": [round(x * 1e3, 3) for x in all_lat],
+           "wide_all_shard_ms": wide_ms,
+           "fallbacks": dict(log.nodes),
+           "fallbacks_all_shard": fb_all,
+           "wq_fallbacks": ex.wq_fallbacks,
+           "batcher_stream_fallbacks": ex.batcher.stream_fallbacks,
+           "wq_requests": ex.wq_requests,
+           "graphs_captured": snap["captures"], "replays": snap["replays"],
+           "launches": launches,
+           "launches_per_request": {k: v / requests
+                                    for k, v in launches.items()},
+           "requests": requests,
+           "seconds": time.perf_counter() - t_leg}
+    ex.close()
+    port_stacked.DECODE_WORKSPACE_BYTES = ws0
+    say("cfg5_budget", leg=label, **{k: (json.dumps(v) if isinstance(
+        v, (dict, list)) else v) for k, v in rec.items()})
+    if rec["pinned_bytes_end"]:
+        raise AssertionError(f"cfg5 {label}: {rec['pinned_bytes_end']} "
+                             f"pinned bytes outlived the leg")
+    if budget_mb is not None and p1["peakBytes"] > budget_mb << 20:
+        raise AssertionError(f"cfg5 {label}: peak {rec['peak_resident_mb']}"
+                             f" MiB over the {budget_mb} MiB budget")
+    streamed = fb_all.get("streamed-working-set", 0)
+    if len(slices) > 1:
+        if streamed != CFG5_ALL_REQUESTS:
+            raise AssertionError(f"cfg5 {label}: {len(slices)} slices but "
+                                 f"all-shard fallbacks {fb_all}")
+        if rec["prefetch_hits"] + rec["prefetch_misses"] <= 0:
+            raise AssertionError(f"cfg5 {label}: the all-shard requests "
+                                 f"never streamed")
+    elif streamed:
+        raise AssertionError(f"cfg5 {label}: one slice but {streamed} "
+                             f"streamed-working-set fallbacks")
+    return rec
+
+
+def cfg5_cuts(n: int, per_shard: int, ceiling: int) -> list:
+    """Slice lengths of ``n`` shards of ``per_shard`` bytes each cut
+    contiguously at ``ceiling`` bytes (shard_schedule's rule, one
+    device)."""
+    per = max(1, ceiling // per_shard)
+    return [n] if n * per_shard <= ceiling else \
+        [min(per, n - i) for i in range(0, n, per)]
+
+
+def run_cfg5_budget(device, n_shards: int) -> tuple[dict, dict, dict]:
+    """Phase cfg5_budget: the sparse config-5 corpus, the answer gate in
+    both forms under the budget, the kernels at a compressed slice's
+    shapes, and the resident / dense / compressed legs."""
+    from pilosa_tpu_torch import cfg5
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.parallel import stacked as port_stacked
+    from pilosa_tpu_torch.storage import Holder
+    from pilosa_tpu_torch.storage import fragment as port_fragment
+    from pilosa_tpu_torch.storage.membudget import DEFAULT_BUDGET
+    rec = {}
+    t0 = time.perf_counter()
+    holder = Holder(None)
+    words = cfg5.build_config5(holder, np.random.default_rng(SEED + 40),
+                               n_shards=n_shards, sparse=True)
+    rec["corpus_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tab = cfg5_table(words)
+    rec["oracle_s"] = time.perf_counter() - t0
+    dense_mb = n_shards * 12 * SHARD_BYTES / 2**20
+    say("cfg5_budget", shards=n_shards, columns=n_shards << 20,
+        dense_working_set_mb=dense_mb, budget_mb=CFG5_BUDGET_MB,
+        decode_workspace_mb=port_stacked.DECODE_WORKSPACE_BYTES >> 20,
+        corpus_seconds=rec["corpus_s"], oracle_seconds=rec["oracle_s"])
+    # the answer gate in both forms under the budget, before any timing
+    q = "TopN(metric, Intersect(Row(seg=0), Row(seg=2)), n=5)"
+    want = cfg5.oracle_topn5(words, range(n_shards), 0, 2)
+    if cfg5_rank(tab, list(range(n_shards)), 0, 2) != want:
+        raise AssertionError("the config-5 table oracle disagrees with "
+                             "oracle_topn5")
+    del words
+    ex = Executor(holder, device=device)
+    for form in (False, True):
+        port_fragment.COMPRESSED_RESIDENT = form
+        DEFAULT_BUDGET.limit_bytes = CFG5_BUDGET_MB << 20
+        DEFAULT_BUDGET.shrink_to_limit()
+        got = [(p.id, p.count) for p in ex.execute(cfg5.INDEX, q)[0]]
+        if got != want:
+            raise AssertionError(f"cfg5 gate (compressed={form}): {got} "
+                                 f"!= {want}")
+    ex.close()
+    say("cfg5_budget", gate=json.dumps(want))
+    # the kernels at the first compressed slice's shapes
+    port_fragment.COMPRESSED_RESIDENT = True
+    probe = Executor(holder, device=device)
+    first = probe.stacked.shard_schedule(
+        holder, cfg5.INDEX, [CFG5_KEYS], list(range(n_shards)),
+        CFG5_FUSED_ONLY).slices[0]
+    probe.close()
+    dec, fus = check_cfg5_shapes(holder, device, first)
+    for name, r in (("decode_block", dec), ("fused_row_counts", fus)):
+        if r["err"]:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"at the config-5 slice: {r['err']}")
+    rec["kernel_slice_shards"] = len(first)
+    rec["resident"] = run_cfg5_leg(holder, tab, device, "resident", False,
+                                   None)
+    rec["dense"] = run_cfg5_leg(holder, tab, device, "dense", False,
+                                CFG5_BUDGET_MB)
+    rec["compressed"] = run_cfg5_leg(holder, tab, device, "compressed",
+                                     True, CFG5_BUDGET_MB)
+    rec["compressed_ws"] = run_cfg5_leg(
+        holder, tab, device, "compressed_ws", True, CFG5_BUDGET_MB,
+        workspace_mb=CFG5_WORKSPACE_MB)
+    # the reckoning: the dense form's 12 rows a shard against half the
+    # budget; the compressed form's decoded seg stack (4 rows a shard)
+    # against the decode workspace of each leg
+    want = {"dense": cfg5_cuts(n_shards, 12 * SHARD_BYTES,
+                               (CFG5_BUDGET_MB << 20) // 2),
+            "compressed": cfg5_cuts(
+                n_shards, 4 * SHARD_BYTES,
+                port_stacked.DECODE_WORKSPACE_BYTES),
+            "compressed_ws": cfg5_cuts(n_shards, 4 * SHARD_BYTES,
+                                       CFG5_WORKSPACE_MB << 20)}
+    for leg, cuts in want.items():
+        if rec[leg]["slices_all_shards"] != cuts:
+            raise AssertionError(f"cfg5 {leg}: slices "
+                                 f"{rec[leg]['slices_all_shards']}, the "
+                                 f"byte reckoning gives {cuts}")
+    if len(want["compressed_ws"]) < 2:
+        raise AssertionError("the decode workspace did not slice the "
+                             "compressed config-5 set")
+    for name, nl in rec["compressed"]["launches"].items():
+        if nl <= 0:
+            raise AssertionError(f"the compressed config-5 leg never "
+                                 f"launched {name}")
+    port_fragment.COMPRESSED_RESIDENT = True
+    DEFAULT_BUDGET.limit_bytes = None
+    del holder
+    gc.collect()
+    return rec, dec, fus
+
+
+# -- phase 9: the cluster read plane, four port nodes on the one card -------
+
+CLUSTER_NODES = 4
+CLUSTER_B = 64                 # calls per request (bench.py)
+CLUSTER_REQUESTS_1 = 6
+CLUSTER_CLIENTS = 8
+CLUSTER_REQUESTS_8 = 2         # requests per client of the 8-client run
+
+
+def run_cluster(device, n_shards: int) -> dict:
+    """Phase cluster (``bench_config5_distributed`` on the port): four
+    port servers in this process on localhost ports, sharing the card;
+    the dense config-5 corpus at ``n_shards`` loaded through node0's
+    ``import-roaring`` (forwarded to owners); 64-call requests to node0
+    from 1 and from 8 clients, every TopN equal to the oracle."""
+    import socket
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pilosa_tpu_torch import cfg5
+    from pilosa_tpu_torch.server.server import Config, Server
+    from pilosa_tpu_torch.storage.roaring_io import pack_roaring_words
+    socks = []
+    for _ in range(CLUSTER_NODES):
+        sk = socket.socket()
+        sk.bind(("localhost", 0))
+        socks.append(sk)
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    hosts = [f"localhost:{p}" for p in ports]
+    rec = {}
+    servers = []
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            for i, p in enumerate(ports):
+                srv = Server(Config(
+                    data_dir=f"{root}/node{i}", bind=hosts[i],
+                    device=str(device), node_id=f"node{i}",
+                    cluster_hosts=hosts, replica_n=1,
+                    anti_entropy_interval=0, metric_poll_interval=0))
+                servers.append(srv)
+                srv.open()
+            p0 = ports[0]
+            http(p0, "POST", "/index/dist", {})
+            http(p0, "POST", "/index/dist/field/seg", {})
+            http(p0, "POST", "/index/dist/field/metric", {})
+            t0 = time.perf_counter()
+            words = {}
+            jobs = []
+            for shard, w in cfg5.dist_words(
+                    np.random.default_rng(SEED + 60), n_shards):
+                words[shard] = w
+                jobs.append((f"seg/import-roaring/{shard}",
+                             pack_roaring_words(w[:cfg5.SEG_ROWS])))
+                jobs.append((f"metric/import-roaring/{shard}",
+                             pack_roaring_words(w[cfg5.SEG_ROWS:])))
+
+            def post(job):
+                http(p0, "POST", f"/index/dist/field/{job[0]}", job[1],
+                     ctype="application/octet-stream")
+
+            with ThreadPoolExecutor(CLUSTER_CLIENTS) as pool:
+                list(pool.map(post, jobs))
+            rec["load_s"] = time.perf_counter() - t0
+            tab = cfg5_table(words)
+            del words
+            say("cluster", nodes=CLUSTER_NODES, shards=n_shards,
+                posts=len(jobs), body_mb=sum(len(j[1]) for j in jobs)
+                / 2**20, load_seconds=rec["load_s"],
+                node_shards=[len(s.holder.index("dist").available_shards())
+                             for s in servers])
+            del jobs
+            shards = list(range(n_shards))
+            rng = np.random.default_rng(SEED + 61)
+            n_req = 2 * CLUSTER_NODES + CLUSTER_REQUESTS_1 + \
+                CLUSTER_CLIENTS * CLUSTER_REQUESTS_8
+            draws = iter([cfg5.batch_pairs(rng, CLUSTER_B)
+                          for _ in range(n_req)])
+
+            def one(port, pairs):
+                t1 = time.perf_counter()
+                got = http(port, "POST", "/index/dist/query",
+                           cfg5.batch_query(pairs).encode())["results"]
+                dt = time.perf_counter() - t1
+                for (a, b), g in zip(pairs, got):
+                    have = [(x["id"], x["count"]) for x in g]
+                    want = cfg5_rank(tab, shards, a, b)
+                    if have != want:
+                        raise AssertionError(f"cluster seg={a},{b}: "
+                                             f"{have} != {want}")
+                return dt
+
+            # warm every node twice: stage, then capture its graph
+            t0 = time.perf_counter()
+            for _ in range(2):
+                for p in ports:
+                    one(p, next(draws))
+            rec["warm_s"] = time.perf_counter() - t0
+            gate = http(p0, "POST", "/index/dist/query",
+                        b"TopN(metric, Intersect(Row(seg=1), Row(seg=3)),"
+                        b" n=5)")["results"][0]
+            if [(x["id"], x["count"]) for x in gate] != \
+                    cfg5_rank(tab, shards, 1, 3):
+                raise AssertionError(f"cluster gate: {gate}")
+            snap0 = http(p0, "GET", "/debug/vars")
+            lat1 = [one(p0, next(draws))
+                    for _ in range(CLUSTER_REQUESTS_1)]
+            batch8 = [next(draws)
+                      for _ in range(CLUSTER_CLIENTS * CLUSTER_REQUESTS_8)]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(CLUSTER_CLIENTS) as pool:
+                lat8 = list(pool.map(lambda pr: one(p0, pr), batch8))
+            wall8 = time.perf_counter() - t0
+            snap1 = http(p0, "GET", "/debug/vars")
+            coord = servers[0].cluster
+            means = {}
+            for name in ("peer_exec", "wire_overhead", "local_exec",
+                         "reduce"):
+                k = f"cluster.multi.{name}"
+                a = snap0["timings"].get(k, {"count": 0, "sum": 0.0})
+                b = snap1["timings"].get(k, {"count": 0, "sum": 0.0})
+                dn = b["count"] - a["count"]
+                means[name + "_ms"] = (b["sum"] - a["sum"]) / dn * 1e3 \
+                    if dn else None
+            counts = snap1.get("counts", {})
+            rec.update({
+                "calls_per_s_1": CLUSTER_B * len(lat1) / sum(lat1),
+                "p50_ms_1": statistics.median(lat1) * 1e3,
+                "ms_1": [round(x * 1e3, 3) for x in lat1],
+                "calls_per_s_8": CLUSTER_B * len(lat8) / wall8,
+                "p50_ms_8": statistics.median(lat8) * 1e3,
+                "wire": {n.id: coord.client.peer_wire_mode(n.host)
+                         for n in coord.peers()},
+                "coordinator_means": means,
+                "hedges": counts.get("cluster.hedges", 0),
+                "hedge_wins": counts.get("cluster.hedge_wins", 0),
+                "retry_waves": counts.get("cluster.retry_waves", 0),
+                "node_states": {n.id: n.state for n in coord.nodes},
+                "nodes": [{
+                    "wq_requests": s.api.executor.wq_requests,
+                    "wq_fallbacks": s.api.executor.wq_fallbacks,
+                    "launches_single": s.api.executor.batcher
+                    .single_launches,
+                    "launches_fused": s.api.executor.batcher
+                    .fused_launches,
+                    **{k: s.api.executor.wholequery.snapshot()[k]
+                       for k in ("captures", "replays", "eagerRuns")}}
+                    for s in servers],
+                "pool_mb": [(s.api.executor.wholequery
+                             .pool_reserved_bytes() or 0) / 2**20
+                            for s in servers],
+            })
+        finally:
+            for srv in servers:
+                srv.close()
+    say("cluster", **{k: (json.dumps(v) if isinstance(v, (dict, list))
+                          else v) for k, v in rec.items()})
+    if set(rec["wire"].values()) != {"bin1"}:
+        raise AssertionError(f"cluster wire: {rec['wire']}")
+    return rec
+
+
 def main(argv) -> int:
     profile = "--profile" in argv
     if not torch.cuda.is_available():
@@ -1241,6 +1767,19 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     served = run_served(holder, hist, device, profile=profile)
     say("served", seconds=time.perf_counter() - t0)
+    del cfg4, holder
+    gc.collect()
+
+    # config 5 over 954 shards under the 768 MiB budget
+    from pilosa_tpu_torch import cfg5
+    t0 = time.perf_counter()
+    c5, c5_dec, c5_fus = run_cfg5_budget(device, cfg5.N_SHARDS5)
+    say("cfg5_budget", seconds=time.perf_counter() - t0)
+
+    # config 5's cluster half: four port nodes on the one card
+    t0 = time.perf_counter()
+    clus = run_cluster(device, cfg5.N_SHARDS5D)
+    say("cluster", seconds=time.perf_counter() - t0)
 
     src = "pilosa_tpu_torch/csrc/container_kernels.cu"
     lines = []
@@ -1256,17 +1795,23 @@ def main(argv) -> int:
              "ssb_topn_filter", comp_rec, comp_g_rec["launches"],
              served_launches["fused_row_counts"]),
             ("decode_block", bsi_dec, f"{JAX_KERNELS}:245", "bsi64_bsig_v",
-             c4_comp, c4_comp_g["launches_phase"], None)):
+             c4_comp, c4_comp_g["launches_phase"], None),
+            ("decode_block", c5_dec, f"{JAX_KERNELS}:245",
+             "cfg5_compressed_slice", c5["compressed"], None, None),
+            ("fused_row_counts", c5_fus, f"{JAX_KERNELS}:326",
+             "cfg5_compressed_slice", c5["compressed"], None, None)):
         b_ms, b_by = bound(rec)
         launches = run["launches" if "launches" in run
                        else "launches_phase"][name]
         lines.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "shape": shape,
                       "launches": launches,
-                      "launches_replayed": run["launches_replayed"][name],
+                      "launches_replayed": run.get(
+                          "launches_replayed", {}).get(name),
                       "launches_per_request": run[
                           "launches_per_request"][name],
-                      "launches_grouped_run": grouped[name],
+                      "launches_grouped_run": None if grouped is None
+                      else grouped[name],
                       "launches_per_served_request": per_served,
                       "max_abs_err": rec["err"], "ms": rec["ms"],
                       "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
@@ -1281,6 +1826,7 @@ def main(argv) -> int:
                                 "compressed_grouped": c4_comp_g,
                                 "budget_mb": BUDGET_MB}}))
     print(json.dumps({"served": served}))
+    print(json.dumps({"cfg5_budget": c5, "cluster": clus}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

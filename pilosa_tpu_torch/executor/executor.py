@@ -42,9 +42,10 @@ SetColumnAttrs.
 
 Deviations from the JAX module:
 
-* One shard slice covers all shards: there is no over-budget shard
-  schedule yet, and on one GPU a batched launch covers every shard of
-  the request (the JAX module's ``stacked_per_device(n)`` is ``n``).
+* On one GPU a batched launch covers every shard of its shard slice
+  (the JAX module's ``stacked_per_device(n)`` is ``n``).  A working set
+  over the device budget runs slice-major over the shard schedule
+  (``_run_batched_groups``, parallel/stacked.py ``shard_schedule``).
 * Chunks of a batched group are not padded to a power of two: the
   padding only lets XLA reuse executables, and answers do not depend on
   it.  ``batch_chunk_size`` stays the one sizing rule, and a filter-less
@@ -77,7 +78,7 @@ from ..ops import bitset, bsi
 from ..pql import Call, parse
 from ..storage.field import FIELD_TYPE_INT, FIELD_TYPE_BOOL
 from ..storage import time_quantum as tq
-from .plan import PlanCompiler, Resolver, parametrize
+from .plan import PlanCompiler, Resolver, parametrize, plan_inputs
 from .results import (
     FieldRow, GroupCount, Pair, RowIdentifiers, RowResult, ValCount,
     acc_counts, rank_counts,
@@ -192,6 +193,16 @@ def _batch_chunks(params_mat: np.ndarray, n_shards: int,
         yield lo, sub.shape[0], sub
 
 
+def _group_key_list(stacked, kind, slotted, extra):
+    """The exact (field, view) key list the stacked dispatch for this
+    group will stack (``stacked.batch_keys`` is the single definition),
+    so the shard schedule's prefetch stages the stacks the dispatch will
+    actually read."""
+    if kind == "count":
+        return plan_inputs(slotted)
+    return stacked.batch_keys((extra["field"], extra["view"]), slotted)
+
+
 def _run_batched_groups(batcher, holder, index, shards, groups, results):
     """Dispatch batched call groups chunk-wise and fill ``results``.
 
@@ -200,15 +211,44 @@ def _run_batched_groups(batcher, holder, index, shards, groups, results):
     field/view/ids_n with one (ids, n) pair per call.  Shared by the
     grouped path and the prepared-statement cache so the chunking policy
     lives in exactly one place.  Every chunk of every group is dispatched
-    before any result is fetched.  Each chunk rides the cross-query
-    batcher as one ticket, so concurrent requests replaying the same
-    prepared template fuse into one launch."""
+    before any result is fetched.  On a single-slice schedule each chunk
+    rides the cross-query batcher as one ticket, so concurrent requests
+    replaying the same prepared template fuse into one launch.
+
+    Dispatch order is SLICE-MAJOR over one residency-aware shard schedule
+    covering the whole batch (parallel/stacked.py ``shard_schedule``):
+    every group's every chunk runs against a shard slice before the
+    budget rotates to the next slice, with the next slice prefetching
+    while the current one computes.  When the working set fits the
+    budget the schedule is one slice and this is the unsliced
+    dispatch."""
     from ..parallel.stacked import field_rows
     groups = list(groups)
     if not groups:
         return
     stacked = batcher.stacked
-    per_dev = stacked.stacked_per_device(len(shards))
+
+    key_lists: list = []
+    fused_only: list = []
+    for kind, slotted, _pm, _ci, extra in groups:
+        kl = _group_key_list(stacked, kind, slotted, extra)
+        fo = stacked.fused_only((extra["field"], extra["view"]), slotted) \
+            if kind == "topn" else frozenset()
+        if kl not in key_lists:
+            key_lists.append(kl)
+            fused_only.append(fo)
+        else:
+            # a block two groups share is decoded if either decodes it
+            i = key_lists.index(kl)
+            fused_only[i] = fused_only[i] & fo
+    sched = stacked.shard_schedule(holder, index, key_lists, shards,
+                                   fused_only)
+    # the chunk layout must be identical across slices so per-chunk parts
+    # can accumulate; size it by the largest slice
+    per_dev = stacked.stacked_per_device(sched.max_slice_len)
+    # a multi-slice schedule keeps the direct slice-major dispatch:
+    # batching a streamed working set would re-stage it whole
+    fuse = len(sched.slices) == 1
 
     def _n_split(kind, slotted):
         # count plans always gather per-row temps; sum/topn without a
@@ -228,28 +268,43 @@ def _run_batched_groups(batcher, holder, index, shards, groups, results):
     n_splits = sum(len(ch) - 1 for ch in group_chunks if len(ch) > 1)
     if n_splits:
         batcher.stats.count("query.batch_temp_splits", n_splits)
+
+    parts_acc: dict[tuple[int, int], list] = {}
+    for shard_slice in sched:
+        for gi, (kind, slotted, _pm, _ci, extra) in enumerate(groups):
+            for lo, _n, sub in group_chunks[gi]:
+                stacked.batch_chunks += 1
+                if kind == "count":
+                    parts = batcher.count_batch(
+                        slotted, sub, holder, index, shard_slice,
+                        fuse=fuse)
+                elif kind == "sum":
+                    parts = batcher.bsi_sum_batch(
+                        extra["field"], extra["view"], slotted, sub,
+                        holder, index, shard_slice, fuse=fuse)
+                else:  # topn
+                    parts = batcher.row_counts_batch(
+                        extra["field"], extra["view"], slotted, sub,
+                        holder, index, shard_slice, fuse=fuse)
+                parts_acc.setdefault((gi, lo), []).extend(parts)
+
+    # every part dispatched; the finalizers sum / merge the per-slice
+    # parts as they merge per-signature-group parts (every reduction
+    # here is additive over shards)
     for gi, (kind, slotted, params_mat, call_idxs, extra) \
             in enumerate(groups):
-        for lo, n_c, sub in group_chunks[gi]:
-            stacked.batch_chunks += 1
+        for lo, n_c, _sub in group_chunks[gi]:
+            parts = parts_acc.get((gi, lo), [])
             if kind == "count":
-                parts = batcher.count_batch(
-                    slotted, sub, holder, index, shards)
                 grp = _PendingGroup.counts(parts, call_idxs[lo: lo + n_c])
                 for i in call_idxs[lo: lo + n_c]:
                     results[i] = grp
             elif kind == "sum":
-                parts = batcher.bsi_sum_batch(
-                    extra["field"], extra["view"], slotted, sub, holder,
-                    index, shards)
                 for b in range(n_c):
                     results[call_idxs[lo + b]] = _Pending(
                         parts, lambda hp, b=b, base=extra["base"]:
                         _sum_fin(hp, b, base))
             else:  # topn
-                parts = batcher.row_counts_batch(
-                    extra["field"], extra["view"], slotted, sub, holder,
-                    index, shards)
                 for b in range(n_c):
                     ids, n = extra["ids_n"][lo + b]
                     results[call_idxs[lo + b]] = _Pending(

@@ -31,12 +31,22 @@ carry their QueryContext, and an expired ticket is dropped BEFORE launch
 (``background()``, the rank-cache rebuild) is counted apart and yields
 to queued foreground tickets.
 
+Over-budget working sets: a fused launch whose shard schedule
+(parallel/stacked.py) has more than one slice streams each ticket down
+its direct path instead, a matrix ticket once per slice of that
+schedule (``stream_fallbacks``, ``dispatch.launch.stream_fallback``);
+so does a fused whole-query pack whose program raised
+``streamed-working-set``.  Each fused launch hits
+the ``mesh.slice`` failpoint once, matching the per-slice gate of the
+direct path.
+
 Deviations from the JAX module: no pow2 padding of a fused reducer
 batch (the eager reducers reuse no executable; whole-query programs pad
-inside the runner), no multi-process or shard-schedule composition (one
-device, one shard slice), and no launch ledger, failpoint or compile
-registry hook (utils/devobs.py and the ``mesh.slice`` failpoint are not
-ported).
+inside the runner), no multi-process composition (one device), and no
+launch ledger or compile registry hook (utils/devobs.py is not ported).
+A matrix ticket of a fused launch refused for its slices runs slice by
+slice; the JAX module's direct path runs its batched reducer over every
+shard at once, staging the over-budget working set whole.
 """
 
 from __future__ import annotations
@@ -50,9 +60,10 @@ from contextlib import contextmanager
 import numpy as np
 
 from ..core import SHARD_WORDS
-from ..executor.plan import parametrize
+from ..executor.plan import parametrize, plan_inputs
 from ..utils import profile as qprof
 from ..utils.deadline import DeadlineExceeded, activate, current
+from ..utils.faults import FAULTS
 from ..utils.locks import make_condition, make_rlock
 from ..utils.stats import BucketHistogram, NopStatsClient, ReservoirTimer
 from ..utils.tracing import GLOBAL_TRACER
@@ -346,9 +357,9 @@ class DispatchBatcher:
     # -- matrix surface (_run_batched_groups / prepared replay) ------------
 
     def count_batch(self, slotted, params_mat, holder, index,
-                    shards) -> list:
+                    shards, fuse: bool = True) -> list:
         params_mat = np.asarray(params_mat, dtype=np.int32)
-        if self._use_ticket():
+        if fuse and self._use_ticket():
             out = self._submit(
                 "count",
                 ("count", repr(slotted), index, tuple(shards), id(holder)),
@@ -361,9 +372,9 @@ class DispatchBatcher:
                           params_mat, holder, index, shards)
 
     def row_counts_batch(self, field, view, slotted, params_mat, holder,
-                         index, shards) -> list:
+                         index, shards, fuse: bool = True) -> list:
         params_mat = np.asarray(params_mat, dtype=np.int32)
-        if self._use_ticket():
+        if fuse and self._use_ticket():
             out = self._submit(
                 "row_counts",
                 ("row_counts", field, view, repr(slotted), index,
@@ -379,9 +390,9 @@ class DispatchBatcher:
                           slotted, params_mat, holder, index, shards)
 
     def bsi_sum_batch(self, field, view, slotted, params_mat, holder,
-                      index, shards) -> list:
+                      index, shards, fuse: bool = True) -> list:
         params_mat = np.asarray(params_mat, dtype=np.int32)
-        if self._use_ticket():
+        if fuse and self._use_ticket():
             out = self._submit(
                 "bsi_sum",
                 ("bsi_sum", field, view, repr(slotted), index,
@@ -485,7 +496,7 @@ class DispatchBatcher:
             if not t.future.done():
                 t.future.set_exception(exc)
 
-    def _launch(self, kind, tickets):
+    def _launch(self, kind, tickets, sched=None):
         self.batch_size_hist.observe(len(tickets))
         if len(tickets) == 1:
             t = tickets[0]
@@ -497,7 +508,7 @@ class DispatchBatcher:
                 with activate(t.ctx), GLOBAL_TRACER.attach(t.trace), \
                         qprof.activate(t.prof), self.launch_lock:
                     t0 = time.perf_counter()
-                    result = self._direct(t)
+                    result = self._direct(t, sched)
                     if t.prof is not None:
                         t.prof.event("batcher.launch",
                                      time.perf_counter() - t0,
@@ -514,9 +525,12 @@ class DispatchBatcher:
             return
         self._launch_fused(kind, tickets)
 
-    def _direct(self, t):
-        """Un-fused launch: scalar tickets take the un-batched reducers;
-        matrix tickets take their batched reducer directly."""
+    def _direct(self, t, sched=None):
+        """Un-fused launch: scalar tickets take the un-batched reducers,
+        which stream over their own shard schedule; matrix tickets take
+        their batched reducer directly, once per slice of ``sched`` (a
+        multi-slice schedule the fused launch refused) or over all of
+        the ticket's shards, and return every slice's parts."""
         p = t.payload
         st = self.stacked
         if t.kind == "wholequery":
@@ -536,17 +550,20 @@ class DispatchBatcher:
             return st.bsi_sum_async(
                 p["field"], p["view"], p["filter_plan"], p["holder"],
                 p["index"], p["shards"])
-        if t.kind == "count":
-            return st.count_batch_async(p["slotted"], t.params,
-                                        p["holder"], p["index"],
-                                        p["shards"])
-        if t.kind == "row_counts":
-            return st.row_counts_batch_async(
-                p["field"], p["view"], p["slotted"], t.params, p["holder"],
-                p["index"], p["shards"])
-        return st.bsi_sum_batch_async(
-            p["field"], p["view"], p["slotted"], t.params, p["holder"],
-            p["index"], p["shards"])
+        parts = []
+        for sl in (sched if sched is not None else [p["shards"]]):
+            if t.kind == "count":
+                parts.extend(st.count_batch_async(
+                    p["slotted"], t.params, p["holder"], p["index"], sl))
+            elif t.kind == "row_counts":
+                parts.extend(st.row_counts_batch_async(
+                    p["field"], p["view"], p["slotted"], t.params,
+                    p["holder"], p["index"], sl))
+            else:
+                parts.extend(st.bsi_sum_batch_async(
+                    p["field"], p["view"], p["slotted"], t.params,
+                    p["holder"], p["index"], sl))
+        return parts
 
     def _note_fused(self, tickets, dur_s, batch_rows=0):
         """Attribute one fused launch back to EVERY participating query:
@@ -602,12 +619,30 @@ class DispatchBatcher:
                     [t.payload["mats"][ni].shape[0]
                      for ni in range(n_nodes)]))
         except BaseException as e:
+            from .wholequery import WholeQueryUnsupported
+            if isinstance(e, WholeQueryUnsupported) and \
+                    e.node == "streamed-working-set":
+                self.stream_fallbacks += 1
+                self.stats.count("dispatch.launch.stream_fallback")
             self._fail_all(tickets, e if isinstance(e, Exception)
                            else RuntimeError(repr(e)))
             return
         self.fused_launches += 1
         self.stats.count("dispatch.launch.fused")
         self.stats.count("dispatch.fused_queries", len(tickets))
+
+    def _schedule(self, kind, p):
+        """The shard schedule of a reducer ticket's key list."""
+        st = self.stacked
+        if kind in ("count", "segments"):
+            kl, fo = plan_inputs(p["slotted"]), frozenset()
+        else:
+            primary = (p["field"], p["view"])
+            kl = st.batch_keys(primary, p["slotted"])
+            fo = st.fused_only(primary, p["slotted"]) \
+                if kind == "row_counts" else frozenset()
+        return st.shard_schedule(p["holder"], p["index"], [kl],
+                                 p["shards"], [fo])
 
     def _launch_fused(self, kind, tickets):
         if kind == "wholequery":
@@ -616,6 +651,19 @@ class DispatchBatcher:
         st = self.stacked
         t_launch0 = time.perf_counter()
         try:
+            # an over-budget working set streams in shard slices — the
+            # fused single-slice path would stage it whole, so stream
+            # each ticket through its direct path instead
+            sched = self._schedule(kind, p0)
+            if len(sched.slices) > 1:
+                self.stream_fallbacks += 1
+                self.stats.count("dispatch.launch.stream_fallback")
+                for t in tickets:
+                    self._launch(kind, [t], sched)
+                return
+            # one failpoint gate per fused launch, matching the
+            # per-slice gate of the direct path
+            FAULTS.hit("mesh.slice", key=p0["index"])
             mats = [t.params for t in tickets]
             mat = np.concatenate(mats) if len(mats) > 1 else mats[0]
             B = mat.shape[0]

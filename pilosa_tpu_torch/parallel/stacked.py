@@ -52,11 +52,30 @@ Deviations from the JAX module, by design:
   empty.
 * Every compressed entry takes the fused kernel: the TPU's ``fits_vmem``
   rule does not apply on the card (ops/kernels.py).
-* One device, no shard schedule: every reducer runs over all of its
-  shards at once (``stacked_per_device(n)`` is ``n``), so the
-  whole-query program's ``streamed-working-set`` case cannot arise.
+* One device: ``stacked_per_device(n)`` is ``n``, and the shard
+  schedule's "never below ``n_devices`` shards a slice" rule keeps its
+  JAX form with ``n_devices`` = 1, so a slice may be cut at one shard.
   The executor reaches the reducers through the cross-query dispatch
   batcher (parallel/batcher.py), which serialises their launches.
+* The decode-workspace ceiling sums, as the JAX module does, the dense
+  bytes of every compressed key a dispatch decodes — a program's
+  ``_Frags`` holds them together — but leaves out a row-count primary
+  that only ``fused_row_counts`` reads (``fused_only``): that kernel
+  never writes its decoded words, while the JAX estimate counts it.
+  The smallest input where the cuts differ: one compressed row-count
+  primary with no filter, whose decoded bytes alone exceed the
+  workspace — the JAX module slices it, the port keeps one slice.
+* The over-budget shard schedule (``shard_schedule``, ``_ShardSchedule``)
+  stages slice k+1 on one background uploader thread while slice k
+  computes, as the JAX module does.  The uploader issues its copies on
+  the same (default) CUDA stream as the compute thread, so every stack
+  it makes is stream-ordered before any kernel that reads it, and a
+  stack the budget evicts after its slice's pins are released returns
+  its memory to the caching allocator on that same stream, after the
+  queued kernels that read it: no event fence or ``record_stream`` is
+  needed.  The price is that the host-to-device copy does not overlap
+  device compute; the host densify and the pageable-memory transfer
+  overlap the consumer's host work.
 * The whole-query program's cache (``_graphs``, the JAX module's
   executable cache keyed with ``_exec_seq``) holds captured CUDA graphs.
   A graph bakes in the addresses of the stacked tensors it read, so each
@@ -68,15 +87,16 @@ Deviations from the JAX module, by design:
   so a request that captured the old stack reads one consistent state.
   It is serialized under ``_ov_lock`` (the JAX module takes its executor
   lock).
-* Not in this slice: the over-budget shard schedule that streams slices
-  with a background prefetch, and the multi-process mesh paths.
+* Not in this slice: the multi-process mesh paths.
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 import weakref
 from collections import OrderedDict
+from concurrent import futures
 
 import numpy as np
 import torch
@@ -85,7 +105,19 @@ from ..core import SHARD_WORDS
 from ..executor.plan import eval_plan, parametrize, plan_inputs
 from ..ops import bitset, bsi, containers, kernels
 from ..storage.membudget import DEFAULT_BUDGET
+from ..utils import profile as qprof
+from ..utils.deadline import check_current
+from ..utils.faults import FAULTS
 from ..utils.locks import make_lock
+from ..utils.tracing import GLOBAL_TRACER
+
+# Per-launch dense decode workspace ceiling: a shard slice whose
+# compressed stacks decode to more dense bytes than this is cut into
+# smaller slices, bounding the transient dense tiles one launch
+# materialises.  Process-wide, set from the server config
+# (decode-workspace-mb) like DEFAULT_BUDGET (the JAX module's
+# ``DECODE_WORKSPACE_BYTES``).
+DECODE_WORKSPACE_BYTES = 1 << 30
 
 
 class _Frags:
@@ -180,6 +212,12 @@ class StackedExecutor:
 
     # Max combos per GroupBy dispatch (mesh_exec.GROUP_CHUNK).
     GROUP_CHUNK = 256
+    # One device: the shard schedule's minimum slice length.
+    n_devices = 1
+    # Slice target as a fraction of the budget: half, so the next slice
+    # can stage (double-buffered) while the current one computes without
+    # the pair exceeding the limit.
+    STREAM_SLICE_FRACTION = 0.5
 
     def __init__(self, device, budget=None):
         self.device = torch.device(device)
@@ -209,6 +247,9 @@ class StackedExecutor:
         self._exec_seq = next(_EXEC_SEQ)
         self._graphs: OrderedDict = OrderedDict()
         self.graphs_max = 32
+        # the shard schedule's background prefetch thread (lazy)
+        self._uploader = None
+        self._up_lock = make_lock("stack-uploader")
         self._finalizer = weakref.finalize(
             self, StackedExecutor._cleanup_budget, self._budget, id(self),
             self._stack_cache, self._graphs)
@@ -231,9 +272,21 @@ class StackedExecutor:
                 del self._graphs[k]
 
     def close(self):
-        """Unregister budget entries and drop cached stacks (also runs
-        when an un-closed executor is garbage-collected)."""
+        """Stop the prefetch thread, unregister budget entries and drop
+        cached stacks (the last two also run when an un-closed executor
+        is garbage-collected)."""
+        with self._up_lock:
+            if self._uploader is not None:
+                self._uploader.shutdown(wait=True, cancel_futures=True)
+                self._uploader = None
         self._finalizer()
+
+    def _uploader_pool(self):
+        with self._up_lock:
+            if self._uploader is None:
+                self._uploader = futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="ptpu-prefetch")
+            return self._uploader
 
     # -- shard grouping ----------------------------------------------------
 
@@ -257,6 +310,125 @@ class StackedExecutor:
             0 if fr is None else fr.ingest_epoch
             for row in frags for fr in row)
         return frags, token, epochs
+
+    def _is_resident(self, keys, holder, index, shards) -> bool:
+        """Whether this (keys, shards) stack is cached AND current — the
+        residency signal the shard schedule orders slices by."""
+        _, token, _epochs = self._stack_token(keys, holder, index, shards)
+        with self._sc_lock:
+            cached = self._stack_cache.get(
+                (index, tuple(keys), tuple(shards)))
+        # an epoch lag still counts as resident: the overlay OR is a few
+        # KB of device work, not a re-stage
+        return cached is not None and cached[0] == token
+
+    # -- over-budget shard streaming -----------------------------------------
+
+    def fused_only(self, primary, filter_plan) -> frozenset:
+        """The keys of a row-count dispatch (``batch_keys(primary,
+        filter_plan)``) that only ``fused_row_counts`` reads: the
+        primary, unless the filter reads it too and so decodes it."""
+        if primary in self._filter_keys(filter_plan):
+            return frozenset()
+        return frozenset([primary])
+
+    def _estimate_shard_bytes(self, keys, decoded, holder, index, shards):
+        """Per-shard byte estimates over ``keys``: (resident, decode).
+        Resident counts each fragment's device-resident form —
+        compressed bytes for compressed-form fragments, the dense tensor
+        otherwise — which is what occupies the budget between launches;
+        decode counts the dense words the ``decode_block`` launches of
+        one dispatch materialise from compressed fragments of the keys
+        whose ``decoded`` flag is set (bounded together by
+        DECODE_WORKSPACE_BYTES)."""
+        res, dec = [], []
+        for shard in shards:
+            b = d = 0
+            for (field, view), dk in zip(keys, decoded):
+                fr = holder.fragment(index, field, view, shard)
+                if fr is not None:
+                    dense = fr.n_rows * SHARD_WORDS * 4
+                    nb = fr.device_nbytes()
+                    b += nb
+                    if nb < dense and dk:
+                        d += dense
+            res.append(b)
+            dec.append(d)
+        return res, dec
+
+    def shard_schedule(self, holder, index, key_lists, shards,
+                       fused_only=None):
+        """Residency-aware shard-slice schedule for a dispatch that will
+        stack ``key_lists`` (one key list per distinct stacked block)
+        over ``shards``.  ``fused_only``, when given, holds per key list
+        the keys that only ``fused_row_counts`` reads (``fused_only()``):
+        they occupy the budget but are never decoded.
+
+        A working set that fits the budget (or an unlimited budget) gets
+        ONE slice — the whole shard list, with cache keys identical to
+        the unsliced path.  An over-budget set is carved into contiguous
+        slices of at most STREAM_SLICE_FRACTION of the budget; slices
+        already resident are ordered FIRST so a batch drains all work
+        against staged data before rotating the budget, and iteration
+        prefetches slice k+1 while slice k dispatches."""
+        shards = list(shards)
+        # bytes are estimated per key LIST occurrence, not the union:
+        # each list stages its own stacked block, so a key shared by two
+        # lists occupies device memory twice
+        if fused_only is None:
+            fused_only = [()] * len(key_lists)
+        all_keys, decoded = [], []
+        for kl, fo in zip(key_lists, fused_only):
+            all_keys.extend(kl)
+            decoded.extend(k not in fo for k in kl)
+        limit = self._budget.limit_bytes
+        slices = [shards]
+        if limit and len(shards) > self.n_devices:
+            per, dec = self._estimate_shard_bytes(all_keys, decoded, holder,
+                                                  index, shards)
+            ws = max(1, DECODE_WORKSPACE_BYTES)
+            if sum(per) > limit or sum(dec) > ws:
+                target = max(1, int(limit * self.STREAM_SLICE_FRACTION))
+                # contiguous cuts, deterministic for a given (shards,
+                # limit) so repeat queries hit the same slice cache keys;
+                # never below n_devices shards a slice (1 here).  Two
+                # ceilings: resident bytes against the streaming target
+                # and decoded dense bytes against the workspace — a
+                # fully-resident compressed working set still slices by
+                # the latter.
+                slices, cur, cur_b, cur_d = [], [], 0, 0
+                for s, b, d in zip(shards, per, dec):
+                    if (cur_b + b > target or cur_d + d > ws) and \
+                            len(cur) >= self.n_devices:
+                        slices.append(cur)
+                        cur, cur_b, cur_d = [], 0, 0
+                    cur.append(s)
+                    cur_b += b
+                    cur_d += d
+                if slices and len(cur) < self.n_devices:
+                    slices[-1].extend(cur)
+                elif cur:
+                    slices.append(cur)
+                if len(slices) > 1:
+                    # drain resident slices first (stable within each
+                    # class so rotation order stays deterministic)
+                    res = [all(self._is_resident(kl, holder, index, sl)
+                               for kl in key_lists) for sl in slices]
+                    slices = [sl for sl, r in zip(slices, res) if r] + \
+                        [sl for sl, r in zip(slices, res) if not r]
+        return _ShardSchedule(self, holder, index, key_lists, slices)
+
+    def _pin_stack(self, keys, index, shard_slice) -> tuple | None:
+        skey = ("stack", id(self), (index, tuple(keys), tuple(shard_slice)))
+        return skey if self._budget.pin(skey) else None
+
+    def _stream_groups(self, keys, holder, index, shards, fused_only=()):
+        """``_placed_groups`` over the shard schedule: the iteration
+        surface of every un-batched reducer.  A single-slice schedule
+        (the fits-in-budget case) is exactly one ``_placed_groups``."""
+        for sl in self.shard_schedule(holder, index, [keys], shards,
+                                      [fused_only]):
+            yield from self._placed_groups(keys, holder, index, sl)
 
     def _placed_groups(self, keys, holder, index, shards):
         """Group shards by input-shape signature over fragment keys
@@ -472,7 +644,7 @@ class StackedExecutor:
         keys = plan_inputs(plan)
         slotted, params = parametrize(plan)
         parts = []
-        for shard_list, placed, sig in self._placed_groups(
+        for shard_list, placed, sig in self._stream_groups(
                 keys, holder, index, shards):
             if all(s is None for s in sig):
                 continue  # no fragments -> plan evaluates to empty
@@ -491,7 +663,7 @@ class StackedExecutor:
         keys = plan_inputs(plan)
         slotted, params = parametrize(plan)
         out: dict[int, np.ndarray] = {}
-        for shard_list, placed, sig in self._placed_groups(
+        for shard_list, placed, sig in self._stream_groups(
                 keys, holder, index, shards):
             if all(s is None for s in sig):
                 zero = np.zeros(SHARD_WORDS, dtype=np.uint32)
@@ -547,8 +719,9 @@ class StackedExecutor:
         keys = self.batch_keys((field, view), filter_plan)
         fplan, params = self._slotted(filter_plan)
         parts = []
-        for shard_list, placed, sig in self._placed_groups(
-                keys, holder, index, shards):
+        for shard_list, placed, sig in self._stream_groups(
+                keys, holder, index, shards,
+                self.fused_only((field, view), filter_plan)):
             if sig[0] is None:
                 continue  # field fragment absent everywhere in this group
             present = self._present(keys, placed, sig)
@@ -606,7 +779,7 @@ class StackedExecutor:
                 keys.append(k)
         fplan, params = self._slotted(filter_plan)
         parts = []
-        for shard_list, placed, sig in self._placed_groups(
+        for shard_list, placed, sig in self._stream_groups(
                 keys, holder, index, shards):
             if sig[0] is None:
                 continue
@@ -641,13 +814,15 @@ class StackedExecutor:
     # -- BSI aggregations (fragment.go:1111 sum, :1147 min/max) ------------
 
     def _bsi_groups(self, field: str, view: str, filter_plan, params,
-                    holder, index, shards):
+                    holder, index, shards, stream: bool = True):
         """Yield (n_shards, bsi stack [S, rows, W], filter) per signature
         group holding the BSI fragment at full BSI depth; the filter is
         the plan's result (``[S, W]``, or ``[B, S, W]`` for a ``[B, P]``
-        params matrix) or None."""
+        params matrix) or None.  ``stream=False``: the caller passes a
+        pre-scheduled shard slice (the batched reducers)."""
         keys = self.batch_keys((field, view), filter_plan)
-        for shard_list, placed, sig in self._placed_groups(
+        groups = self._stream_groups if stream else self._placed_groups
+        for shard_list, placed, sig in groups(
                 keys, holder, index, shards):
             if sig[0] is None or _sig_rows(sig[0]) < bsi.OFFSET_ROW + 1:
                 continue
@@ -692,6 +867,9 @@ class StackedExecutor:
         """B counts that share one plan shape; parts are int64 [B]."""
         keys = plan_inputs(slotted)
         parts = []
+        # no _stream_groups in the batched reducers: their callers
+        # (_run_batched_groups and the dispatch batcher) own the slice
+        # schedule and pass pre-scheduled shard slices
         for shard_list, placed, sig in self._placed_groups(
                 keys, holder, index, shards):
             if all(s is None for s in sig):
@@ -748,7 +926,7 @@ class StackedExecutor:
         parts = []
         for _, frag, filt in self._bsi_groups(
                 field, view, slotted_filter, params_mat, holder, index,
-                shards):
+                shards, stream=False):
             counts = bsi.sum_counts(frag, filt)      # [B|-, S, 2, depth+1]
             if filt is None:
                 parts.append(counts.sum(dim=0, dtype=torch.int64)
@@ -756,3 +934,124 @@ class StackedExecutor:
             else:
                 parts.append(counts.sum(dim=1, dtype=torch.int64))
         return parts
+
+
+class _ShardSchedule:
+    """Iterable of shard slices with prefetch and pinning (the JAX
+    module's ``_ShardSchedule``).
+
+    While the consumer stages and dispatches against slice k, one
+    background uploader stages slice k+1 (host densify and device
+    placement off the critical path).  Both the in-use and the
+    prefetched slices' budget entries are pinned so concurrent staging
+    cannot evict them mid-use; pins release once each slice's launches
+    are enqueued (the module docstring says why that is safe on one
+    stream)."""
+
+    def __init__(self, stacked, holder, index, key_lists, slices):
+        self.stacked = stacked
+        self.holder = holder
+        self.index = index
+        self.key_lists = key_lists
+        self.slices = slices
+
+    @property
+    def max_slice_len(self) -> int:
+        return max((len(s) for s in self.slices), default=0)
+
+    def _stage(self, shard_slice) -> list[tuple]:
+        """Stage every key list's stack for one slice and pin the
+        entries; returns the pinned budget keys.  On a mid-stage failure
+        every pin taken so far is released before re-raising — a leaked
+        pin would shrink the budget for the process lifetime."""
+        pinned = []
+        try:
+            for kl in self.key_lists:
+                self.stacked._placed_groups(kl, self.holder, self.index,
+                                            shard_slice)
+                skey = self.stacked._pin_stack(kl, self.index, shard_slice)
+                if skey is not None:
+                    pinned.append(skey)
+        except BaseException:
+            for k in pinned:
+                self.stacked._budget.unpin(k)
+            raise
+        return pinned
+
+    def _slice_event(self, prof, i, sl, t0, up0, ev0):
+        """One per-slice profile stage: wall time plus the budget's
+        upload / evict deltas the slice drove."""
+        budget = self.stacked._budget
+        prof.event("device.slice", time.perf_counter() - t0,
+                   slice=i, shards=len(sl),
+                   uploadBytes=budget.upload_bytes - up0,
+                   evictions=budget.evictions - ev0)
+
+    def __iter__(self):
+        # deadline + failpoint gate per slice: an expired query aborts
+        # BETWEEN shard slices, and the finally below releases its pins
+        prof = qprof.current()
+        budget = self.stacked._budget
+        if len(self.slices) <= 1:
+            for sl in self.slices:
+                FAULTS.hit("mesh.slice", key=self.index)
+                check_current("mesh shard slice")
+                if prof is None:
+                    yield sl
+                else:
+                    t0, up0, ev0 = (time.perf_counter(),
+                                    budget.upload_bytes, budget.evictions)
+                    yield sl
+                    self._slice_event(prof, 0, sl, t0, up0, ev0)
+            return
+        pool = self.stacked._uploader_pool()
+        fut = None   # in-flight prefetch of the slice about to be served
+        pins: list = []
+        try:
+            for i, sl in enumerate(self.slices):
+                FAULTS.hit("mesh.slice", key=self.index)
+                check_current("mesh shard slice")
+                t0, up0, ev0 = (time.perf_counter(), budget.upload_bytes,
+                                budget.evictions)
+                if fut is not None:
+                    # a hit means the uploader finished BEFORE the
+                    # consumer got here (done() before result(), which
+                    # blocks) and the stacks are still token-valid
+                    done = fut.done()
+                    try:
+                        pins.extend(fut.result())
+                        budget.note_prefetch(done and all(
+                            self.stacked._is_resident(
+                                kl, self.holder, self.index, sl)
+                            for kl in self.key_lists))
+                    except (Exception, futures.CancelledError):
+                        # close() cancelling a queued prefetch degrades
+                        # to inline staging, counted as a miss
+                        budget.note_prefetch(False)
+                    fut = None
+                # cold slices stage here; prefetched ones hit the cache
+                pins.extend(self._stage(sl))
+                if i + 1 < len(self.slices):
+                    fut = pool.submit(
+                        GLOBAL_TRACER.task(self._stage,
+                                           name="mesh.prefetch_slice"),
+                        self.slices[i + 1])
+                yield sl
+                # the consumer enqueued its launches against this slice
+                # between the yield and here: let the budget rotate it
+                if prof is not None:
+                    self._slice_event(prof, i, sl, t0, up0, ev0)
+                for k in pins:
+                    budget.unpin(k)
+                pins = []
+        finally:
+            for k in pins:
+                budget.unpin(k)
+            if fut is not None:
+                try:
+                    for k in fut.result():
+                        budget.unpin(k)
+                # a failed prefetch already shows as a prefetch miss and
+                # a re-stage; this finally only releases its pins
+                except (Exception, futures.CancelledError):
+                    pass

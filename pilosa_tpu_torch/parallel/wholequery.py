@@ -52,8 +52,11 @@ node's params along the batch axis.
 
 Deviations from the JAX module:
 
-* One device, no shard schedule: ``precheck`` raises nothing — the
-  ``multiprocess-mesh`` and ``streamed-working-set`` cases cannot arise.
+* One device: ``precheck`` never raises ``multiprocess-mesh``.  It
+  raises ``streamed-working-set`` when the program's working set takes
+  more than one slice of the shard schedule (parallel/stacked.py), before
+  anything is staged or captured, so a streamed request is never
+  captured into a CUDA graph.
 * ``program_keys`` is sorted, so programs over one key set share one
   staged stack whatever their call order.
 * No launch ledger or compile registry (utils/devobs.py is not
@@ -123,6 +126,21 @@ def program_keys(program, stacked) -> list[tuple[str, str]]:
     for node in program:
         out.update(node_keys(node, stacked))
     return sorted(out)
+
+
+def program_fused_only(program, stacked) -> frozenset:
+    """The program's keys that only ``fused_row_counts`` reads: row-count
+    primaries that no node decodes (``_row_counts_masked`` sends a packed
+    primary to the fused kernel; every other read goes through
+    ``_Frags``)."""
+    decoded: set = set()
+    for node in program:
+        if node.kind == "row_counts":
+            decoded.update(stacked._filter_keys(node.plan))
+        else:
+            decoded.update(node_keys(node, stacked))
+    return frozenset(k for node in program if node.kind == "row_counts"
+                     for k in [node.primary] if k not in decoded)
 
 
 def pad_pow2_rows(mat: np.ndarray, repeat: bool = True) -> np.ndarray:
@@ -311,10 +329,17 @@ class WholeQueryRunner:
 
     def precheck(self, program, holder, index, shards):
         """Raise WholeQueryUnsupported for shapes the single-program
-        path cannot take; returns the program's stacked key list.  On
-        one device every working set is one shard slice (there is no
-        over-budget shard schedule yet), so nothing raises here."""
-        return self.program_keys(program)
+        path cannot take; returns the program's stacked key list."""
+        keys = self.program_keys(program)
+        if keys and shards:
+            sched = self.stacked.shard_schedule(
+                holder, index, [keys], shards,
+                [program_fused_only(program, self.stacked)])
+            if len(sched.slices) > 1:
+                raise WholeQueryUnsupported(
+                    "streamed-working-set",
+                    f"{len(sched.slices)} shard slices")
+        return keys
 
     @staticmethod
     def _participates(node, sig_map) -> bool:

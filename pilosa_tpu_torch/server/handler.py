@@ -7,19 +7,23 @@ gorilla/mux; JSON replaces protobuf on the public surface (the reference
 already speaks JSON for DDL and query responses; bulk imports also accept
 the pilosa-roaring binary format for compatibility).
 
-Port of the JAX package's ``server/handler.py`` for a single node.  The
-router, the request wrapper (body limits, admission gates, deadline and
-trace headers, streaming routes) and the public routes are copied;
+Port of the JAX package's ``server/handler.py``.  The router, the
+request wrapper (body limits, admission gates, deadline and trace
+headers, streaming routes) and the public routes are copied;
 ``/debug/vars`` and ``/metrics`` report the parts the port has (stats,
 budgets, the kernel wrappers' launch counts, the stack cache with its
-overlay and re-stage counters, the ingest committer).  Not registered
-(404) until the port has their subsystems: the cluster plane
-(``/internal/query`` and the other node-to-node routes,
-``/internal/ingest``, ``/debug/cluster``), device-runtime observability
+overlay and re-stage counters, the ingest committer, the cluster's
+breakers and routing state).  With a cluster, the server registers the
+cluster plane's node-to-node routes (``/internal/query``,
+``/internal/cluster/message``, ``/internal/import*``,
+``/internal/translate*``, ``/internal/index/{index}/shards``), and
+``/ingest`` forwards each record to its shard owners through
+``/internal/ingest``.  Not registered (404) until the port has their
+subsystems: the anti-entropy and resize routes and ``/debug/cluster``
+(the cluster plane's second part), device-runtime observability
 (``/debug/compiles``, ``/debug/launches``, ``/debug/timeseries``), SLOs
 and the flight recorder (``/debug/alerts``, ``/debug/bundle``) and the
-dashboards (``/debug/dashboard*``).  ``/internal/shards/max`` and
-``/internal/fragment/nodes`` stay: the export CLI reads them.
+dashboards (``/debug/dashboard*``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
+
+import numpy as np
 
 from .. import __version__
 from ..api import API, ApiError, ConflictError, NotFoundError
@@ -190,6 +196,13 @@ def build_debug_vars(api: API, server=None) -> dict:
             "internal": server.admission_internal.snapshot(),
             "ingest": server.admission_ingest.snapshot(),
         }
+    if server is not None and getattr(server, "cluster",
+                                      None) is not None:
+        # per-peer breakers and routing state (EWMA RTT, in-flight,
+        # residency summary age)
+        cl = server.cluster
+        out["breakers"] = cl.client.breaker_snapshot()
+        out["cluster"] = {"routing": cl.router.snapshot()}
     # tenant isolation plane (docs/robustness.md "Tenant isolation"):
     # per-tenant qps/p50/p99/shed/hedge-denied/quota columns — the
     # registry is process-wide, so bare-API servers report it too
@@ -389,12 +402,13 @@ def build_router(api: API, server=None) -> Router:
 
     # -- streaming ingest (docs/ingest.md) ---------------------------------
 
-    def post_ingest(req, args):
-        """Read binary frames incrementally off the socket, group-commit
-        the records, and ack only after the covering flush hit the WAL.
-        (The JAX package also forwards records to other shard owners
-        here; a single node owns every shard.)"""
+    def _ingest_stream(req, args, forward: bool):
+        """Shared body of the public and /internal/ ingest routes: read
+        binary frames incrementally off the socket, route records to
+        shard owners (public only), group-commit local records, and ack
+        only after the covering flush hit the WAL."""
         from ..ingest import wire
+        from ..parallel.cluster import IngestBackpressure
 
         index, field = args["index"], args["field"]
         ftype = api.check_ingest(index, field)
@@ -402,10 +416,20 @@ def build_router(api: API, server=None) -> Router:
             if server is not None else None
         if committer is None:
             raise ApiError("streaming ingest requires a running server")
+        cluster = getattr(server, "cluster", None)
+        from ..core import SHARD_WIDTH
         reader = wire.FrameReader(req.rfile.read, req._stream_len,
                                   max_frame_bytes=req.ingest_max_frame_bytes)
-        frames = records = 0
+        frames = records = fwd_records = 0
         last_seq = 0
+        # per-peer forward buffers: re-encoded frames accumulate until
+        # FWD_FLUSH_BYTES, then ship as one /internal/ingest POST (the
+        # peer acks after ITS group commit, so the ack chain holds
+        # end-to-end)
+        fwd: dict[str, list[bytes]] = {}
+        fwd_bytes: dict[str, int] = {}
+        FWD_FLUSH_BYTES = 1 << 20
+        local_id = cluster.node_id if cluster is not None else None
 
         def submit(recs, rectype) -> None:
             nonlocal last_seq
@@ -418,6 +442,18 @@ def build_router(api: API, server=None) -> Router:
                 last_seq = committer.submit(index, field,
                                             rows=recs["row"],
                                             cols=recs["col"], ts=ts)
+
+        def ship(host: str):
+            payload = b"".join([wire.MAGIC] + fwd.pop(host))
+            fwd_bytes.pop(host, None)
+            try:
+                cluster.client.ingest_frames(host, index, field, payload)
+            except IngestBackpressure as e:
+                # the owner's backlog is full: propagate the 503 so the
+                # client backs off the whole stream (frames are
+                # idempotent — resending is safe)
+                raise AdmissionRejected(
+                    str(e), retry_after=_ingest_retry_after(req))
 
         try:
             while True:
@@ -462,7 +498,40 @@ def build_router(api: API, server=None) -> Router:
                     req.stats.count("ingest.frames")
                     req.stats.count("ingest.records", len(recs))
                     req.stats.count("ingest.bytes", nbytes)
-                submit(recs, rectype)
+                if cluster is None or not forward:
+                    submit(recs, rectype)
+                    continue
+                shards = recs["col"] // SHARD_WIDTH
+                idx_obj = api.holder.index(index)
+                f_obj = idx_obj.field(field) if idx_obj is not None \
+                    else None
+                by_node: dict[str, list[int]] = {}
+                for s in np.unique(shards):
+                    # overlay-aware owners: a balancer-added replica
+                    # receives ingest writes like any other owner
+                    for nid in cluster.shard_owner_nodes(index, int(s)):
+                        by_node.setdefault(nid, []).append(int(s))
+                cluster.note_peer_write(index, by_node)
+                for nid, nshards in by_node.items():
+                    sub = recs[np.isin(shards, nshards)]
+                    if nid == local_id:
+                        submit(sub, rectype)
+                        continue
+                    fwd_records += len(sub)
+                    host = cluster.by_id[nid].host
+                    payload = wire.encode_frame(bytes([rectype])
+                                                + sub.tobytes())
+                    fwd.setdefault(host, []).append(payload)
+                    fwd_bytes[host] = fwd_bytes.get(host, 0) \
+                        + len(payload)
+                    if f_obj is not None:
+                        f_obj.remote_available_shards.update(
+                            s for s in nshards
+                            if not cluster.owns_shard(local_id, index, s))
+                    if fwd_bytes[host] >= FWD_FLUSH_BYTES:
+                        ship(host)
+            for host in list(fwd):
+                ship(host)
         except Exception:
             # Drain a bounded amount of the unread stream first: closing
             # with unread receive data resets the connection, and the
@@ -483,9 +552,21 @@ def build_router(api: API, server=None) -> Router:
             raise AdmissionRejected(
                 "ingest flush did not complete in time; retry",
                 retry_after=_ingest_retry_after(req))
-        return {"frames": frames, "records": records, "forwarded": 0}
+        return {"frames": frames, "records": records,
+                "forwarded": fwd_records}
+
+    def post_ingest(req, args):
+        return _ingest_stream(req, args, forward=True)
 
     r.add("POST", "/index/{index}/field/{field}/ingest", post_ingest,
+          gate="ingest", stream=True)
+
+    def post_ingest_internal(req, args):
+        # receive side of the ingest forward: the sender already routed,
+        # never re-forward
+        return _ingest_stream(req, args, forward=False)
+
+    r.add("POST", "/internal/ingest/{index}/{field}", post_ingest_internal,
           gate="ingest", stream=True)
 
     def get_export(req, args):
@@ -682,6 +763,11 @@ def build_router(api: API, server=None) -> Router:
         return api.shard_nodes(index, shard)
 
     r.add("GET", "/internal/fragment/nodes", fragment_nodes)
+
+    # the cluster plane's node-to-node routes (parallel/cluster.py
+    # register_routes)
+    if server is not None:
+        server.register_internal_routes(r)
 
     return r
 

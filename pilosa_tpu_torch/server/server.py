@@ -573,23 +573,38 @@ class Server:
     the HTTP(S) listener.  Like the JAX package's, these knobs are module
     globals: the most recent Server's config wins.
 
-    Refused at construction: a non-empty ``cluster_hosts`` (a node told
-    it has peers must not answer alone; the cluster plane is not ported)
-    and a ``container_kernels`` other than "auto".
+    With ``cluster_hosts`` the server builds the read plane's
+    ``Cluster`` (parallel/cluster.py) — placement, health probes, the
+    routed fan-out with hedged reads, import forwarding, DDL broadcast
+    — and registers its internal routes, as the JAX Server does.
 
-    Accepted and unused: ``decode_workspace_mb``
-    (no shard schedule slices a decode); the cluster, routing, hedging,
-    balancer, anti-entropy and repair keys; the device-runtime
+    Refused at construction, because only the cluster plane's second
+    part (not ported) honours them: ``balancer = true`` and TLS
+    certificates on a cluster node.  Also refused: a
+    ``container_kernels`` other than "auto".
+
+    ``decode_workspace_mb`` sets the shard schedule's decode-workspace
+    ceiling (parallel/stacked.py ``DECODE_WORKSPACE_BYTES``).
+
+    Accepted and unused: ``anti_entropy_interval`` and the repair keys
+    (anti-entropy and repair are the cluster plane's second part, so a
+    positive interval runs nothing); the device-runtime
     observability, time-series, SLO, flight-recorder and diagnostics
     keys; and the warm-start keys — ``/status`` is READY at once, as
     for a bare JAX ``API``."""
 
     def __init__(self, config: Config | None = None):
         self.config = config or Config()
-        if self.config.cluster_hosts:
+        if self.config.balancer:
             raise ValueError(
-                "cluster_hosts is set, but this server runs a single "
-                "node only (the cluster plane is not ported)")
+                "balancer = true: the hot-shard balancer is not ported "
+                "(the cluster plane's second part)")
+        if self.config.cluster_hosts and (self.config.tls_certificate
+                                          or self.config.tls_key):
+            raise ValueError(
+                "TLS certificates are set on a cluster node, but the "
+                "port's nodes talk plain HTTP to each other (TLS between "
+                "nodes is the cluster plane's second part)")
         if self.config.container_kernels != "auto":
             raise ValueError(
                 f"container_kernels={self.config.container_kernels!r}: "
@@ -626,6 +641,9 @@ class Server:
         _fragment.COMPRESSED_RESIDENT = bool(self.config.compressed_resident)
         _fragment.COMPRESS_MAX_DENSITY = max(
             float(self.config.compress_max_density), 0.0)
+        from ..parallel import stacked as _stacked
+        _stacked.DECODE_WORKSPACE_BYTES = \
+            max(self.config.decode_workspace_mb, 1) << 20
         from ..executor import executor as _executor_mod
         _executor_mod.BATCH_TEMP_BYTES = \
             max(self.config.batch_temp_mb, 1) << 20
@@ -640,9 +658,38 @@ class Server:
         if self.config.failpoints:
             from ..utils.faults import FAULTS
             FAULTS.configure(self.config.failpoints)
+        self.cluster = None
+        if self.config.cluster_hosts:
+            from ..parallel.cluster import Cluster
+            self.cluster = Cluster(
+                node_id=self.config.node_id,
+                hosts=self.config.cluster_hosts,
+                replica_n=self.config.replica_n,
+                holder=self.holder,
+                health_down_threshold=self.config.health_down_threshold,
+                breaker_threshold=self.config.breaker_threshold,
+                stats=self.stats,
+                read_routing=self.config.read_routing,
+                residency_routing=self.config.residency_routing,
+                balancer_interval=self.config.balancer_interval,
+                hedge_reads=self.config.hedge_reads,
+                hedge_delay_ms=self.config.hedge_delay_ms,
+                internal_wire=self.config.internal_wire,
+                tenant_hedge_budget=(
+                    self.config.tenant_hedge_budget
+                    if self.config.tenant_isolation else 0.0),
+            )
+            # fan-out failure events (cluster.fanout_failed) land in the
+            # server log like the whole-query fallbacks
+            self.cluster.logger = self.logger
+            if not self.cluster.is_coordinator:
+                # key translation lives on the coordinator; replicas route
+                # to it with a read-through cache
+                self.holder.translate_factory = \
+                    self.cluster.remote_translate_factory
         self.api = API(
-            self.holder, stats=self.stats, use_mesh=self.config.use_mesh,
-            device=self.device,
+            self.holder, cluster=self.cluster, stats=self.stats,
+            use_mesh=self.config.use_mesh, device=self.device,
             dispatch_batch=self.config.dispatch_batch,
             dispatch_batch_max=self.config.dispatch_batch_max,
             dispatch_batch_window_us=self.config.dispatch_batch_window_us,
@@ -724,9 +771,15 @@ class Server:
     def port(self) -> int:
         return self.httpd.server_address[1]
 
+    def register_internal_routes(self, router):
+        if self.cluster is not None:
+            self.cluster.register_routes(router, server=self)
+
     def open(self):
         """(reference server.go:417 Open)"""
         self.holder.open()
+        if self.cluster is not None:
+            self.cluster.open(self.api)
         t = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         t.start()
         self._threads.append(t)
@@ -760,10 +813,6 @@ class Server:
         self.stats.gauge("runtime.gc_gen0", _gc.get_count()[0])
         from ..storage.membudget import DEFAULT_BUDGET, HOST_STAGE_BUDGET
         b = DEFAULT_BUDGET.stats()
-        self.stats.gauge("runtime.hbm_resident_bytes", b["residentBytes"])
-        self.stats.gauge("runtime.hbm_upload_bytes", b["uploadBytes"])
-        self.stats.gauge("runtime.hbm_evictions", b["evictions"])
-        self.stats.gauge("runtime.hbm_pinned_bytes", b["pinnedBytes"])
         self.stats.gauge("runtime.host_stage_bytes",
                          HOST_STAGE_BUDGET.resident_bytes)
         self.update_storage_gauges()
@@ -802,9 +851,21 @@ class Server:
                          len(self.holder.quarantined_fragments()))
         from ..storage.membudget import DEFAULT_BUDGET, INGEST_DELTA_BUDGET
         b = DEFAULT_BUDGET.stats()
+        # the shard schedule's streaming counters: upload volume,
+        # prefetch effectiveness and pin pressure
+        self.stats.gauge("runtime.hbm_resident_bytes", b["residentBytes"])
+        self.stats.gauge("runtime.hbm_upload_bytes", b["uploadBytes"])
+        self.stats.gauge("runtime.hbm_evictions", b["evictions"])
+        self.stats.gauge("runtime.hbm_prefetch_hits", b["prefetchHits"])
+        self.stats.gauge("runtime.hbm_prefetch_misses",
+                         b["prefetchMisses"])
+        self.stats.gauge("runtime.hbm_pinned_bytes", b["pinnedBytes"])
         self.stats.gauge("runtime.hbm_compressed_bytes",
                          b["compressedBytes"])
         self.stats.gauge("runtime.hbm_dense_bytes", b["denseBytes"])
+        from ..parallel import stacked as _stacked
+        self.stats.gauge("device.decode_workspace_limit_bytes",
+                         _stacked.DECODE_WORKSPACE_BYTES)
         cs = container_stats if container_stats is not None \
             else self.holder.container_stats()
         self.stats.gauge("storage.containers_array", cs["array"])
@@ -869,6 +930,8 @@ class Server:
         # final group-commit flush AFTER the listener is gone (no new
         # submissions) and BEFORE the holder closes the WAL files
         self.committer.close()
+        if self.cluster is not None:
+            self.cluster.close()
         self.api.executor.close()
         from ..utils.events import EVENTS
         if self.config.event_log:

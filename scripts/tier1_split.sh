@@ -45,6 +45,7 @@ tests/test_roaring_golden.py
 tests/test_storage.py
 tests/test_torch_batcher.py
 tests/test_torch_bitset.py
+tests/test_torch_budget_stream.py
 tests/test_torch_containers.py
 tests/test_torch_executor.py
 tests/test_torch_ingest.py
@@ -73,6 +74,9 @@ tests/test_server.py
 tests/test_slo.py
 tests/test_tenant.py
 tests/test_topology.py
+tests/test_torch_cluster.py
+tests/test_torch_cluster_diff.py
+tests/test_torch_qwire.py
 tests/test_warmup.py
 "
 

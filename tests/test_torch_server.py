@@ -15,7 +15,7 @@ and run containers; ``Count``, ``Intersect``, ``TopN`` with a filter,
 wall-clock ``windowWaitS``); the ``/schema`` round trip; and the error
 cases of tests/test_server.py.  Then: data directories
 written by either server reopen in the other with the same answers;
-the refusals (no card, ``cluster_hosts``, ``container_kernels``); the
+the refusals (no card, ``balancer``, cluster TLS, ``container_kernels``); the
 ``import`` / ``ingest`` / ``export`` CLI against both; and 8 threads of
 mixed queries and ingests against the port server, whose answers must
 equal a serial run's.
@@ -63,6 +63,7 @@ def _knobs():
     import pilosa_tpu.utils.tracing as jtr
     import pilosa_tpu_torch.cache.rank as prank
     import pilosa_tpu_torch.executor.executor as pex
+    import pilosa_tpu_torch.parallel.stacked as pstacked
     import pilosa_tpu_torch.storage.fragment as pfrag
     import pilosa_tpu_torch.storage.membudget as pmb
     import pilosa_tpu_torch.utils.tracing as ptr
@@ -80,6 +81,7 @@ def _knobs():
             (jtr.GLOBAL_TRACER, "sample_rate"),
             (ptr.GLOBAL_TRACER, "sample_rate"),
             (jmesh, "DECODE_WORKSPACE_BYTES"),
+            (pstacked, "DECODE_WORKSPACE_BYTES"),
             (jkern, "CONTAINER_KERNELS")]
     return out
 
@@ -317,9 +319,16 @@ def test_refusals(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_server.Server(port_server.Config(
             data_dir=str(tmp_path / "a"), bind="localhost:0"))
-    with pytest.raises(ValueError, match="cluster_hosts"):
+    # only the cluster plane's second part honours these
+    with pytest.raises(ValueError, match="balancer"):
         port_server.Server(_port_cfg(tmp_path / "b",
-                                     cluster_hosts=["localhost:1"]))
+                                     cluster_hosts=["localhost:1"],
+                                     balancer=True))
+    with pytest.raises(ValueError, match="TLS"):
+        port_server.Server(_port_cfg(tmp_path / "b",
+                                     cluster_hosts=["localhost:1"],
+                                     tls_certificate="c.pem",
+                                     tls_key="k.pem"))
     with pytest.raises(ValueError, match="container_kernels"):
         port_server.Server(_port_cfg(tmp_path / "c",
                                      container_kernels="jnp"))
