@@ -106,10 +106,38 @@ its own lines and its seconds:
    load seconds, calls/s and p50, the coordinator's fan-out means, each
    node's launches and graph captures, hedges, retry waves and node
    states.
-10. the ``kernels`` JSON line, a JSON line of the phases' records, the
-   ``served`` JSON line, the ``cfg5_budget`` / ``cluster`` JSON line,
-   the nvidia-smi line, and last the result line ``{"ok": true,
-   "device": {...}}``.
+   Then two more legs on the same loaded nodes.  ``balancer``: the
+   coordinator's balancer on, routing ``loaded``, the load skewed onto
+   one remote shard; one ``balancer.tick()`` must hand it off (every
+   node on the same overlay epoch, the overlay owner holding the copied
+   fragments), the 64-call requests equal the oracle and the overlay
+   owner's executor runs requests.  ``resize``: a fifth port server
+   with the same keys, ``POST /cluster/resize/add-node``, NORMAL on all
+   five and the holder cleaner done, the 64-call requests equal the
+   oracle (warmed twice, then timed from 1 client beside the four-node
+   figures), then ``remove-node`` and the answers again.  Printed: the
+   handoff seconds and overlay epoch; resize seconds each way, the
+   fragments and MiB fetched, shards per node, and each node's resident
+   MB, stacks, graphs and pool MB before the resize and after the
+   cleaner.
+10. replicas — three port servers, ``replica_n`` 2, compressed-resident
+   under a 512 MiB device budget, over config 5's sparse corpus cut to
+   64 shards, node2 dialed through a ``ChaosProxy``
+   (``pilosa_tpu_torch/utils/netchaos.py``): load and warm, a latency on
+   node2's responses under which reads must hedge, then a fragment
+   deleted on node1 and a row's bits cleared in another fragment on
+   node0 (each node's own executor must then differ from the oracle:
+   no stale stack), ``sync_holder`` on node1, and after it every node's
+   executor over its own shards equal to the oracle, both kernels
+   launched and new graphs captured (counts reset just before, read
+   just after); both kernels at the repaired node's shapes against
+   their plain versions.  Printed: hedges, repair seconds, the
+   anti-entropy counters (blocks compared and merged, errors), launches
+   and captures after the repair, kernel times beside their bound.
+11. the ``kernels`` JSON line, a JSON line of the phases' records, the
+   ``served`` JSON line, the ``cfg5_budget`` / ``cluster`` /
+   ``replicas`` JSON line, the nvidia-smi line, and last the result
+   line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the result line.  It imports
 nothing of JAX or the JAX package.
@@ -1195,7 +1223,8 @@ def cfg5_check(label: str, tab, shards, pairs, got):
 
 
 def check_cfg5_shapes(holder, device, shard_slice, a: int = 0,
-                      b: int = 2) -> tuple[dict, dict]:
+                      b: int = 2, phase: str = "cfg5_budget"
+                      ) -> tuple[dict, dict]:
     """Both kernels at the shapes the first slice of the compressed
     schedule gives them: decode_block over the slice's packed seg stack (the
     filter's operand) and fused_row_counts over its packed metric stack
@@ -1249,7 +1278,7 @@ def check_cfg5_shapes(holder, device, shard_slice, a: int = 0,
         fus["bytes"] += stack_bytes(met) + S * SHARD_WORDS * 4 + \
             S * mrows * 4
         fus["ops"] += 2 * met.payload.numel()
-    say("cfg5_budget", kernel_groups=len(groups),
+    say(phase, kernel_groups=len(groups),
         group_shards=[len(g[0]) for g in groups],
         decode_err=dec["err"], fused_err=fus["err"])
     st.close()
@@ -1483,26 +1512,82 @@ CLUSTER_CLIENTS = 8
 CLUSTER_REQUESTS_8 = 2         # requests per client of the 8-client run
 
 
-def run_cluster(device, n_shards: int) -> dict:
-    """Phase cluster (``bench_config5_distributed`` on the port): four
-    port servers in this process on localhost ports, sharing the card;
-    the dense config-5 corpus at ``n_shards`` loaded through node0's
-    ``import-roaring`` (forwarded to owners); 64-call requests to node0
-    from 1 and from 8 clients, every TopN equal to the oracle."""
+def free_ports(n: int) -> list:
     import socket
-    import tempfile
-    from concurrent.futures import ThreadPoolExecutor
-    from pilosa_tpu_torch import cfg5
-    from pilosa_tpu_torch.server.server import Config, Server
-    from pilosa_tpu_torch.storage.roaring_io import pack_roaring_words
     socks = []
-    for _ in range(CLUSTER_NODES):
+    for _ in range(n):
         sk = socket.socket()
         sk.bind(("localhost", 0))
         socks.append(sk)
     ports = [sk.getsockname()[1] for sk in socks]
     for sk in socks:
         sk.close()
+    return ports
+
+
+def cluster_request(port, index: str, pairs, tab, shards) -> float:
+    """One request of ``len(pairs)`` Intersect + TopN calls to a node;
+    every TopN must equal the oracle.  Returns its seconds."""
+    from pilosa_tpu_torch import cfg5
+    t1 = time.perf_counter()
+    got = http(port, "POST", f"/index/{index}/query",
+               cfg5.batch_query(pairs).encode())["results"]
+    dt = time.perf_counter() - t1
+    for (a, b), g in zip(pairs, got):
+        have = [(x["id"], x["count"]) for x in g]
+        want = cfg5_rank(tab, shards, a, b)
+        if have != want:
+            raise AssertionError(f"{index} seg={a},{b}: {have} != {want}")
+    return dt
+
+
+def wait_until(cond, what: str, timeout: float = 120.0):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def node_shards(srv, index: str) -> list:
+    idx = srv.holder.index(index)
+    v = idx.field("seg").view("standard") if idx is not None else None
+    return sorted(v.fragments) if v is not None else []
+
+
+def node_memory(servers, index: str) -> list:
+    """Each node's device-side holdings: the process-wide budget's
+    resident bytes (what its ``/debug/vars`` ``deviceBudget`` reports),
+    its stacks and graphs held, its graph pool, and its shards."""
+    from pilosa_tpu_torch.storage.membudget import DEFAULT_BUDGET
+    out = []
+    for s in servers:
+        ex = s.api.executor
+        out.append({
+            "node": s.cluster.node_id,
+            "resident_mb": DEFAULT_BUDGET.stats()["residentBytes"] / 2**20,
+            "stacks": len(ex.stacked._stack_cache),
+            "graphs": ex.wholequery.snapshot()["graphs"],
+            "pool_mb": (ex.wholequery.pool_reserved_bytes() or 0) / 2**20,
+            "shards": len(node_shards(s, index))})
+    return out
+
+
+def run_cluster(device, n_shards: int) -> dict:
+    """Phase cluster (``bench_config5_distributed`` on the port): four
+    port servers in this process on localhost ports, sharing the card;
+    the dense config-5 corpus at ``n_shards`` loaded through node0's
+    ``import-roaring`` (forwarded to owners); 64-call requests to node0
+    from 1 and from 8 clients, every TopN equal to the oracle.  Then
+    the same loaded nodes take the ``balancer`` leg and the ``resize``
+    leg (cluster_balancer_leg, cluster_resize_leg)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pilosa_tpu_torch import cfg5
+    from pilosa_tpu_torch.server.server import Config, Server
+    from pilosa_tpu_torch.storage.roaring_io import pack_roaring_words
+    ports = free_ports(CLUSTER_NODES)
     hosts = [f"localhost:{p}" for p in ports]
     rec = {}
     servers = []
@@ -1554,17 +1639,7 @@ def run_cluster(device, n_shards: int) -> dict:
                           for _ in range(n_req)])
 
             def one(port, pairs):
-                t1 = time.perf_counter()
-                got = http(port, "POST", "/index/dist/query",
-                           cfg5.batch_query(pairs).encode())["results"]
-                dt = time.perf_counter() - t1
-                for (a, b), g in zip(pairs, got):
-                    have = [(x["id"], x["count"]) for x in g]
-                    want = cfg5_rank(tab, shards, a, b)
-                    if have != want:
-                        raise AssertionError(f"cluster seg={a},{b}: "
-                                             f"{have} != {want}")
-                return dt
+                return cluster_request(port, "dist", pairs, tab, shards)
 
             # warm every node twice: stage, then capture its graph
             t0 = time.perf_counter()
@@ -1626,13 +1701,468 @@ def run_cluster(device, n_shards: int) -> dict:
                              .pool_reserved_bytes() or 0) / 2**20
                             for s in servers],
             })
+            say("cluster", **{k: (json.dumps(v)
+                                  if isinstance(v, (dict, list)) else v)
+                              for k, v in rec.items()})
+            t0 = time.perf_counter()
+            rec["balancer"] = cluster_balancer_leg(servers, tab, shards)
+            say("cluster", leg="balancer",
+                seconds=time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            rec["resize"] = cluster_resize_leg(servers, hosts, root, device,
+                                               tab, shards, rec)
+            say("cluster", leg="resize", seconds=time.perf_counter() - t0)
         finally:
             for srv in servers:
                 srv.close()
-    say("cluster", **{k: (json.dumps(v) if isinstance(v, (dict, list))
-                          else v) for k, v in rec.items()})
     if set(rec["wire"].values()) != {"bin1"}:
         raise AssertionError(f"cluster wire: {rec['wire']}")
+    return rec
+
+
+BALANCER_REQUESTS = 4          # 64-call requests after the handoff
+RESIZE_REQUESTS = 6            # timed 64-call requests on five nodes
+
+
+def cluster_balancer_leg(servers, tab, shards) -> dict:
+    """Leg ``balancer`` of phase cluster: the coordinator's balancer on
+    (routing policy ``loaded``), the load skewed onto one shard whose
+    owner is remote (as tests/test_routing.py does), and ONE
+    ``balancer.tick()``, which must hand the shard off: every node then
+    holds the same overlay epoch and owner list, the overlay owner holds
+    the copied fragments, the 64-call requests equal the oracle, and the
+    overlay owner's executor ran requests on the card."""
+    from pilosa_tpu_torch import cfg5
+    coord = servers[0].cluster
+    for s in servers:
+        s.cluster.router.policy = "loaded"
+    coord.balancer_on = True
+    coord.balancer.threshold = 2.0
+    tracker = coord.load_tracker
+    tracker.rotate()
+    tracker.rotate()
+    hot = next(x for x in shards if coord.placement.primary("dist", x)
+               != coord.node_id)
+    primary = coord.placement.primary("dist", hot)
+    for _ in range(40):
+        tracker.note("dist", [hot], primary)
+    for x in shards:
+        tracker.note("dist", [x], coord.placement.primary("dist", x))
+    owners0 = coord.shard_owner_nodes("dist", hot)
+    t0 = time.perf_counter()
+    handed = coord.balancer.tick()
+    handoff_s = time.perf_counter() - t0
+    owners1 = coord.shard_owner_nodes("dist", hot)
+    if handed != 1 or len(owners1) != len(owners0) + 1:
+        raise AssertionError(f"balancer: tick handed off {handed}, "
+                             f"owners {owners0} -> {owners1}, "
+                             f"{coord.balancer.snapshot()}")
+    extra = owners1[-1]
+    for s in servers:
+        if (s.cluster.overlay_epoch != coord.overlay_epoch
+                or s.cluster.shard_owner_nodes("dist", hot) != owners1):
+            raise AssertionError(f"balancer: {s.cluster.node_id} holds "
+                                 f"overlay epoch {s.cluster.overlay_epoch}")
+    extra_srv = next(s for s in servers if s.cluster.node_id == extra)
+    for field in ("seg", "metric"):
+        frag = extra_srv.holder.fragment("dist", field, "standard", hot)
+        if frag is None or frag.n_rows == 0:
+            raise AssertionError(f"balancer: {extra} lacks {field}/{hot}")
+    ex = extra_srv.api.executor
+    runs0 = ex.wq_requests
+    rng = np.random.default_rng(SEED + 62)
+    lat = [cluster_request(servers[0].port, "dist",
+                           cfg5.batch_pairs(rng, CLUSTER_B), tab, shards)
+           for _ in range(BALANCER_REQUESTS)]
+    runs = ex.wq_requests - runs0
+    if runs <= 0:
+        raise AssertionError(f"balancer: the overlay owner {extra} ran "
+                             f"no request")
+    served_by = sorted({n for e in tracker.snapshot(top=512)["hottest"]
+                        if e["index"] == "dist" and e["shard"] == hot
+                        for n in e["nodes"]})
+    out = {"hot_shard": hot, "owners_before": owners0,
+           "owners_after": owners1, "handoff_s": handoff_s,
+           "overlay_epoch": coord.overlay_epoch,
+           "overlay_owner_requests": runs,
+           "hot_shard_served_by": served_by,
+           "p50_ms": statistics.median(lat) * 1e3,
+           "calls_per_s": CLUSTER_B * len(lat) / sum(lat)}
+    say("cluster", leg="balancer", card=card_line(),
+        **{k: (json.dumps(v) if isinstance(v, (dict, list)) else v)
+           for k, v in out.items()})
+    return out
+
+
+def cluster_resize_leg(servers, hosts, root, device, tab, shards,
+                       rec) -> dict:
+    """Leg ``resize`` of phase cluster: a fifth port server on the card
+    with the four's keys, ``POST /cluster/resize/add-node``, NORMAL on
+    all five and the holder cleaner done; 64-call requests to node0 equal
+    the oracle (warm twice so graphs are captured, then RESIZE_REQUESTS
+    timed from 1 client); then ``remove-node`` of the fifth and the
+    answers again.  One client reads from node0 throughout each resize;
+    every read equals the oracle.  Each node's resident MB, stacks,
+    graphs and pool MB before the resize and after the cleaner."""
+    import threading
+    from pilosa_tpu_torch import cfg5
+    from pilosa_tpu_torch.server.server import Config, Server
+    p0 = servers[0].port
+    host5 = f"localhost:{free_ports(1)[0]}"
+    fetched = {"fragments": 0, "bytes": 0, "shards": set()}
+    lock = threading.Lock()
+
+    def count_fetches(client):
+        orig = client.fragment_data
+
+        def fetch(host, index, field, view, shard):
+            blob = orig(host, index, field, view, shard)
+            with lock:
+                fetched["fragments"] += 1
+                fetched["bytes"] += len(blob)
+                fetched["shards"].add(shard)
+            return blob
+
+        client.fragment_data = fetch
+
+    def resize(path: str, body: dict, label: str):
+        """POST a resize while one client keeps reading from node0:
+        every read taken during it must equal the oracle."""
+        fetched.update(fragments=0, bytes=0, shards=set())
+        stop = threading.Event()
+        reads, errors = [], []
+        read_rng = np.random.default_rng(SEED + 64)
+
+        def reader():
+            while not stop.is_set():
+                try:
+                    reads.append(cluster_request(
+                        p0, "dist", cfg5.batch_pairs(read_rng, CLUSTER_B),
+                        tab, shards))
+                except Exception as e:
+                    errors.append(e)
+                    return
+
+        t = threading.Thread(target=reader)
+        t.start()
+        try:
+            t0 = time.perf_counter()
+            http(p0, "POST", path, body)
+            out[f"{label}_s"] = time.perf_counter() - t0
+        finally:
+            stop.set()
+            t.join(timeout=900)
+        if t.is_alive():
+            raise AssertionError(f"resize {label}: the reader hung")
+        if errors:
+            raise AssertionError(f"resize {label}: a read during it "
+                                 f"failed: {errors[0]!r}")
+        out[f"{label}_reads_during"] = len(reads)
+        out[f"{label}_read_p50_ms"] = statistics.median(reads) * 1e3 \
+            if reads else None
+        out[f"{label}_fetched_shards"] = len(fetched["shards"])
+        out[f"{label}_fetched_fragments"] = fetched["fragments"]
+        out[f"{label}_fetched_mib"] = fetched["bytes"] / 2**20
+
+    rng = np.random.default_rng(SEED + 63)
+    out = {"memory_before": node_memory(servers, "dist")}
+    fifth = Server(Config(
+        data_dir=f"{root}/node{CLUSTER_NODES}", bind=host5,
+        device=str(device), node_id=f"node{CLUSTER_NODES}",
+        cluster_hosts=hosts + [host5], replica_n=1,
+        anti_entropy_interval=0, metric_poll_interval=0))
+    try:
+        fifth.open()
+        five = servers + [fifth]
+        for s in five:
+            count_fetches(s.cluster.client)
+        out["shards_before"] = {s.cluster.node_id: len(node_shards(s, "dist"))
+                                for s in servers}
+        resize("/cluster/resize/add-node",
+               {"id": fifth.cluster.node_id, "host": host5}, "add")
+        wait_until(lambda: all(s.cluster.state == "NORMAL"
+                               and len(s.cluster.nodes) == 5
+                               for s in five), "NORMAL on five nodes")
+
+        def cleaned():
+            return all(s.cluster.owns_shard(s.cluster.node_id, "dist", x)
+                       for s in five for x in node_shards(s, "dist"))
+
+        out["cleaner_wait_s"] = wait_until(cleaned, "the holder cleaner")
+        out["shards_after"] = {s.cluster.node_id: len(node_shards(s, "dist"))
+                               for s in five}
+        if sum(out["shards_after"].values()) != len(shards) or \
+                not out["shards_after"][fifth.cluster.node_id]:
+            raise AssertionError(f"resize: shards {out['shards_after']}")
+        for _ in range(2):
+            cluster_request(p0, "dist", cfg5.batch_pairs(rng, CLUSTER_B),
+                            tab, shards)
+        out["memory_after_cleaner"] = node_memory(five, "dist")
+        lat = [cluster_request(p0, "dist", cfg5.batch_pairs(rng, CLUSTER_B),
+                               tab, shards)
+               for _ in range(RESIZE_REQUESTS)]
+        out["p50_ms_5"] = statistics.median(lat) * 1e3
+        out["calls_per_s_5"] = CLUSTER_B * len(lat) / sum(lat)
+        out["p50_ms_4"] = rec["p50_ms_1"]
+        out["calls_per_s_4"] = rec["calls_per_s_1"]
+        out["captures_5"] = [s.api.executor.wholequery.snapshot()["captures"]
+                             for s in five]
+        resize("/cluster/resize/remove-node",
+               {"id": fifth.cluster.node_id}, "remove")
+        wait_until(lambda: all(s.cluster.state == "NORMAL"
+                               and len(s.cluster.nodes) == 4
+                               for s in servers), "NORMAL on four nodes")
+        out["shards_removed"] = {s.cluster.node_id:
+                                 len(node_shards(s, "dist"))
+                                 for s in servers}
+        for _ in range(3):
+            cluster_request(p0, "dist", cfg5.batch_pairs(rng, CLUSTER_B),
+                            tab, shards)
+        out["epoch"] = servers[0].cluster.epoch
+    finally:
+        fifth.close()
+    say("cluster", leg="resize", card=card_line(),
+        **{k: (json.dumps(v) if isinstance(v, (dict, list)) else v)
+           for k, v in out.items()})
+    return out
+
+
+# -- phase 10: replicas, anti-entropy with repair, on the one card ----------
+
+REPLICA_NODES = 3
+REPLICA_SHARDS = 64            # config 5's sparse corpus, cut from 954
+REPLICA_BUDGET_MB = 512        # a device budget: compressed residency
+REPLICA_B = 64                 # calls per request
+REPLICA_LATENCY_S = 0.5        # the straggler's delay on its responses
+REPLICA_HEDGE_MS = 50.0        # the coordinator's hedge delay meanwhile
+
+
+def run_replicas(device, n_shards: int = REPLICA_SHARDS) -> dict:
+    """Phase replicas: three port servers in this process, ``replica_n``
+    2, compressed-resident under a device budget, over config 5's sparse
+    corpus at ``n_shards``; node2 is dialed by its peers through a
+    ``ChaosProxy`` (pilosa_tpu_torch/utils/netchaos.py).  Legs: load and
+    warm (stage, then capture), every answer equal to the oracle; a
+    latency on node2's responses, under which reads routed to it must
+    hedge and still equal the oracle; then the replicas diverge (a
+    fragment deleted on node1, a row's bits cleared in another fragment
+    on node0), ``sync_holder`` on node1 repairs both, and each node's
+    own executor over the shards it owns answers the oracle again, with
+    both kernels launched and new graphs captured after the repair."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pilosa_tpu_torch import cfg5
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.server.server import Config, Server
+    from pilosa_tpu_torch.storage.roaring_io import pack_roaring_words
+    from pilosa_tpu_torch.utils.netchaos import ChaosProxy
+    binds = free_ports(REPLICA_NODES)
+    proxy = ChaosProxy("localhost", binds[2])
+    hosts = [f"localhost:{binds[0]}", f"localhost:{binds[1]}",
+             proxy.address]
+    index = cfg5.INDEX
+    rec = {"shards": n_shards, "replica_n": 2,
+           "budget_mb": REPLICA_BUDGET_MB}
+    servers = []
+    rng = np.random.default_rng(SEED + 70)
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            for i, b in enumerate(binds):
+                srv = Server(Config(
+                    data_dir=f"{root}/node{i}", bind=f"localhost:{b}",
+                    device=str(device), node_id=f"node{i}",
+                    cluster_hosts=hosts, replica_n=2,
+                    device_budget_mb=REPLICA_BUDGET_MB,
+                    read_routing="round-robin", anti_entropy_interval=0,
+                    metric_poll_interval=0))
+                servers.append(srv)
+                srv.open()
+            p0 = servers[0].port
+            t0 = time.perf_counter()
+            http(p0, "POST", f"/index/{index}",
+                 {"options": {"trackExistence": False}})
+            for f in ("seg", "metric"):
+                http(p0, "POST", f"/index/{index}/field/{f}", {})
+            words, jobs = {}, []
+            for shard, w in cfg5.sparse_words(rng, n_shards):
+                words[shard] = w
+                jobs.append((f"seg/import-roaring/{shard}",
+                             pack_roaring_words(w[:cfg5.SEG_ROWS])))
+                jobs.append((f"metric/import-roaring/{shard}",
+                             pack_roaring_words(w[cfg5.SEG_ROWS:])))
+
+            def post(job):
+                http(p0, "POST", f"/index/{index}/field/{job[0]}", job[1],
+                     ctype="application/octet-stream")
+
+            with ThreadPoolExecutor(8) as pool:
+                list(pool.map(post, jobs))
+            rec["load_s"] = time.perf_counter() - t0
+            tab = cfg5_table(words)
+            shards = list(range(n_shards))
+            del words, jobs
+            pl = servers[0].cluster.placement
+
+            def owned(s):
+                return [x for x in shards if s.cluster.node_id
+                        in s.cluster.shard_owner_nodes(index, x)]
+
+            # warm: stage, then capture, on every node's share
+            warm = [cfg5.batch_pairs(rng, REPLICA_B) for _ in range(2)]
+            t0 = time.perf_counter()
+            for pairs in warm + warm:
+                cluster_request(p0, index, pairs, tab, shards)
+            rec["warm_s"] = time.perf_counter() - t0
+            forms = {s.holder.fragment(index, f, "standard", x)
+                     .device_form() for s in servers for x in owned(s)
+                     for f in ("seg", "metric")}
+            rec["device_forms"] = sorted(forms)
+            if forms != {"compressed"}:
+                raise AssertionError(f"replicas: forms {forms}")
+
+            # leg hedge: node2 straggles behind its proxy
+            def counts():
+                return http(p0, "GET", "/debug/vars").get("counts", {})
+
+            coord = servers[0].cluster
+            # round-robin routing rotates each shard among its READY
+            # owners, so node2 takes reads of the shards node0 lacks
+            strag = [x for x in shards if coord.node_id not in
+                     coord.shard_owner_nodes(index, x)]
+            if not strag:
+                raise AssertionError("replicas: node0 owns every shard")
+            rec["remote_only_shards"] = len(strag)
+            c0 = counts()
+            # a fixed hedge delay, far under the straggler's (as
+            # tests/test_churn.py arms it)
+            delay0 = coord.hedge_delay_ms
+            coord.hedge_delay_ms = REPLICA_HEDGE_MS
+            proxy.configure(f"down=latency:{REPLICA_LATENCY_S}")
+            try:
+                t0 = time.perf_counter()
+                lat = [cluster_request(p0, index, pairs, tab, shards)
+                       for pairs in warm]
+                rec["hedge_leg_s"] = time.perf_counter() - t0
+            finally:
+                proxy.heal()
+                coord.hedge_delay_ms = delay0
+            c1 = counts()
+            rec["hedges"] = c1.get("cluster.hedges", 0) - \
+                c0.get("cluster.hedges", 0)
+            rec["hedge_wins"] = c1.get("cluster.hedge_wins", 0) - \
+                c0.get("cluster.hedge_wins", 0)
+            rec["hedged_p50_ms"] = statistics.median(lat) * 1e3
+            if rec["hedges"] <= 0:
+                raise AssertionError("replicas: no read hedged off the "
+                                     "straggling node2")
+
+            # leg repair: diverge, sync on node1, check on the card
+            # the divergence must show in the probe's answers: delete
+            # the node1-primary seg fragment that feeds the probe most,
+            # and clear the metric row of another shared fragment that
+            # feeds a probe pair's top 5 most
+            probe = cfg5.batch_pairs(rng, 8)
+            victim = servers[1]
+            feed = {x: sum(int(tab[x, a, b].sum()) for a, b in probe)
+                    for x in shards}
+            d = max((x for x in shards if pl.primary(index, x) == "node1"),
+                    key=lambda x: (feed[x], -x))
+            both = [x for x in shards if x != d
+                    and "node1" in pl.shard_nodes(index, x)]
+            c0 = [x for x in both if "node0" in pl.shard_nodes(index, x)]
+            peer_id = "node0" if c0 else next(
+                n for n in pl.shard_nodes(index, both[0]) if n != "node1")
+            peer = next(s for s in servers if s.cluster.node_id == peer_id)
+            mine = owned(peer)
+            weight, c, m = max(
+                (int(tab[x, a, b, mm]), x, mm)
+                for x in (c0 or both) if peer_id in pl.shard_nodes(index, x)
+                for a, b in probe for mm, _ in cfg5_rank(tab, mine, a, b))
+            if not feed[d] or not weight:
+                raise AssertionError("replicas: the probe reads nothing of "
+                                     "the diverged fragments")
+            rec["diverged"] = {"deleted": ["node1", "seg", d],
+                               "cleared": [peer_id, "metric", c, m]}
+            del victim.holder.index(index).field("seg") \
+                .view("standard").fragments[d]
+            frag = peer.holder.fragment(index, "metric", "standard", c)
+            cols = frag.row_columns(m)
+            frag.bulk_import(np.full(cols.size, m, dtype=np.int64),
+                             cols.astype(np.int64), clear=True)
+
+            def own_check(s, expect_equal: bool):
+                mine = owned(s)
+                got = s.api.executor.execute(
+                    index, cfg5.batch_query(probe), shards=mine)
+                same = all([(p.id, p.count) for p in g] ==
+                           cfg5_rank(tab, mine, a, b)
+                           for (a, b), g in zip(probe, got))
+                if same != expect_equal:
+                    raise AssertionError(
+                        f"replicas: {s.cluster.node_id} over its shards "
+                        f"{'differs from' if expect_equal else 'equals'} "
+                        f"the oracle")
+
+            # the divergence is real: neither node serves a stale stack
+            own_check(victim, False)
+            own_check(peer, False)
+            snap0 = http(victim.port, "GET", "/debug/vars")
+            caps0 = sum(s.api.executor.wholequery.snapshot()["captures"]
+                        for s in servers)
+            t0 = time.perf_counter()
+            victim.cluster.sync_holder()
+            rec["repair_s"] = time.perf_counter() - t0
+            snap1 = http(victim.port, "GET", "/debug/vars")
+            ae = {k: snap1["counts"].get(f"antientropy.{k}", 0)
+                  - snap0["counts"].get(f"antientropy.{k}", 0)
+                  for k in ("blocks_compared", "blocks_merged", "errors",
+                            "runs", "repairs")}
+            ae["snapshot"] = snap1["storage"]["antiEntropy"]
+            rec["antientropy"] = ae
+            if ae["errors"] or not ae["blocks_merged"]:
+                raise AssertionError(f"replicas: anti-entropy {ae}")
+            if victim.holder.fragment(index, "seg", "standard", d) is None:
+                raise AssertionError("replicas: the deleted fragment was "
+                                     "not copied back")
+            kernels.reset_launches()
+            for pairs in warm + warm:
+                cluster_request(p0, index, pairs, tab, shards)
+            for s in servers:
+                own_check(s, True)
+            with kernels._launches_lock:
+                rec["launches_after_repair"] = dict(kernels.LAUNCHES)
+            caps1 = sum(s.api.executor.wholequery.snapshot()["captures"]
+                        for s in servers)
+            rec["captures_before_repair"] = caps0
+            rec["captures_after_repair"] = caps1
+            for name, n in rec["launches_after_repair"].items():
+                if n <= 0:
+                    raise AssertionError(f"replicas: {name} did not launch "
+                                         f"after the repair")
+            if caps1 <= caps0:
+                raise AssertionError("replicas: no graph was captured "
+                                     "after the repair")
+            dec, fus = check_cfg5_shapes(victim.holder, device,
+                                         owned(victim), phase="replicas")
+            for name, r in (("decode_block", dec),
+                            ("fused_row_counts", fus)):
+                if r["err"]:
+                    raise AssertionError(f"replicas: {name} differs from "
+                                         f"its plain version: {r['err']}")
+                b_ms, b_by = bound(r)
+                rec[name] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "max_abs_err": r["err"]}
+            rec["kernel_recs"] = {"decode_block": dec,
+                                  "fused_row_counts": fus}
+            rec["proxy"] = proxy.snapshot()
+        finally:
+            for srv in servers:
+                srv.close()
+            proxy.close()
+    say("replicas", card=card_line(),
+        **{k: (json.dumps(v) if isinstance(v, (dict, list)) else v)
+           for k, v in rec.items() if k != "kernel_recs"})
     return rec
 
 
@@ -1781,6 +2311,12 @@ def main(argv) -> int:
     clus = run_cluster(device, cfg5.N_SHARDS5D)
     say("cluster", seconds=time.perf_counter() - t0)
 
+    # replicas: anti-entropy with repair over compressed fragments
+    t0 = time.perf_counter()
+    repl = run_replicas(device)
+    say("replicas", seconds=time.perf_counter() - t0)
+    repl_recs = repl.pop("kernel_recs")
+
     src = "pilosa_tpu_torch/csrc/container_kernels.cu"
     lines = []
     served_launches = served["compressed"]["launches_per_request"]
@@ -1799,7 +2335,13 @@ def main(argv) -> int:
             ("decode_block", c5_dec, f"{JAX_KERNELS}:245",
              "cfg5_compressed_slice", c5["compressed"], None, None),
             ("fused_row_counts", c5_fus, f"{JAX_KERNELS}:326",
-             "cfg5_compressed_slice", c5["compressed"], None, None)):
+             "cfg5_compressed_slice", c5["compressed"], None, None),
+            ("decode_block", repl_recs["decode_block"],
+             f"{JAX_KERNELS}:245", "replicas_repaired",
+             {"launches": repl["launches_after_repair"]}, None, None),
+            ("fused_row_counts", repl_recs["fused_row_counts"],
+             f"{JAX_KERNELS}:326", "replicas_repaired",
+             {"launches": repl["launches_after_repair"]}, None, None)):
         b_ms, b_by = bound(rec)
         launches = run["launches" if "launches" in run
                        else "launches_phase"][name]
@@ -1808,8 +2350,8 @@ def main(argv) -> int:
                       "launches": launches,
                       "launches_replayed": run.get(
                           "launches_replayed", {}).get(name),
-                      "launches_per_request": run[
-                          "launches_per_request"][name],
+                      "launches_per_request": run.get(
+                          "launches_per_request", {}).get(name),
                       "launches_grouped_run": None if grouped is None
                       else grouped[name],
                       "launches_per_served_request": per_served,
@@ -1826,7 +2368,8 @@ def main(argv) -> int:
                                 "compressed_grouped": c4_comp_g,
                                 "budget_mb": BUDGET_MB}}))
     print(json.dumps({"served": served}))
-    print(json.dumps({"cfg5_budget": c5, "cluster": clus}))
+    print(json.dumps({"cfg5_budget": c5, "cluster": clus,
+                      "replicas": repl}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

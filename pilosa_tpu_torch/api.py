@@ -8,7 +8,8 @@ nothing in the server package touches holder/executor directly.
 With a ``cluster`` (parallel/cluster.py) the API gates methods on the
 cluster state, runs queries through ``cluster.execute`` (the routed
 fan-out), broadcasts schema changes, fans imports out to shard owners
-and reports the node list, state and epoch on ``/status``.
+and reports the node list, state, membership epoch and placement-overlay
+epoch on ``/status``.
 
 Deviations from the JAX module: ``device`` names the torch device the
 executor runs on (None means ``cuda`` and raises without a card), and
@@ -413,12 +414,12 @@ class API:
                 for name in list(self.holder.indexes)}
             # elastic-serving piggybacks (parallel/routing.py): admission
             # depth + per-shard residency tiers ride the health probes so
-            # peers' read routers score this node without extra RPCs.  The
-            # port has no placement overlay: its table is always the empty
-            # one at epoch 0, as a JAX node with the balancer off reports.
+            # peers' read routers score this node without extra RPCs, and
+            # the overlay epoch lets the coordinator re-push a missed
+            # placement-overlay broadcast (docs/cluster.md)
             out["load"] = self.cluster.local_load()
             out["residency"] = self.cluster.residency_summary()
-            out["overlayEpoch"] = 0
+            out["overlayEpoch"] = self.cluster.overlay_epoch
             # internal-query wire capability advertisement: peers' probe
             # folds feed this to their InternalClient negotiation
             # (docs/cluster.md "Internal query wire")

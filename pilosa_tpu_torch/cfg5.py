@@ -81,6 +81,14 @@ def dist_words(rng, n_shards: int = N_SHARDS5D):
         yield shard, _shard_words(rng, sparse=False)
 
 
+def sparse_words(rng, n_shards: int):
+    """The sparse corpus of ``build_config5(sparse=True)``, one
+    ``(shard, words)`` at a time in load order, for a served cluster to
+    load over HTTP."""
+    for shard in range(n_shards):
+        yield shard, _shard_words(rng, sparse=True)
+
+
 def oracle_topn5(oracle_words, shards, a: int, b: int, n: int = 5):
     """Exact answer of ``TopN(metric, Intersect(Row(seg=a),
     Row(seg=b)), n=n)``: [(metric row, count)]."""

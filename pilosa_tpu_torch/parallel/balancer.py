@@ -1,11 +1,33 @@
-"""Per-shard load tracking for read routing — the ``ShardLoadTracker``
-of the JAX package's ``parallel/balancer.py``, copied alone.
+"""Hot-shard rebalancing (docs/cluster.md "Read routing & rebalancing").
 
-The read fan-out counts each shard group it dispatches here, per serving
-node; the ``loaded`` routing policy and ``/debug/vars`` read the
-windowed counts.  The JAX module's ``HotShardBalancer``, which turns
-sustained skew into shard handoffs through the placement overlay, is not
-ported (the cluster refuses ``balancer = true``).
+Static jump-hash placement cannot react to load: a shard that turns hot
+stays pinned to its ``replica_n`` owners forever.  This module detects
+sustained per-shard load skew from the read fan-out's dispatch counters
+(:class:`ShardLoadTracker`) and executes BOUNDED shard handoffs: the
+coordinator tells an underloaded node to copy the hot shard's fragments
+(reusing the existing resize-fetch machinery — the same
+``/internal/fragment/data`` checkpoint copy a membership resize uses)
+and then records the node as an EXTRA owner in the cluster's
+placement-overlay table, broadcast epoch-gated like resize-complete so
+every node routes — and fans writes out — consistently.
+
+Overlay owners are real owners: writes fan to them, anti-entropy keeps
+them converged, and the holder cleaner spares their fragments.  The
+overlay therefore only ever widens a shard's replica set (hot-spot
+splitting), never moves data away from a jump-hash owner — removing the
+overlay (or running with ``balancer=off``, the default) restores the
+static placement exactly.
+
+The balancer thread runs on the COORDINATOR only (it owns the overlay
+epoch and the broadcast, like resize); every node still tracks load so
+/debug/vars shows per-shard heat anywhere.
+
+Port copy of the JAX package's ``parallel/balancer.py``
+(``ShardLoadTracker`` and ``HotShardBalancer``).  A handoff's copy runs
+through the port's resize-fetch (``parallel/cluster.py``
+``_apply_resize_fetch``), whose ``bulk_import`` bumps the fragment
+generation, so the overlay owner's stacked executor stages the copied
+shard afresh on its device.
 """
 
 from __future__ import annotations
@@ -17,6 +39,12 @@ from ..utils.locks import make_lock
 # Floor on the per-window dispatch count before a shard can be "hot":
 # skew over a handful of queries is noise, not load.
 HOT_MIN_COUNT = 32
+# Handoffs executed per balancer tick — rebalancing is deliberately slow
+# and bounded; a tick that moved everything at once would thundering-herd
+# the fragment fetches.
+MAX_HANDOFFS_PER_TICK = 1
+# Fragment copies ride one cluster-message POST, like resize fetches.
+FETCH_TIMEOUT_S = 600.0
 
 
 class ShardLoadTracker:
@@ -120,4 +148,118 @@ class ShardLoadTracker:
             "hottest": [{"index": idx, "shard": s, "count": c,
                          "nodes": merged.get((idx, s), {})}
                         for (idx, s), c in ranked],
+        }
+
+
+class HotShardBalancer:
+    """Coordinator-side handoff engine over a :class:`ShardLoadTracker`.
+
+    ``tick()`` is the whole algorithm — the background thread (started by
+    ``Cluster.open`` when ``balancer=true``) just calls it on the
+    ``balancer-interval`` cadence; tests call it directly."""
+
+    def __init__(self, cluster, tracker: ShardLoadTracker,
+                 threshold: float = 4.0, stats=None, logger=None,
+                 min_count: int = HOT_MIN_COUNT):
+        self.cluster = cluster
+        self.tracker = tracker
+        self.threshold = threshold
+        self.min_count = min_count
+        self.stats = stats
+        self.logger = logger
+        self.handoffs = 0
+        self.errors = 0
+        self.last_error: str | None = None
+
+    def tick(self) -> int:
+        """One balancing pass: find hot shards, widen the hottest one's
+        replica set by one underloaded node.  Returns handoffs executed.
+        Never raises — a failed handoff counts ``balancer.errors`` and
+        the next tick retries."""
+        cluster = self.cluster
+        if not cluster.is_coordinator or cluster.state == "RESIZING":
+            return 0
+        # age the load windows by wall clock FIRST: an idle cluster's
+        # stale burst counts must not read as sustained heat
+        self.tracker.maybe_rotate()
+        done = 0
+        for index, shard, count in self.tracker.hot_shards(
+                self.threshold, self.min_count):
+            if done >= MAX_HANDOFFS_PER_TICK:
+                break
+            target = self._pick_target(index, shard)
+            if target is None:
+                continue
+            try:
+                self._handoff(index, shard, target)
+            except Exception as e:
+                self.errors += 1
+                self.last_error = f"{index}/{shard} -> {target}: {e}"
+                if self.stats is not None:
+                    self.stats.count("balancer.errors")
+                if self.logger is not None:
+                    self.logger.error(
+                        f"balancer handoff failed: {self.last_error}")
+                continue
+            done += 1
+            self.handoffs += 1
+            if self.stats is not None:
+                self.stats.count("balancer.handoffs")
+            if self.logger is not None:
+                self.logger.info(
+                    f"balancer: shard {index}/{shard} (count {count}) "
+                    f"handed off to {target} "
+                    f"(overlay epoch {cluster.overlay_epoch})")
+        return done
+
+    def _pick_target(self, index: str, shard: int) -> str | None:
+        """Least-loaded READY node that is not already an owner."""
+        cluster = self.cluster
+        owners = set(cluster.shard_owner_nodes(index, shard))
+        loads = self.tracker.node_counts()
+        best, best_load = None, None
+        for n in cluster.nodes:
+            if n.id in owners or n.state != "READY":
+                continue
+            load = loads.get(n.id, 0)
+            if best_load is None or load < best_load:
+                best, best_load = n.id, load
+        return best
+
+    def _handoff(self, index: str, shard: int, target: str):
+        """Copy the shard to ``target`` (resize-fetch reuse: full
+        checkpoint fragment copies from a current owner), then publish it
+        as an overlay owner.  The copy lands BEFORE the overlay broadcast
+        so no node ever routes a read at a replica that lacks the data;
+        a crash in between leaves an unused copy the holder cleaner
+        GCs — never a data-less owner."""
+        cluster = self.cluster
+        owners = cluster.shard_owner_nodes(index, shard)
+        sources = [o for o in owners
+                   if o == cluster.node_id
+                   or cluster.by_id[o].state == "READY"]
+        if not sources:
+            raise RuntimeError("no live source replica")
+        src_host = cluster.by_id[sources[0]].host
+        fetch_msg = {
+            "type": "resize-fetch",
+            "fetch": [{"index": index, "shard": shard,
+                       "source": src_host}],
+            "schema": cluster.holder.schema(),
+        }
+        if target == cluster.node_id:
+            cluster.handle_message(fetch_msg)
+        else:
+            cluster.client.send_message(cluster.by_id[target].host,
+                                        fetch_msg,
+                                        timeout=FETCH_TIMEOUT_S)
+        cluster.add_overlay(index, shard, target)
+
+    def snapshot(self) -> dict:
+        return {
+            "handoffs": self.handoffs,
+            "errors": self.errors,
+            "lastError": self.last_error,
+            "threshold": self.threshold,
+            "load": self.tracker.snapshot(),
         }

@@ -30,37 +30,45 @@ whole-query graphs).  A node answers ``/internal/query`` through the
 same executor as a public request, so a node's share of an over-budget
 request streams through the shard schedule (parallel/stacked.py).
 
-Port copy of the read plane of the JAX package's ``parallel/cluster.py``:
-errors, the result wire and the breaker; ``InternalClient`` (pooled
-connections, breakers, the wire-mode downgrade, ``query_calls``,
-``send_message``, the import forwards, ``available_shards``);
+Port copy of the JAX package's ``parallel/cluster.py``, whole: the read
+plane (errors, the result wire and the breaker; ``InternalClient``;
 ``RemoteTranslateStore`` and ``Node``; the ``Cluster`` with its health
 probes, states, shard ownership, residency and load summaries, peer
 data-version registry, shard discovery, ``execute`` and the batched
-multi-call fan-out (retry waves, all-or-nothing flights, hedged reads),
-the two-phase TopN, the column / all-node / attr writes, the reductions,
-the DDL broadcast, message handling and the import regroup and forward;
-and the internal routes ``/internal/query/{index}``,
-``/internal/cluster/message``, ``/internal/import*``,
-``/internal/translate*`` and ``/internal/index/{index}/shards``.
+multi-call fan-out with retry waves and hedged reads, the two-phase
+TopN, the writes, the reductions, the DDL broadcast, message handling
+and the import forwards) and the elastic plane:
 
-Not ported yet (the cluster plane's second part):
+* mutual TLS between nodes (``InternalClient.configure_tls`` and the
+  HTTPS branch of ``_new_conn``);
+* anti-entropy with repair (``sync_holder``: quarantine repair, the
+  whole-fragment bootstrap copy, the majority block merge with pushed
+  peer repairs, the attr and translate-entry sync);
+* topology persistence (``.topology``, the ``.resize_job`` record) and
+  the two-phase resize (``/cluster/resize/*``, the resize-fetch and
+  resize-complete messages, the deferred holder cleaner, the probe's
+  reconciliation branches);
+* the placement overlay and the hot-shard balancer
+  (``parallel/balancer.py``), whose owners every ownership decision
+  reads through ``shard_owner_nodes``;
+* the routes ``/internal/fragment/{blocks,block/data,block/repair,data,
+  fetch,list}``, ``/internal/attr/diff`` and the resize routes.
 
-* the placement overlay and the hot-shard balancer (``HotShardBalancer``;
-  ``balancer = true`` is refused here and by the server); only
-  ``ShardLoadTracker`` is ported, for the ``loaded`` routing policy;
-* anti-entropy and repair (``sync_holder``, ``repair_quarantined``, the
-  block merge): ``anti_entropy_interval > 0`` is accepted and runs
-  nothing;
-* topology persistence (``.topology``) and resize (``/cluster/resize/*``,
-  the resize-fetch / resize-complete / placement-overlay messages, the
-  holder cleaner): membership is the static host list and ``epoch``
-  stays 0;
-* the fragment block, data, fetch and list routes that anti-entropy and
-  resize use;
-* TLS between nodes (``configure_tls``): the server refuses TLS
-  certificates;
-* ``rollup.py`` and ``utils/netchaos.py``.
+Two additions of the port: ``sync_holder`` counts the blocks it compared
+and the blocks it merged (``antientropy.blocks_compared`` /
+``antientropy.blocks_merged`` beside the JAX package's
+``antientropy.{runs,errors,repairs}``), and ``/internal/fragment/data``
+packs the dense words directly (``fragment_roaring``: the same bytes as
+the JAX route's pair-expanded pack).
+
+On the card, a fragment that a repair, a bootstrap copy or a resize
+fetch writes goes through ``Fragment.bulk_import``, which bumps the
+process-wide fragment generation: the stack token of every stacked
+shard group that holds the shard changes, so the next request re-stages
+the group and drops the CUDA graphs captured over the old stack
+(parallel/stacked.py).  The holder cleaner's ``close()`` drops a popped
+fragment's device mirrors; stacks are copies, so a graph replay never
+reads a closed fragment.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from __future__ import annotations
 import base64
 import http.client
 import json
+import os
 import threading
 import time
 import zlib
@@ -106,6 +115,11 @@ NODE_DOWN = "DOWN"
 # a warming peer never flips the cluster DEGRADED.
 NODE_WARMING = "WARMING"
 
+
+def _wall_stamp() -> float: return time.time()  # display-only wall clock
+# (anti-entropy last-error/last-success stamps shown to operators; every
+# DURATION in this module still comes from perf_counter pairs — see the
+# scripts/check.sh timing lint, which excludes this helper by name)
 
 STATE_STARTING = "STARTING"
 STATE_NORMAL = "NORMAL"
@@ -260,6 +274,7 @@ class InternalClient:
         # recovery — a restarted peer that now speaks binary gets it
         # back within one health interval)
         self._wire_down: dict[str, bool] = {}
+        self._ssl_ctx = None
         # per-thread keep-alive connections (the server speaks HTTP/1.1):
         # a cluster fan-out must not pay a TCP handshake per sub-query
         self._local = threading.local()
@@ -450,17 +465,31 @@ class InternalClient:
             except Exception:
                 pass
 
+    def configure_tls(self, cert: str, key: str, ca: str | None,
+                      skip_verify: bool = False):
+        """Client credentials for an https cluster (server/server.go
+        GetTLSConfig; tls-skip-verify for self-signed deployments)."""
+        import ssl
+        ctx = ssl.create_default_context(
+            cafile=ca if ca else None)
+        ctx.load_cert_chain(cert, key)
+        if skip_verify:
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+        self._ssl_ctx = ctx
+
     def _new_conn(self, host: str, timeout: float):
         https = host.startswith("https://")
         hostport = host.removeprefix("https://").removeprefix("http://")
         h, _, p = hostport.rpartition(":")
         if https:
             import ssl
-            # the default VERIFIED context: client certificates
-            # (configure_tls) are not ported
+            # no configured client context -> default VERIFIED context
+            # (never silently skip verification; skip-verify is an
+            # explicit configure_tls option)
             return http.client.HTTPSConnection(
                 h or "localhost", int(p), timeout=timeout,
-                context=ssl.create_default_context())
+                context=self._ssl_ctx or ssl.create_default_context())
         return http.client.HTTPConnection(h or "localhost", int(p),
                                           timeout=timeout)
 
@@ -801,6 +830,97 @@ class InternalClient:
                          timeout=timeout)
         return out.get("shards", [])
 
+    def fragment_blocks(self, host: str, index: str, field: str, view: str,
+                        shard: int) -> tuple[dict[int, str], bool]:
+        """(block checksums, peer-quarantined flag).  A quarantined
+        peer's empty block map must NOT enter merge consensus — its
+        emptiness is corruption fallout, not a legitimate clear."""
+        out = self._json(
+            host, "GET",
+            f"/internal/fragment/blocks?index={index}&field={field}"
+            f"&view={view}&shard={shard}")
+        return ({int(k): v for k, v in out.get("blocks", {}).items()},
+                bool(out.get("quarantined", False)))
+
+    def block_data(self, host: str, index: str, field: str, view: str,
+                   shard: int, block: int) -> tuple[np.ndarray, np.ndarray]:
+        out = self._json(
+            host, "GET",
+            f"/internal/fragment/block/data?index={index}&field={field}"
+            f"&view={view}&shard={shard}&block={block}")
+        return (np.asarray(out["rows"], dtype=np.int64),
+                np.asarray(out["cols"], dtype=np.int64))
+
+    def block_repair(self, host: str, index: str, field: str, view: str,
+                     shard: int, sets, clears):
+        """Push a merge-consensus diff to a peer (the reference's
+        syncBlock remote Import/Import-clear calls, fragment.go:2995-3031).
+        ``sets``/``clears`` are (rows, cols) pairs, shard-local."""
+        self._json(host, "POST", "/internal/fragment/block/repair", {
+            "index": index, "field": field, "view": view, "shard": shard,
+            "setRows": sets[0].tolist(), "setCols": sets[1].tolist(),
+            "clearRows": clears[0].tolist(),
+            "clearCols": clears[1].tolist(),
+        })
+
+    def attr_diff(self, host: str, index: str, field: str | None,
+                  blocks_hex: dict) -> dict[int, dict]:
+        """Fetch the peer's attrs for blocks whose checksum differs from
+        ours (holder.go:1002 syncIndex ColumnAttrDiff/RowAttrDiff)."""
+        out = self._json(host, "POST", "/internal/attr/diff", {
+            "index": index, "field": field, "blocks": blocks_hex})
+        return {int(k): v for k, v in out.get("attrs", {}).items()}
+
+    def fragment_list(self, host: str, index: str,
+                      shard: int) -> list[tuple[str, str]]:
+        """(field, view) fragments a node holds for (index, shard) — the
+        discovery step of a resize fetch."""
+        out = self._json(host, "GET",
+                         f"/internal/fragment/list?index={index}"
+                         f"&shard={shard}")
+        return [(f, v) for f, v in out.get("fragments", [])]
+
+    def fragment_data(self, host: str, index: str, field: str, view: str,
+                      shard: int) -> bytes:
+        """Whole-fragment fetch as a pilosa-roaring blob
+        (http/client.go:742 RetrieveShardFromURI)."""
+        status, data = self._request(
+            host, "GET",
+            f"/internal/fragment/data?index={index}&field={field}"
+            f"&view={view}&shard={shard}")
+        if status >= 400:
+            raise ClusterError(f"fragment data fetch failed: {status}")
+        return data
+
+    def fragment_fetch(self, host: str, index: str, field: str, view: str,
+                       shard: int) -> bytes:
+        """Whole-fragment fetch as CHECKSUMMED native snapshot bytes
+        (quarantine repair; docs/robustness.md).  The caller verifies the
+        embedded CRCs on receipt (Fragment.restore_snapshot_bytes) — a
+        flip in flight or on the peer's side must not launder itself into
+        a 'repaired' fragment."""
+        status, data = self._request(
+            host, "GET",
+            f"/internal/fragment/fetch?index={index}&field={field}"
+            f"&view={view}&shard={shard}")
+        if status >= 400:
+            raise ClusterError(f"fragment fetch failed: {status}")
+        return data
+
+
+def fragment_roaring(frag) -> bytes:
+    """A whole fragment as the pilosa-roaring blob that
+    ``/internal/fragment/data`` serves.  The JAX package expands the
+    fragment to (row, col) pairs and packs them (``pack_roaring``); the
+    port packs the dense words directly (``pack_roaring_words``), whose
+    container choice is the same, so the bytes are equal and a resize
+    fetch of a dense shard skips the pair expansion."""
+    from ..storage.roaring_io import pack_roaring, pack_roaring_words
+    if frag is None:
+        empty = np.zeros(0, dtype=np.int64)
+        return pack_roaring(empty, empty)
+    return pack_roaring_words(frag.words)
+
 
 class RemoteTranslateStore:
     """Key translation routed to the coordinator with a read-through cache
@@ -952,14 +1072,11 @@ class Cluster:
                  residency_routing: bool = True,
                  balancer: bool = False,
                  balancer_interval: float = 30.0,
+                 hot_shard_threshold: float = 4.0,
                  hedge_reads: bool = True,
                  hedge_delay_ms: float = 0.0,
                  internal_wire: str = qwire.WIRE_BIN1,
                  tenant_hedge_budget: float = 0.0):
-        if balancer:
-            raise ClusterError(
-                "balancer = true: the hot-shard balancer is not ported "
-                "(only its ShardLoadTracker)")
         if internal_wire not in (qwire.WIRE_JSON, qwire.WIRE_BIN1):
             raise ClusterError(
                 f"internal_wire must be one of "
@@ -997,10 +1114,15 @@ class Cluster:
         self.health_interval = health_interval
         self._closing = threading.Event()
         self._health_thread = None
-        # membership epoch: static membership here (resize is not
-        # ported), so it stays 0; reported on /status as the JAX
-        # package reports it
+        self._resize_lock = make_lock("resize-job")
+        # membership epoch: bumped by every completed resize, persisted in
+        # .topology, carried on resize-complete messages so retries are
+        # idempotent and stale nodes are detectable by probe
         self.epoch = 0
+        # seconds before post-resize fragment GC (0 = inline); covers the
+        # window where nodes adopt the new membership at different times
+        # while reads keep serving
+        self.cleaner_grace = 5.0
         # per-index remote shard availability, folded from every
         # successful peer poll (the in-memory analog of field.go:263's
         # gossiped available-shard bitmaps).  A DOWN peer's shards stay
@@ -1028,16 +1150,37 @@ class Cluster:
         self._peer_data_ver: dict[tuple[str, str], int] = {}
         self._peer_gen_seen: dict[tuple[str, str], tuple] = {}
         self._gen_lock = make_lock("peer-gen")
+        # Anti-entropy observability (docs/robustness.md): failures as
+        # DATA, not just a log line — counters ride self.stats
+        # (antientropy.errors / antientropy.repairs), and the last
+        # error/success land here for /debug/vars.  _ae_lock is a leaf
+        # lock.
         self.stats = stats
-        from .balancer import ShardLoadTracker
+        self._ae_lock = make_lock("anti-entropy")
+        self._ae_last_error: str | None = None
+        self._ae_last_error_ts: float | None = None
+        self._ae_last_success_ts: float | None = None
+        # Elastic serving (docs/cluster.md "Read routing & rebalancing"):
+        # placement-overlay table — (index, shard) -> EXTRA owner ids the
+        # balancer appended beyond the jump-hash owners.  Epoch-gated and
+        # broadcast like resize-complete so all nodes route (and fan
+        # writes) consistently; persisted with the topology.  _overlay_lock
+        # is a leaf lock (never held across I/O or another lock).
+        self._overlay: dict[tuple[str, int], list[str]] = {}
+        self.overlay_epoch = 0
+        self._overlay_lock = make_lock("placement-overlay")
+        from .balancer import HotShardBalancer, ShardLoadTracker
         from .routing import ReadRouter
         self.router = ReadRouter(self, policy=read_routing,
                                  residency_routing=residency_routing,
                                  stats=stats)
-        # per-shard load counters the loaded routing policy and
-        # /debug/vars read
         self.load_tracker = ShardLoadTracker(
             window_s=max(balancer_interval, 1.0))
+        self.balancer_on = bool(balancer)
+        self.balancer_interval = balancer_interval
+        self.balancer = HotShardBalancer(
+            self, self.load_tracker, threshold=hot_shard_threshold,
+            stats=stats)
         # Tail-tolerant fan-out (docs/robustness.md "Tail-tolerant
         # fan-out"): hedged reads fire a speculative duplicate of a
         # straggling shard-group RPC at the next-best replica; safe
@@ -1063,6 +1206,7 @@ class Cluster:
         # set by Server.register_internal_routes: the admission pools the
         # load piggyback reports (None standalone — zero-load answers)
         self._server = None
+        self._load_topology()
         self._pool = ThreadPoolExecutor(
             max_workers=max(4, 2 * len(self.nodes)))
         # DEDICATED probe pool: health probes must never queue behind
@@ -1084,10 +1228,23 @@ class Cluster:
     def open(self, api):
         self.api = api
         self.state = STATE_NORMAL
+        if self.is_coordinator:
+            self._recover_resize_job()
         if self.health_interval > 0:
             self._health_thread = threading.Thread(
                 target=self._monitor_health, daemon=True)
             self._health_thread.start()
+        if self.balancer_on and self.is_coordinator \
+                and self.balancer_interval > 0:
+            t = threading.Thread(target=self._monitor_balancer,
+                                 daemon=True)
+            t.start()
+
+    def _monitor_balancer(self):
+        """Hot-shard rebalancing cadence (coordinator only; the tick
+        itself never raises — failed handoffs count balancer.errors)."""
+        while not self._closing.wait(self.balancer_interval):
+            self.balancer.tick()
 
     def close(self):
         self._closing.set()
@@ -1210,6 +1367,52 @@ class Cluster:
                 # keep-alive's response-phase failure turns recovery
                 # into spurious non-retryable POST errors
                 self.client.note_recovered(n.host)
+            peer_overlay = st.get("overlayEpoch")
+            if (self.is_coordinator and peer_overlay is not None
+                    and peer_overlay < self.overlay_epoch):
+                # straggler on an older placement overlay (missed the
+                # broadcast, or restarted with wiped state): re-push the
+                # full table, epoch-gated like resize-complete
+                try:
+                    self.client.send_message(n.host, {
+                        "type": "placement-overlay",
+                        "overlay": self._overlay_wire(),
+                        "epoch": self.overlay_epoch})
+                # lint: allow(swallowed-exception) — DOWN is the
+                # handling: probe reconciliation re-pushes next pass
+                except Exception:
+                    n.state = NODE_DOWN
+                    continue
+            peer_epoch = st.get("epoch")
+            if (self.is_coordinator and peer_epoch is not None
+                    and peer_epoch < self.epoch):
+                # straggler on an older membership (missed a
+                # resize-complete): re-push the current one, epoch-gated
+                try:
+                    self.client.send_message(n.host, {
+                        "type": "resize-complete",
+                        "membership": self._membership(),
+                        "replicaN": self.replica_n,
+                        "epoch": self.epoch})
+                # lint: allow(swallowed-exception) — DOWN is the
+                # handling: probe reconciliation re-pushes next pass
+                except Exception:
+                    n.state = NODE_DOWN
+                    continue
+            if (not self.is_coordinator and n.id == self.nodes[0].id
+                    and self.state == STATE_RESIZING
+                    and st.get("state") != STATE_RESIZING):
+                coord_members = {d.get("id") for d in st.get("nodes", [])}
+                if self.node_id not in coord_members and peer_epoch:
+                    # that resize REMOVED us and its revert notification
+                    # never arrived: adopt the single-node view ourselves
+                    self._apply_resize_complete({
+                        "membership": st.get("nodes", []),
+                        "replicaN": 1, "epoch": peer_epoch})
+                elif peer_epoch is None or peer_epoch <= self.epoch:
+                    # the resize that latched us RESIZING died with its
+                    # coordinator (no job record survived); unlatch
+                    self.state = STATE_NORMAL
             if was_down:
                 # Schema catch-up: a node that was DOWN during a DDL
                 # broadcast missed it permanently (broadcast skips DOWN
@@ -1225,6 +1428,12 @@ class Cluster:
                 # handling: the next recovery probe retries catch-up
                 except Exception:
                     n.state = NODE_DOWN
+        # an outstanding resize job whose members are all current resolves
+        job = self._load_resize_job()
+        if (job is not None and self.is_coordinator
+                and job.get("epoch", 0) <= self.epoch
+                and all(n.state == NODE_READY for n in self.peers())):
+            self._clear_resize_job()
         self._update_state()
 
     def _update_state(self):
@@ -1232,6 +1441,16 @@ class Cluster:
             return
         down = any(n.state == NODE_DOWN for n in self.nodes)
         self.state = STATE_DEGRADED if down else STATE_NORMAL
+
+    def set_local_warming(self, warming: bool):
+        """Flip the LOCAL node's advertised state between WARMING and
+        READY (docs/warmup.md).  The Server calls this around the AOT
+        warmup replay; peers additionally fold the /status ``warming``
+        flag on their probe cadence, so both the local node_statuses
+        and the fleet's routers see the phase."""
+        n = self.by_id.get(self.node_id)
+        if n is not None and n.state != NODE_DOWN:
+            n.state = NODE_WARMING if warming else NODE_READY
 
     def _mark_down(self, node_id: str):
         n = self.by_id.get(node_id)
@@ -1252,23 +1471,98 @@ class Cluster:
         return [{"id": nid, "uri": self.by_id[nid].host}
                 for nid in self.shard_owner_nodes(index, shard)]
 
+    # -- placement overlay (docs/cluster.md "Read routing & rebalancing") --
+
     def shard_owner_nodes(self, index: str, shard: int) -> list[str]:
-        """Owners of a shard: the jump-hash placement owners.  Every
-        ownership decision — read routing, write fan-out, import
-        grouping — consults this.  (The JAX package adds the balancer's
-        placement-overlay owners here; the balancer is not ported.)"""
-        return self.placement.shard_nodes(index, shard)
+        """Effective owners of a shard: the jump-hash placement owners
+        PLUS any overlay owners the balancer appended (hot-spot
+        splitting).  Every ownership decision — read routing, write
+        fan-out, import grouping, anti-entropy, the holder cleaner —
+        consults this, so an overlay owner is a full replica, not a
+        read-only cache.  With an empty overlay (balancer off, the
+        default) this is exactly ``placement.shard_nodes``."""
+        owners = self.placement.shard_nodes(index, shard)
+        with self._overlay_lock:
+            extras = self._overlay.get((index, shard))
+            if not extras:
+                return owners
+            return owners + [nid for nid in extras
+                             if nid in self.by_id and nid not in owners]
 
     def owns_shard(self, node_id: str, index: str, shard: int) -> bool:
         return node_id in self.shard_owner_nodes(index, shard)
 
     def owned_shards(self, node_id: str, index: str, shards) -> list[int]:
-        """``placement.owned_shards``: shards (replicas included) the
-        node holds."""
+        """Overlay-aware ``placement.owned_shards``: shards (including
+        replicas and overlay extras) the node holds."""
         return [s for s in shards
                 if node_id in self.shard_owner_nodes(index, s)]
 
+    def overlay_snapshot(self) -> dict:
+        with self._overlay_lock:
+            return {"epoch": self.overlay_epoch,
+                    "entries": [{"index": i, "shard": s, "extra": list(e)}
+                                for (i, s), e in
+                                sorted(self._overlay.items())]}
 
+    def _overlay_wire(self) -> list:
+        with self._overlay_lock:
+            return [[i, s, list(e)] for (i, s), e in
+                    sorted(self._overlay.items())]
+
+    def add_overlay(self, index: str, shard: int, node_id: str) -> bool:
+        """Coordinator: append an overlay owner for a shard, bump the
+        overlay epoch, persist, and broadcast the FULL table (like
+        resize-complete — receivers apply epoch-gated, stragglers get
+        probe re-pushes).  The caller (the balancer) has already copied
+        the shard's fragments to the node."""
+        if node_id not in self.by_id:
+            raise ClusterError(f"unknown overlay node {node_id!r}")
+        with self._overlay_lock:
+            if node_id in self.placement.shard_nodes(index, shard):
+                return False
+            extras = self._overlay.setdefault((index, shard), [])
+            if node_id in extras:
+                return False
+            extras.append(node_id)
+            self.overlay_epoch += 1
+        events.emit("overlay.handoff", index=index, shard=shard,
+                    to=node_id, epoch=self.overlay_epoch)
+        self._save_topology()
+        self.broadcast_overlay()
+        return True
+
+    def broadcast_overlay(self):
+        """Push the overlay table to every READY peer; failures mark the
+        peer DOWN and probe reconciliation re-pushes (the peer's /status
+        carries its overlayEpoch)."""
+        msg = {"type": "placement-overlay",
+               "overlay": self._overlay_wire(),
+               "epoch": self.overlay_epoch}
+        for n in self.peers():
+            if n.state != NODE_READY:
+                continue
+            try:
+                self.client.send_message(n.host, msg)
+            except Exception:
+                # DOWN is the handling: the probe's overlay-epoch
+                # reconciliation re-pushes the table next pass
+                self._mark_down(n.id)
+
+    def _apply_overlay(self, msg: dict):
+        """Receive a placement-overlay broadcast: epoch-gated full-table
+        replace (an older or duplicate push is an idempotent no-op ack,
+        exactly like resize-complete), persisted so a restart keeps
+        routing consistently."""
+        epoch = int(msg.get("epoch", 0))
+        with self._overlay_lock:
+            if epoch <= self.overlay_epoch:
+                return
+            self._overlay = {
+                (i, int(s)): [nid for nid in extras if nid in self.by_id]
+                for i, s, extras in msg.get("overlay", [])}
+            self.overlay_epoch = epoch
+        self._save_topology()
 
     # -- residency tiers + load (status/query piggybacks) ------------------
 
@@ -1386,9 +1680,21 @@ class Cluster:
     def forget_index_shards(self, index: str):
         """Drop remembered remote shard availability for a deleted
         index (both deletion paths — local API and cluster message —
-        funnel here)."""
+        funnel here).  Overlay entries for the index go with it, WITH an
+        epoch bump when any existed: every live node applies the same
+        delete so they bump in lockstep, and a node that was DOWN (stale
+        entries, stale epoch) is then behind the coordinator and gets
+        the probe's overlay re-push — without the bump its stale entries
+        would be unrepairable, and a recreated index would route reads
+        at a phantom overlay owner."""
         with self._shards_lock:
             self._remote_shards.pop(index, None)
+        with self._overlay_lock:
+            dropped = [k for k in self._overlay if k[0] == index]
+            for key in dropped:
+                del self._overlay[key]
+            if dropped:
+                self.overlay_epoch += 1
 
     def _available_shards(self, index: str,
                           mark_down: bool = True,
@@ -2526,9 +2832,13 @@ class Cluster:
             # cluster.go:1116 setStateAndBroadcast)
             self.state = msg["state"]
             self._update_state()
+        elif t == "resize-fetch":
+            self._apply_resize_fetch(msg)
+        elif t == "resize-complete":
+            self._apply_resize_complete(msg)
+        elif t == "placement-overlay":
+            self._apply_overlay(msg)
         else:
-            # resize-fetch, resize-complete and placement-overlay belong
-            # to the resize and balancer planes, which are not ported
             raise ClusterError(f"unknown cluster message type {t!r}")
 
     # -- import forwarding (api.go:920-1028) -------------------------------
@@ -2614,6 +2924,802 @@ class Cluster:
                 }
                 self.client.import_local(self.by_id[nid].host, index, field,
                                          payload)
+
+    # -- anti-entropy (holder.go:909 holderSyncer; fleshed out with the
+    # block-merge protocol in storage/fragment blocks/block_data) ----------
+
+    def _note_ae_error(self, context: str, exc: BaseException):
+        """Anti-entropy failure as DATA (docs/robustness.md): counter +
+        last-error surface, whether or not the pass continues."""
+        if self.stats is not None:
+            self.stats.count("antientropy.errors")
+        with self._ae_lock:
+            self._ae_last_error = f"{context}: {exc}"
+            self._ae_last_error_ts = _wall_stamp()
+
+    def _note_ae_success(self):
+        if self.stats is not None:
+            self.stats.count("antientropy.runs")
+        with self._ae_lock:
+            self._ae_last_success_ts = _wall_stamp()
+
+    def ae_snapshot(self) -> dict:
+        """Anti-entropy health for /debug/vars (counters live in the
+        stats counts; this carries the last-error/last-success surface)."""
+        with self._ae_lock:
+            return {
+                "lastError": self._ae_last_error,
+                "lastErrorTs": self._ae_last_error_ts,
+                "lastSuccessTs": self._ae_last_success_ts,
+            }
+
+    def sync_holder(self):
+        """Anti-entropy pass (holder.go:938 SyncHolder): first heal any
+        QUARANTINED local fragments wholesale from a healthy replica
+        (repair_quarantined), then for every owned fragment, compare
+        100-row block checksums with replicas and run the union-MAJORITY
+        merge — consensus-set bits are added, consensus-clear bits are
+        CLEARED (no resurrection), and peers whose value disagrees with
+        consensus get repairs PUSHED to them (fragment.go:1875 mergeBlock
+        + :2941 syncFragment).  Attr stores sync by block diff
+        (holder.go:1002-1096).  Also re-runs the holder cleaner: post-
+        resize fragment GC is deferred (see _apply_resize_complete), and
+        the AE cadence is its periodic backstop (holder.go:1131)."""
+        from ..storage.roaring_io import unpack_roaring
+
+        try:
+            self.repair_quarantined()
+            if self.state != STATE_RESIZING:
+                self._holder_cleaner()
+            holder = self.holder
+            for index_name, idx in list(holder.indexes.items()):
+                shards = self._available_shards(
+                    index_name, patient=True,
+                    on_error=lambda nid, e, i=index_name: self._note_ae_error(
+                        f"shard poll for {i} from {nid}", e))
+                for fname, f in list(idx.fields.items()):
+                    for s in shards:
+                        owners = self.shard_owner_nodes(index_name, s)
+                        if self.node_id not in owners:
+                            continue
+                        for vname in list(f.views) or ["standard"]:
+                            self._sync_fragment(index_name, fname, vname, s,
+                                                owners, unpack_roaring)
+            self._sync_attrs()
+            self._sync_translate_entries()
+        except Exception as e:
+            self._note_ae_error("sync_holder", e)
+            raise
+        self._note_ae_success()
+
+    # -- quarantine repair (docs/robustness.md "Replica repair") -----------
+
+    def repair_quarantined(self) -> int:
+        """Re-fetch every quarantined local fragment wholesale from a
+        healthy replica: checksummed snapshot bytes over
+        /internal/fragment/fetch, CRC-verified on receipt, atomically
+        swapped in via the durable-replace path, generation bumped (so
+        result caches keyed on the gen vector invalidate).  Returns the
+        number repaired; failures count antientropy.errors and are
+        retried next pass."""
+        repaired = 0
+        if self.holder is None:
+            return 0
+        for iname, fname, vname, shard, frag in \
+                list(self.holder.iter_fragments()):
+            if frag.quarantined is None:
+                continue
+            owners = self.shard_owner_nodes(iname, shard)
+            for nid, host in self._ready_peer_hosts(owners):
+                try:
+                    blob = self.client.fragment_fetch(
+                        host, iname, fname, vname, shard)
+                    frag.restore_snapshot_bytes(blob)
+                except Exception as e:
+                    # unreachable peer, peer also quarantined (409), or
+                    # corrupt bytes in flight (CRC mismatch on receipt)
+                    self._note_ae_error(
+                        f"repair {iname}/{fname}/{vname}/{shard} "
+                        f"from {nid}", e)
+                    continue
+                repaired += 1
+                if self.stats is not None:
+                    self.stats.count("antientropy.repairs")
+                events.emit("storage.repair", index=iname, field=fname,
+                            view=vname, shard=shard, source=nid)
+                break
+        return repaired
+
+    def _sync_translate_entries(self):
+        """Replica key-table catch-up: pull new translate entries from the
+        coordinator for every keyed index/field (the streaming replication
+        of holder.go:812, batched onto the anti-entropy cadence)."""
+        if self.nodes[0].state != NODE_READY:
+            return  # coordinator down: don't stall the anti-entropy
+            #         thread on per-store timeouts (repair must continue)
+        for idx in list(self.holder.indexes.values()):
+            stores = []
+            if idx.keys:
+                stores.append(idx.translate_store())
+            for f in list(idx.fields.values()):
+                if f.options.keys:
+                    stores.append(f.translate_store())
+            for ts in stores:
+                if isinstance(ts, RemoteTranslateStore):
+                    try:
+                        ts.sync_entries()
+                    except Exception as e:
+                        self._note_ae_error("translate sync", e)
+                        # next pass retries
+
+    def _ready_peer_hosts(self, node_ids) -> list[tuple[str, str]]:
+        return [(nid, self.by_id[nid].host) for nid in node_ids
+                if nid != self.node_id
+                and self.by_id[nid].state == NODE_READY]
+
+    def _sync_fragment(self, index: str, field: str, view: str, shard: int,
+                       owners: list[str], unpack_roaring):
+        local = self.holder.fragment(index, field, view, shard)
+        if local is not None and local.quarantined is not None:
+            # repair_quarantined (start of this pass) couldn't heal it
+            # yet: its empty store must not feed the consensus merge —
+            # that would CLEAR healthy replicas with corruption fallout
+            return
+        # hex digests to match the wire encoding of fragment_blocks
+        local_blocks = {b: ck.hex() for b, ck in local.blocks().items()} \
+            if local is not None else {}
+        peers = []
+        remote_blocks = {}
+        for nid, host in self._ready_peer_hosts(owners):
+            try:
+                blocks, peer_quarantined = self.client.fragment_blocks(
+                    host, index, field, view, shard)
+            except Exception as e:
+                self._note_ae_error(
+                    f"blocks {index}/{field}/{view}/{shard} from {nid}", e)
+                continue
+            if peer_quarantined:
+                # same rule for peers: a quarantined replica is excluded
+                # from consensus entirely (its own repair pass heals it)
+                continue
+            remote_blocks[nid] = blocks
+            peers.append((nid, host))
+        if not peers:
+            return
+        if local is None and any(remote_blocks.values()):
+            # fragment absent entirely -> bootstrap whole-fragment copy
+            # (fragment.go:2876); the merge below reconciles the rest.
+            # An EXISTING-but-empty fragment must NOT take this path: its
+            # emptiness may be a legitimate majority clear, and a full
+            # copy would resurrect bits the merge just removed.
+            for nid, host in peers:
+                if not remote_blocks[nid]:
+                    continue
+                try:
+                    blob = self.client.fragment_data(
+                        host, index, field, view, shard)
+                except Exception as e:
+                    self._note_ae_error(
+                        f"fragment_data {index}/{field}/{view}/{shard} "
+                        f"from {nid}", e)
+                    continue
+                rows, cols = unpack_roaring(blob, self.holder.max_row_id)
+                idx = self.holder.index(index)
+                frag = idx.field(field)._create_view_if_not_exists(view) \
+                    .create_fragment_if_not_exists(shard)
+                frag.bulk_import(rows, cols)
+                local = frag
+                local_blocks = {b: ck.hex()
+                                for b, ck in local.blocks().items()}
+                break
+        diff_blocks: set[int] = set()
+        for nid, rb in remote_blocks.items():
+            for b, ck in rb.items():
+                if local_blocks.get(b) != ck:
+                    diff_blocks.add(b)
+            for b, ck in local_blocks.items():
+                if rb.get(b) != ck:
+                    diff_blocks.add(b)
+        if self.stats is not None:
+            # the port's two extra anti-entropy counters: blocks whose
+            # checksums were compared, and blocks that went to the merge
+            compared = set(local_blocks)
+            for rb in remote_blocks.values():
+                compared.update(rb)
+            self.stats.count("antientropy.blocks_compared", len(compared))
+            self.stats.count("antientropy.blocks_merged", len(diff_blocks))
+        for b in sorted(diff_blocks):
+            self._merge_block(index, field, view, shard, b, local, peers)
+
+    def _merge_block(self, index: str, field: str, view: str, shard: int,
+                     block: int, local, peers):
+        """mergeBlock (fragment.go:1875): majority consensus per (row,col)
+        pair across local + reachable replicas; even split -> set.  Applies
+        the local diff and pushes each peer's diff to it."""
+        flats = []   # per holder: sorted flat pair encodings
+        got_peers = []
+        if local is not None:
+            rows, cols = local.block_data(block)
+            flats.append(rows * SHARD_WIDTH + cols)
+        else:
+            flats.append(np.zeros(0, dtype=np.int64))
+        for nid, host in peers:
+            try:
+                rows, cols = self.client.block_data(
+                    host, index, field, view, shard, block)
+            except Exception as e:
+                self._note_ae_error(
+                    f"block_data {index}/{field}/{view}/{shard}"
+                    f"#{block} from {nid}", e)
+                continue
+            flats.append(rows * SHARD_WIDTH + cols)
+            got_peers.append((nid, host))
+        if not got_peers:
+            return
+        n = 1 + len(got_peers)
+        majority = (n + 1) // 2
+        universe, counts = np.unique(np.concatenate(flats),
+                                     return_counts=True)
+        consensus_set = universe[counts >= majority]
+        consensus_clear = universe[counts < majority]
+
+        def decode(flat):
+            return flat // SHARD_WIDTH, flat % SHARD_WIDTH
+
+        # local diff
+        sets = np.setdiff1d(consensus_set, flats[0], assume_unique=True)
+        clears = np.intersect1d(consensus_clear, flats[0],
+                                assume_unique=True)
+        if sets.size or clears.size:
+            idx = self.holder.index(index)
+            frag = idx.field(field)._create_view_if_not_exists(view) \
+                .create_fragment_if_not_exists(shard)
+            if sets.size:
+                frag.bulk_import(*decode(sets))
+            if clears.size:
+                frag.bulk_import(*decode(clears), clear=True)
+        # push diffs to disagreeing peers (fragment.go:2995 syncBlock)
+        for (nid, host), flat in zip(got_peers, flats[1:]):
+            p_sets = np.setdiff1d(consensus_set, flat, assume_unique=True)
+            p_clears = np.intersect1d(consensus_clear, flat,
+                                      assume_unique=True)
+            if not (p_sets.size or p_clears.size):
+                continue
+            try:
+                self.client.block_repair(
+                    host, index, field, view, shard,
+                    decode(p_sets), decode(p_clears))
+                self.note_peer_write(index, [nid])
+            except Exception as e:
+                # peer repair is best-effort; next pass retries
+                self._note_ae_error(
+                    f"block_repair {index}/{field}/{view}/{shard}"
+                    f"#{block} to {nid}", e)
+                continue
+
+    # -- attr anti-entropy (holder.go:1002-1096 syncIndex/syncField) -------
+
+    def _sync_attrs(self):
+        holder = self.holder
+        for index_name, idx in list(holder.indexes.items()):
+            self._sync_attr_store(index_name, None, idx.column_attrs)
+            for fname, f in list(idx.fields.items()):
+                self._sync_attr_store(index_name, fname, f.row_attrs)
+
+    def _sync_attr_store(self, index: str, field: str | None, store):
+        """Pull peers' attrs for blocks whose checksum differs and merge
+        them in (the reference's pull-per-node scheme: each node's own
+        sync pass converges it toward its peers)."""
+        local_blocks = {str(b): ck.hex() for b, ck in store.blocks().items()}
+        for nid, host in self._ready_peer_hosts([n.id for n in self.nodes]):
+            try:
+                attrs = self.client.attr_diff(host, index, field,
+                                              local_blocks)
+            except Exception as e:
+                self._note_ae_error(
+                    f"attr_diff {index}/{field or 'columns'} from {nid}", e)
+                continue
+            if attrs:
+                store.set_bulk_attrs(attrs)
+
+    # -- elasticity: checkpoint resharding (cluster.go:1196-1561) ----------
+    #
+    # The reference resizes live via coordinator-computed ResizeInstructions
+    # driven by gossip membership events.  The TPU-native design (SURVEY
+    # §5.8) reshapes a STATIC membership instead: an operator request tells
+    # the coordinator the new node list; the coordinator drives a
+    # two-phase protocol over plain HTTP:
+    #   phase 1 "resize-fetch":    every surviving node copies the
+    #       fragments it will own under the NEW placement but lacks,
+    #       sourced from a current owner (full-fragment checkpoint copy via
+    #       /internal/fragment/data — fragment.go:1297
+    #       followResizeInstruction's RetrieveShardFromURI).  Old placement
+    #       stays live for queries throughout.
+    #   phase 2 "resize-complete": every node atomically adopts the new
+    #       membership/placement and garbage-collects fragments it no
+    #       longer owns (holder.go:1131 holderCleaner).
+    # No node drops data before every node has fetched, so a crash mid-
+    # resize leaves a superset of the needed data and the operation can be
+    # retried.
+
+    def _membership(self) -> list[dict]:
+        return [{"id": n.id, "uri": n.host} for n in self.nodes]
+
+    # -- topology persistence (cluster.go:1580-1692 Topology,
+    #    considerTopology) -------------------------------------------------
+
+    def _topology_path(self) -> str | None:
+        base = getattr(self.holder, "path", None) if self.holder else None
+        return os.path.join(base, ".topology") if base else None
+
+    def _resize_job_path(self) -> str | None:
+        base = getattr(self.holder, "path", None) if self.holder else None
+        return os.path.join(base, ".resize_job") if base else None
+
+    def _load_topology(self):
+        """Adopt persisted membership over the config host list (the
+        reference reconciles its .topology protobuf the same way at
+        startup; a restart after a live resize must not silently revert
+        to the config file and split-brain the cluster)."""
+        path = self._topology_path()
+        if path is None or not os.path.exists(path):
+            return
+        with open(path) as f:
+            data = json.load(f)
+        membership = data.get("membership") or []
+        if not membership:
+            return
+        if self.node_id not in {m["id"] for m in membership}:
+            # the considerTopology mismatch case: disk says this node is
+            # not a member — refuse to start rather than serve a placement
+            # the rest of the cluster doesn't share (operator removes
+            # .topology to deliberately re-seed from config)
+            raise ClusterError(
+                f"node {self.node_id!r} is not in the persisted topology "
+                f"{path} (members: {[m['id'] for m in membership]}); "
+                f"remove the file to re-seed membership from config")
+        self.nodes = [Node(m["id"], m["uri"]) for m in membership]
+        self.by_id = {n.id: n for n in self.nodes}
+        self.replica_n = int(data.get("replicaN", self.replica_n))
+        self.epoch = int(data.get("epoch", 0))
+        self.placement = Placement([n.id for n in self.nodes],
+                                   replica_n=self.replica_n,
+                                   hasher=self.placement.hasher)
+        # placement overlay rides the topology file: a restarted overlay
+        # owner must keep serving (and receiving writes for) its extra
+        # shards; a node restarted with wiped state converges via the
+        # probe's overlay-epoch re-push instead
+        self.overlay_epoch = int(data.get("overlayEpoch", 0))
+        self._overlay = {
+            (i, int(s)): [nid for nid in extras if nid in self.by_id]
+            for i, s, extras in data.get("overlay", [])}
+
+    def _save_topology(self):
+        from ..utils.durable import durable_replace, fsync_file
+        path = self._topology_path()
+        if path is None:
+            return
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"epoch": self.epoch, "replicaN": self.replica_n,
+                       "membership": self._membership(),
+                       "overlayEpoch": self.overlay_epoch,
+                       "overlay": self._overlay_wire()}, f)
+            # a crash must not leave a node on the PRE-resize membership
+            # after it acked the new one (split-brain on restart)
+            fsync_file(f)
+        durable_replace(tmp, path)
+
+    # -- resize job record (cluster.go:1413-1441 resizeJob): persisted on
+    #    the coordinator between phase 1 and 2 so a crash mid-completion
+    #    can be re-driven instead of diverging ---------------------------
+
+    def _save_resize_job(self, job: dict):
+        from ..utils.durable import durable_replace, fsync_file
+        path = self._resize_job_path()
+        if path is None:
+            return
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(job, f)
+            # this record is the crash-recovery source of truth between
+            # resize phases 1 and 2 — it must be durable BEFORE any node
+            # adopts the new membership, or a power loss leaves a
+            # partially-applied resize that can never reconverge
+            fsync_file(f)
+        durable_replace(tmp, path)
+
+    def _load_resize_job(self) -> dict | None:
+        path = self._resize_job_path()
+        if path is None or not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except Exception as e:
+            # a corrupt/torn job record reads as "no resize in flight" —
+            # that must be visible, not a silent shrug, because the
+            # interrupted resize's revert pushes will never happen
+            self._note_ae_error(f"resize-job load {path}", e)
+            return None
+
+    def _clear_resize_job(self):
+        path = self._resize_job_path()
+        if path is not None and os.path.exists(path):
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+    def _recover_resize_job(self):
+        """Coordinator startup: an on-disk job means a crash happened
+        after phase 1 (data fetched) but before every member acked
+        resize-complete.  Completion is the only safe direction — fetched
+        data is a superset, while reverting would need an inverse copy —
+        so re-drive phase 2 idempotently (epoch-gated on receivers)."""
+        job = self._load_resize_job()
+        if job is None:
+            return
+        epoch = job.get("epoch", self.epoch + 1)
+        done_msg = {"type": "resize-complete",
+                    "membership": job["membership"],
+                    "replicaN": job.get("replicaN", self.replica_n),
+                    "lostShards": job.get("lostShards", {}),
+                    "epoch": epoch}
+        ok = True
+        # short per-send timeout: this runs inside Server.open(), and an
+        # unreachable member must not stall startup for the default 30s
+        # each — probe reconciliation re-pushes on the health cadence
+        for m in job["membership"]:
+            if m["id"] == self.node_id:
+                continue
+            try:
+                self.client.send_message(m["uri"], done_msg, timeout=5.0)
+            # lint: allow(swallowed-exception) — ok=False keeps the job
+            # record; probe reconciliation keeps pushing
+            except Exception:
+                ok = False
+        self.handle_message(done_msg)
+        # nodes the interrupted resize was removing still need their
+        # single-node revert, or they stay latched RESIZING forever (the
+        # probe safety net in probe_peers also covers this)
+        for m in job.get("removed", []):
+            try:
+                self.client.send_message(m["uri"], {
+                    "type": "resize-complete",
+                    "membership": [m], "replicaN": 1, "epoch": epoch},
+                    timeout=5.0)
+            # lint: allow(swallowed-exception) — ok=False keeps the job
+            # record; the probe safety net re-pushes the revert
+            except Exception:
+                ok = False
+        if ok:
+            self._clear_resize_job()
+
+    def resize_add_node(self, node_id: str, host: str):
+        """(api.go:1226-ish AddNode analog; coordinator only)"""
+        if not self.is_coordinator:
+            raise ClusterError("resize must be requested on the coordinator")
+        if node_id in self.by_id:
+            raise ClusterError(f"node {node_id!r} already in cluster")
+        new = self._membership() + [{"id": node_id, "uri": host}]
+        self._run_resize(new)
+
+    def resize_remove_node(self, node_id: str):
+        """(api.go:1226 RemoveNode; coordinator only)"""
+        if not self.is_coordinator:
+            raise ClusterError("resize must be requested on the coordinator")
+        if node_id == self.node_id:
+            raise ClusterError("cannot remove the coordinator")
+        if node_id not in self.by_id:
+            raise ClusterError(f"unknown node {node_id!r}")
+        new = [m for m in self._membership() if m["id"] != node_id]
+        self._run_resize(new)
+
+    # resize-fetch can copy whole fragment sets inside one message POST
+    RESIZE_FETCH_TIMEOUT = 600.0
+
+    def _run_resize(self, new_membership: list[dict]):
+        if not self._resize_lock.acquire(blocking=False):
+            raise ClusterError("a resize is already in progress")
+        try:
+            if self.state not in (STATE_NORMAL, STATE_DEGRADED):
+                raise ClusterError(
+                    f"cannot resize in state {self.state}")
+            self._run_resize_locked(new_membership)
+        finally:
+            self._resize_lock.release()
+
+    def _run_resize_locked(self, new_membership: list[dict]):
+        old_placement = self.placement
+        new_ids = [m["id"] for m in new_membership]
+        new_placement = Placement(new_ids, replica_n=self.replica_n,
+                                  hasher=self.placement.hasher)
+        hosts = {m["id"]: m["uri"] for m in new_membership}
+        removed = [n for n in self.nodes if n.id not in hosts]
+        # every participant (old members + joiners) blocks writes while
+        # fragments are in flight; an aborted resize restores NORMAL below
+        participants = {n.id: n.host for n in self.nodes}
+        participants.update(hosts)
+        # latch our own state FIRST: a peer probing mid-notify must see
+        # the coordinator RESIZING, or its stale-latch safety valve
+        # (probe_peers) would unlatch it during phase-1 fetch and let
+        # writes land on fragments already copied away
+        self.state = STATE_RESIZING
+        for nid, host in participants.items():
+            if nid != self.node_id:
+                try:
+                    self.client.send_message(
+                        host, {"type": "set-state",
+                               "state": STATE_RESIZING})
+                # lint: allow(swallowed-exception) — DOWN old member;
+                # fetch sources skip it anyway
+                except Exception:
+                    pass
+        completed = False
+        try:
+            # per-node fetch lists: (index, shard) pairs the node will own
+            # under the new placement but does not own now, with a current
+            # owner as source (cluster.go:784 fragSources)
+            fetches: dict[str, list[dict]] = {nid: [] for nid in new_ids}
+            removed_ids = {n.id for n in removed}
+            lost: dict[str, set[int]] = {}
+            for index_name in list(self.holder.indexes):
+                for s in self._available_shards(index_name, patient=True):
+                    old_owners = old_placement.shard_nodes(index_name, s)
+                    ready_sources = [
+                        o for o in old_owners
+                        if o == self.node_id
+                        or self.by_id[o].state == NODE_READY]
+                    if not ready_sources:
+                        if all(o in removed_ids for o in old_owners):
+                            # every replica lives only on unreachable
+                            # nodes the operator is explicitly removing:
+                            # accept the data loss and forget the shard
+                            # (otherwise a dead ReplicaN=1 node could
+                            # never be removed — the resize would abort
+                            # on it forever)
+                            lost.setdefault(index_name, set()).add(s)
+                            continue
+                        raise ClusterError(
+                            f"no live source for shard {s} of "
+                            f"{index_name!r}")
+                    src_host = self.by_id[ready_sources[0]].host
+                    for nid in new_placement.shard_nodes(index_name, s):
+                        if nid not in old_owners:
+                            fetches[nid].append({
+                                "index": index_name, "shard": s,
+                                "source": src_host})
+            schema = self.holder.schema()
+            # phase 1: everyone fetches (parallel, all must succeed)
+            futs = []
+            for nid in new_ids:
+                msg = {"type": "resize-fetch", "fetch": fetches[nid],
+                       "schema": schema}
+                if nid == self.node_id:
+                    self.handle_message(msg)
+                else:
+                    futs.append(self._pool.submit(
+                        self.client.send_message, hosts[nid], msg,
+                        self.RESIZE_FETCH_TIMEOUT))
+            for f in futs:
+                f.result()  # any fetch failure aborts before data loss
+            # Point of no return: persist the job record BEFORE any node
+            # adopts the new membership (cluster.go:1413 resizeJob).  From
+            # here the resize only moves forward — fetched data is a
+            # superset, so completion is always safe, while a partial
+            # completion with no record could never reconverge.
+            new_epoch = self.epoch + 1
+            # data-loss shards ride the resize-complete broadcast so EVERY
+            # node prunes them from its availability maps — coordinator-
+            # only pruning let peer polls re-propagate forgotten shards
+            # back into query scope forever
+            lost_wire = {idx: sorted(s) for idx, s in lost.items()}
+            self._save_resize_job({
+                "epoch": new_epoch, "membership": new_membership,
+                "replicaN": self.replica_n,
+                "lostShards": lost_wire,
+                "removed": [{"id": n.id, "uri": n.host} for n in removed]})
+            completed = True  # phase-1 abort path no longer applies
+            # phase 2: peers adopt FIRST, with retries; the coordinator
+            # adopts only after every peer acked (adopting
+            # locally before peer acks made a failed peer permanently
+            # diverge, and the retry raised 'already in cluster').
+            done_msg = {"type": "resize-complete",
+                        "membership": new_membership,
+                        "replicaN": self.replica_n,
+                        "lostShards": lost_wire,
+                        "epoch": new_epoch}
+            unacked = {nid for nid in new_ids if nid != self.node_id}
+            for _ in range(3):
+                for nid in sorted(unacked):
+                    try:
+                        self.client.send_message(hosts[nid], done_msg)
+                        unacked.discard(nid)
+                    # lint: allow(swallowed-exception) — stragglers stay
+                    # in `unacked` and are marked DOWN below; the epoch-
+                    # gated re-push loop owns convergence
+                    except Exception:
+                        pass
+                if not unacked:
+                    break
+                time.sleep(0.2)
+            self.handle_message(done_msg)
+            # a gracefully removed node reverts to a single-node cluster
+            # view of itself; best-effort notification
+            for n in removed:
+                try:
+                    self.client.send_message(n.host, {
+                        "type": "resize-complete",
+                        "membership": [{"id": n.id, "uri": n.host}],
+                        "replicaN": 1, "epoch": new_epoch})
+                # lint: allow(swallowed-exception) — best-effort notify
+                # of a node leaving the cluster; the probe safety net in
+                # probe_peers re-delivers the single-node revert
+                except Exception:
+                    pass
+            if unacked:
+                # keep the job record: probe reconciliation (and a
+                # restart's _recover_resize_job) re-push resize-complete,
+                # epoch-gated, until the stragglers converge
+                for nid in unacked:
+                    self._mark_down(nid)
+            else:
+                self._clear_resize_job()
+        finally:
+            if not completed:
+                # abort (phase 1 failed): restore every participant to
+                # NORMAL under the OLD membership — no node dropped data
+                # in phase 1, so the cluster simply resumes and the resize
+                # can be retried
+                for nid, host in participants.items():
+                    if nid != self.node_id:
+                        try:
+                            self.client.send_message(
+                                host, {"type": "set-state",
+                                       "state": STATE_NORMAL})
+                        # lint: allow(swallowed-exception) — abort-path
+                        # state restore; an unreachable participant
+                        # unlatches via the probe_peers safety net
+                        except Exception:
+                            pass
+            if self.state == STATE_RESIZING:
+                self.state = STATE_NORMAL
+                self._update_state()
+
+    def _apply_resize_fetch(self, msg: dict):
+        """Phase 1: copy fragments this node will own but lacks.  State is
+        driven by the coordinator's set-state / resize-complete messages,
+        not here — a node must not latch RESIZING it cannot exit."""
+        from ..storage.roaring_io import unpack_roaring
+
+        self.handle_message({"type": "apply-schema",
+                             "schema": msg.get("schema", [])})
+        for item in msg.get("fetch", []):
+            index, shard, src = item["index"], item["shard"], item["source"]
+            try:
+                frag_list = self.client.fragment_list(src, index, shard)
+            except Exception as e:
+                raise ClusterError(
+                    f"resize fetch: cannot list fragments of shard "
+                    f"{shard} from {src}: {e}")
+            idx = self.holder.index(index)
+            for field, view in frag_list:
+                f = idx.field(field)
+                if f is None:
+                    continue
+                blob = self.client.fragment_data(src, index, field, view,
+                                                 shard)
+                rows, cols = unpack_roaring(blob, self.holder.max_row_id)
+                frag = f._create_view_if_not_exists(view) \
+                    .create_fragment_if_not_exists(shard)
+                frag.bulk_import(rows, cols)
+
+    def _apply_resize_complete(self, msg: dict):
+        """Phase 2: adopt the new membership and GC unowned fragments.
+        Epoch-gated: a duplicate/re-driven resize-complete (coordinator
+        retry, crash recovery, probe reconciliation) for an epoch we
+        already hold is an idempotent no-op ack."""
+        msg_epoch = int(msg.get("epoch", self.epoch + 1))
+        if msg_epoch > self.epoch:
+            # data-loss prune, on FIRST application of an epoch only:
+            # shards forgotten in a data-loss removal leave this node's
+            # per-index AND per-field availability maps, or its poll
+            # replies would re-propagate them cluster-wide.  A re-driven
+            # duplicate (same or older epoch — coordinator retry, probe
+            # reconciliation) must NOT re-prune: the shards may have been
+            # legitimately re-imported since the first application.
+            for index_name, lost_list in \
+                    (msg.get("lostShards") or {}).items():
+                drop = {int(s) for s in lost_list}
+                with self._shards_lock:
+                    known = self._remote_shards.get(index_name)
+                    if known is not None:
+                        known -= drop
+                idx = self.holder.index(index_name) if self.holder \
+                    else None
+                if idx is not None:
+                    for f in idx.fields.values():
+                        f.remote_available_shards -= drop
+        if msg_epoch <= self.epoch:
+            if self.state == STATE_RESIZING:
+                self.state = STATE_NORMAL
+                self._update_state()
+            return
+        membership = msg["membership"]
+        self.replica_n = msg.get("replicaN", self.replica_n)
+        if self.node_id not in {m["id"] for m in membership}:
+            # we were removed; keep serving a single-node view of ourselves
+            membership = [{"id": self.node_id, "uri": self.local.host}]
+        old_states = {n.id: n.state for n in self.nodes}
+        self.nodes = [Node(m["id"], m["uri"]) for m in membership]
+        for n in self.nodes:
+            n.state = old_states.get(n.id, NODE_READY)
+        self.by_id = {n.id: n for n in self.nodes}
+        self.placement = Placement([n.id for n in self.nodes],
+                                   replica_n=self.replica_n,
+                                   hasher=self.placement.hasher)
+        self.epoch = msg_epoch
+        events.emit("cluster.resize", epoch=msg_epoch,
+                    nodes=[m["id"] for m in membership])
+        # a membership resize reshuffles jump-hash placement wholesale:
+        # the overlay (tuned for the OLD placement) is dropped on every
+        # node and the balancer re-detects hot spots under the new
+        # placement.  The epoch bump is UNCONDITIONAL so every node
+        # moves in lockstep regardless of its table content — a node
+        # carrying stale entries (missed a delete-index) bumping while a
+        # clean coordinator did not would end up AHEAD and silently
+        # reject the coordinator's next legitimate overlay broadcast
+        with self._overlay_lock:
+            self._overlay = {}
+            self.overlay_epoch += 1
+        self._save_topology()
+        self.state = STATE_NORMAL
+        self._update_state()
+        # Fragment GC is DEFERRED (cluster.go holderCleaner runs on a
+        # schedule, not inline): queries keep serving during the resize,
+        # and nodes adopt the new membership at slightly different
+        # moments — a read routed by the old placement in that window
+        # must still find data on the old owner.  The grace covers the
+        # adoption skew; the anti-entropy loop also re-runs the cleaner.
+        if self.cleaner_grace <= 0:
+            self._holder_cleaner()
+        else:
+            t = threading.Timer(self.cleaner_grace, self._cleaner_tick)
+            t.daemon = True
+            t.start()
+
+    def _cleaner_tick(self):
+        # same guard as the AE backstop: a stale grace timer must not GC
+        # fragments a SUBSEQUENT resize just fetched (they are unowned
+        # under the still-current placement until that resize completes)
+        if not self._closing.is_set() and self.state != STATE_RESIZING:
+            try:
+                self._holder_cleaner()
+            except Exception as e:
+                # a dead cleaner means unowned fragments pile up
+                # invisibly; surface it on the AE health counters
+                self._note_ae_error("holder cleaner", e)
+
+    def _holder_cleaner(self):
+        """Drop fragments this node no longer owns under the current
+        placement (holder.go:1131 holderCleaner)."""
+        for index_name, idx in list(self.holder.indexes.items()):
+            for f in list(idx.fields.values()):
+                for v in list(f.views.values()):
+                    for shard in list(v.fragments):
+                        if self.node_id not in self.shard_owner_nodes(
+                                index_name, shard):
+                            frag = v.fragments.pop(shard)
+                            try:
+                                frag.close()
+                            # lint: allow(swallowed-exception) — the
+                            # fragment is already unowned and popped; a
+                            # close failure leaks an fd, not data
+                            except Exception:
+                                pass
 
     # -- internal HTTP routes (handler.go:302-314 /internal/*) -------------
 
@@ -2785,3 +3891,135 @@ class Cluster:
 
         router.add("GET", "/internal/index/{index}/shards", index_shards)
 
+        def _frag(req):
+            index = req.query.get("index", [""])[0]
+            field = req.query.get("field", [""])[0]
+            view = req.query.get("view", ["standard"])[0]
+            shard = int(req.query.get("shard", ["0"])[0])
+            return cluster.holder.fragment(index, field, view, shard)
+
+        def fragment_blocks(req, args):
+            frag = _frag(req)
+            if frag is None:
+                return {"blocks": {}}
+            if frag.quarantined is not None:
+                # the empty block map is corruption fallout, not data:
+                # flag it so callers exclude this replica from consensus
+                return {"blocks": {}, "quarantined": True}
+            return {"blocks": {str(b): ck.hex()
+                               for b, ck in frag.blocks().items()}}
+
+        router.add("GET", "/internal/fragment/blocks", fragment_blocks)
+
+        def block_data(req, args):
+            frag = _frag(req)
+            block = int(req.query.get("block", ["0"])[0])
+            if frag is None:
+                return {"rows": [], "cols": []}
+            rows, cols = frag.block_data(block)
+            return {"rows": rows.tolist(), "cols": cols.tolist()}
+
+        router.add("GET", "/internal/fragment/block/data", block_data)
+
+        def block_repair(req, args):
+            """Receive a merge-consensus diff push (fragment.go:2995)."""
+            body = req.json()
+            idx = cluster.holder.index(body["index"])
+            if idx is None:
+                return {}
+            f = idx.field(body["field"])
+            if f is None:
+                return {}
+            frag = f._create_view_if_not_exists(body["view"]) \
+                .create_fragment_if_not_exists(int(body["shard"]))
+            if frag.quarantined is not None:
+                # block diffs can't heal a quarantined fragment (and its
+                # writes are refused); wholesale repair will restore it
+                return {}
+            sr = np.asarray(body.get("setRows", []), dtype=np.int64)
+            sc = np.asarray(body.get("setCols", []), dtype=np.int64)
+            cr = np.asarray(body.get("clearRows", []), dtype=np.int64)
+            cc = np.asarray(body.get("clearCols", []), dtype=np.int64)
+            if sr.size:
+                frag.bulk_import(sr, sc)
+            if cr.size:
+                frag.bulk_import(cr, cc, clear=True)
+            return {}
+
+        router.add("POST", "/internal/fragment/block/repair", block_repair)
+
+        def attr_diff(req, args):
+            """Return our attrs for blocks whose checksum differs from the
+            caller's (holder.go:1002 ColumnAttrDiff/RowAttrDiff)."""
+            body = req.json()
+            idx = cluster.holder.index(body["index"])
+            if idx is None:
+                return {"attrs": {}}
+            if body.get("field"):
+                f = idx.field(body["field"])
+                if f is None:
+                    return {"attrs": {}}
+                store = f.row_attrs
+            else:
+                store = idx.column_attrs
+            caller = body.get("blocks", {})
+            out = {}
+            for b, ck in store.blocks().items():
+                if caller.get(str(b)) != ck.hex():
+                    out.update(store.block_data(b))
+            return {"attrs": {str(i): a for i, a in out.items()}}
+
+        router.add("POST", "/internal/attr/diff", attr_diff)
+
+        def fragment_data(req, args):
+            from ..api import ConflictError
+            frag = _frag(req)
+            if frag is not None and frag.quarantined is not None:
+                # a resize/bootstrap copy from a quarantined source would
+                # propagate its emptiness cluster-wide as if it were data
+                raise ConflictError("fragment quarantined")
+            return ("application/octet-stream", fragment_roaring(frag))
+
+        router.add("GET", "/internal/fragment/data", fragment_data)
+
+        def fragment_fetch(req, args):
+            """Checksummed whole-fragment snapshot bytes — the replica
+            repair source (docs/robustness.md).  Refuses for missing or
+            quarantined fragments: repair must converge on HEALTHY data."""
+            from ..api import ConflictError, NotFoundError
+            frag = _frag(req)
+            if frag is None:
+                raise NotFoundError("fragment not found")
+            if frag.quarantined is not None:
+                raise ConflictError("fragment quarantined")
+            return ("application/octet-stream", frag.snapshot_bytes())
+
+        router.add("GET", "/internal/fragment/fetch", fragment_fetch)
+
+        def fragment_list(req, args):
+            index = req.query.get("index", [""])[0]
+            shard = int(req.query.get("shard", ["0"])[0])
+            out = []
+            idx = cluster.holder.index(index)
+            if idx is not None:
+                for fname, f in idx.fields.items():
+                    for vname, v in f.views.items():
+                        if v.fragment(shard) is not None:
+                            out.append([fname, vname])
+            return {"fragments": out}
+
+        router.add("GET", "/internal/fragment/list", fragment_list)
+
+        def resize_add_node(req, args):
+            body = req.json()
+            cluster.resize_add_node(body["id"], body["host"])
+            return {"nodes": cluster.node_statuses()}
+
+        router.add("POST", "/cluster/resize/add-node", resize_add_node)
+
+        def resize_remove_node(req, args):
+            body = req.json()
+            cluster.resize_remove_node(body["id"])
+            return {"nodes": cluster.node_statuses()}
+
+        router.add("POST", "/cluster/resize/remove-node", resize_remove_node)

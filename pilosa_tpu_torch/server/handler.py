@@ -13,17 +13,22 @@ headers, streaming routes) and the public routes are copied;
 ``/debug/vars`` and ``/metrics`` report the parts the port has (stats,
 budgets, the kernel wrappers' launch counts, the stack cache with its
 overlay and re-stage counters, the ingest committer, the cluster's
-breakers and routing state).  With a cluster, the server registers the
-cluster plane's node-to-node routes (``/internal/query``,
-``/internal/cluster/message``, ``/internal/import*``,
-``/internal/translate*``, ``/internal/index/{index}/shards``), and
+breakers, routing state, placement overlay, balancer and anti-entropy
+health, and on the coordinator's ``/metrics`` the fleet rollup's
+``pilosa_tpu_cluster_*`` family).  ``/debug/cluster`` answers the fleet
+rollup (parallel/rollup.py), or this node's own summary without a
+cluster.  With a cluster, the server registers the cluster plane's
+node-to-node routes (``/internal/query``, ``/internal/cluster/message``,
+``/internal/import*``, ``/internal/translate*``,
+``/internal/index/{index}/shards``, ``/internal/fragment/*``,
+``/internal/attr/diff``) and the resize routes
+(``/cluster/resize/add-node``, ``/cluster/resize/remove-node``), and
 ``/ingest`` forwards each record to its shard owners through
 ``/internal/ingest``.  Not registered (404) until the port has their
-subsystems: the anti-entropy and resize routes and ``/debug/cluster``
-(the cluster plane's second part), device-runtime observability
-(``/debug/compiles``, ``/debug/launches``, ``/debug/timeseries``), SLOs
-and the flight recorder (``/debug/alerts``, ``/debug/bundle``) and the
-dashboards (``/debug/dashboard*``).
+subsystems: device-runtime observability (``/debug/compiles``,
+``/debug/launches``, ``/debug/timeseries``), SLOs and the flight
+recorder (``/debug/alerts``, ``/debug/bundle``) and the dashboards
+(``/debug/dashboard*``).
 """
 
 from __future__ import annotations
@@ -198,11 +203,16 @@ def build_debug_vars(api: API, server=None) -> dict:
         }
     if server is not None and getattr(server, "cluster",
                                       None) is not None:
-        # per-peer breakers and routing state (EWMA RTT, in-flight,
-        # residency summary age)
+        # per-peer breakers; routing state (EWMA RTT, in-flight,
+        # residency summary age), the placement overlay, and the
+        # balancer's hot-shard view
         cl = server.cluster
         out["breakers"] = cl.client.breaker_snapshot()
-        out["cluster"] = {"routing": cl.router.snapshot()}
+        out["cluster"] = {
+            "routing": cl.router.snapshot(),
+            "overlay": cl.overlay_snapshot(),
+            "balancer": cl.balancer.snapshot(),
+        }
     # tenant isolation plane (docs/robustness.md "Tenant isolation"):
     # per-tenant qps/p50/p99/shed/hedge-denied/quota columns — the
     # registry is process-wide, so bare-API servers report it too
@@ -226,7 +236,7 @@ def build_debug_vars(api: API, server=None) -> dict:
     out["events"] = {"seq": EVENTS.last_seq(), "emitted": EVENTS.emitted,
                      "writeErrors": EVENTS.write_errors}
     # durability & recovery (docs/robustness.md): quarantine state,
-    # torn-tail/repair event counters
+    # torn-tail/repair event counters, anti-entropy health
     from ..storage.fragment import storage_events
     container_stats = api.holder.container_stats()
     out["storage"] = {
@@ -240,6 +250,8 @@ def build_debug_vars(api: API, server=None) -> dict:
     }
     if server is not None:
         server.update_storage_gauges(container_stats=container_stats)
+        if getattr(server, "cluster", None) is not None:
+            out["storage"]["antiEntropy"] = server.cluster.ae_snapshot()
     # device: the container-kernel wrappers' launch counts (the port has
     # no compile registry or launch ledger; ops/kernels.py counts)
     from ..ops import kernels
@@ -606,6 +618,18 @@ def build_router(api: API, server=None) -> Router:
         # client's counter/gauge model; it exports its own lines
         if api.executor.batcher is not None:
             text += api.executor.batcher.prometheus_text()
+        # fleet rollup (docs/observability.md "Cluster plane"): the
+        # pilosa_tpu_cluster_* family with node labels.  Exported by
+        # the COORDINATOR's scrape only — every node exporting it would
+        # ingest each series N times and turn a scrape-all-nodes setup
+        # into N*(N-1) peer pulls per interval.  refresh() is
+        # TTL-cached and never blocks on a dead peer, so the scrape
+        # stays bounded.
+        rollup = getattr(server, "rollup", None) if server is not None \
+            else None
+        if rollup is not None and server.cluster.is_coordinator:
+            rollup.refresh()
+            text += rollup.prometheus_text()
         if exemplars:
             return ("application/openmetrics-text; version=1.0.0; "
                     "charset=utf-8", text + "# EOF\n")
@@ -666,6 +690,32 @@ def build_router(api: API, server=None) -> Router:
                 "events": EVENTS.since(since_i, limit=limit_i)}
 
     r.add("GET", "/debug/events", debug_events)
+
+    def debug_cluster(req, args):
+        """Fleet rollup (docs/observability.md "Cluster plane"):
+        per-node summaries with staleness stamps + the merged event
+        timeline.  Single-node servers answer with their own summary so
+        dashboards work unchanged."""
+        rollup = getattr(server, "rollup", None) if server is not None \
+            else None
+        if rollup is None:
+            from ..parallel.rollup import FleetRollup, summarize_vars
+            from ..utils.events import EVENTS
+            info = {"state": "READY", "stale": False, "qps": 0.0}
+            info.update(summarize_vars(build_debug_vars(api, server)))
+            # same top-level keys FleetRollup.snapshot() emits
+            # lint: allow(wall-clock) — display-only snapshot stamp,
+            # never subtracted (mirrors FleetRollup._wall_stamp)
+            return {"wall": time.time(), "ttlS": FleetRollup.TTL_S,
+                    "refreshes": 0, "fetchErrors": 0,
+                    "coordinator": "local", "overlayEpoch": 0,
+                    "epoch": 0, "nodes": {"local": info},
+                    "timeline": EVENTS.since(0), "hotShards": {}}
+        rollup.refresh(
+            force=req.query.get("refresh", [""])[0] == "true")
+        return rollup.snapshot()
+
+    r.add("GET", "/debug/cluster", debug_cluster)
 
     def debug_slow(req, args):
         """Slow-query log ring (docs/observability.md): queries that ran

@@ -573,38 +573,30 @@ class Server:
     the HTTP(S) listener.  Like the JAX package's, these knobs are module
     globals: the most recent Server's config wins.
 
-    With ``cluster_hosts`` the server builds the read plane's
-    ``Cluster`` (parallel/cluster.py) — placement, health probes, the
-    routed fan-out with hedged reads, import forwarding, DDL broadcast
-    — and registers its internal routes, as the JAX Server does.
+    With ``cluster_hosts`` the server builds the ``Cluster``
+    (parallel/cluster.py) — placement with its overlay, health probes,
+    the routed fan-out with hedged reads, import forwarding, DDL
+    broadcast, anti-entropy, resize with topology persistence and the
+    hot-shard balancer — registers its internal and resize routes and
+    builds the fleet rollup (``/debug/cluster``, parallel/rollup.py), as
+    the JAX Server does.  With TLS certificates it serves HTTPS (mutual
+    TLS when a CA is set) and its cluster client presents the same
+    certificate to its peers.  ``anti_entropy_interval > 0`` runs
+    ``sync_holder`` on that cadence and ``repair_interval > 0`` the
+    quarantine-repair sweep; ``balancer = true`` runs the balancer on
+    the coordinator.
 
-    Refused at construction, because only the cluster plane's second
-    part (not ported) honours them: ``balancer = true`` and TLS
-    certificates on a cluster node.  Also refused: a
-    ``container_kernels`` other than "auto".
+    Refused at construction: a ``container_kernels`` other than "auto".
 
     ``decode_workspace_mb`` sets the shard schedule's decode-workspace
     ceiling (parallel/stacked.py ``DECODE_WORKSPACE_BYTES``).
 
-    Accepted and unused: ``anti_entropy_interval`` and the repair keys
-    (anti-entropy and repair are the cluster plane's second part, so a
-    positive interval runs nothing); the device-runtime
-    observability, time-series, SLO, flight-recorder and diagnostics
-    keys; and the warm-start keys — ``/status`` is READY at once, as
-    for a bare JAX ``API``."""
+    Accepted and unused: the device-runtime observability, time-series,
+    SLO, flight-recorder and diagnostics keys; and the warm-start keys —
+    ``/status`` is READY at once, as for a bare JAX ``API``."""
 
     def __init__(self, config: Config | None = None):
         self.config = config or Config()
-        if self.config.balancer:
-            raise ValueError(
-                "balancer = true: the hot-shard balancer is not ported "
-                "(the cluster plane's second part)")
-        if self.config.cluster_hosts and (self.config.tls_certificate
-                                          or self.config.tls_key):
-            raise ValueError(
-                "TLS certificates are set on a cluster node, but the "
-                "port's nodes talk plain HTTP to each other (TLS between "
-                "nodes is the cluster plane's second part)")
         if self.config.container_kernels != "auto":
             raise ValueError(
                 f"container_kernels={self.config.container_kernels!r}: "
@@ -671,7 +663,9 @@ class Server:
                 stats=self.stats,
                 read_routing=self.config.read_routing,
                 residency_routing=self.config.residency_routing,
+                balancer=self.config.balancer,
                 balancer_interval=self.config.balancer_interval,
+                hot_shard_threshold=self.config.hot_shard_threshold,
                 hedge_reads=self.config.hedge_reads,
                 hedge_delay_ms=self.config.hedge_delay_ms,
                 internal_wire=self.config.internal_wire,
@@ -710,6 +704,11 @@ class Server:
         if self.config.tls_certificate and self.config.tls_key:
             tls = (self.config.tls_certificate, self.config.tls_key,
                    self.config.tls_ca_certificate or None)
+            if self.cluster is not None:
+                self.cluster.client.configure_tls(
+                    self.config.tls_certificate, self.config.tls_key,
+                    self.config.tls_ca_certificate or None,
+                    self.config.tls_skip_verify)
         # Admission control (server/admission.py): public, internal and
         # ingest slot pools of the same size, as in the JAX package.
         from .admission import AdmissionController
@@ -758,6 +757,19 @@ class Server:
             partial_results=self.config.partial_results,
             slowlog=self.slowlog,
             profile_default=self.config.profile_default)
+        # Fleet rollup (docs/observability.md "Cluster plane"): any
+        # clustered node can aggregate its peers' /debug/vars + event
+        # journals into /debug/cluster and the pilosa_tpu_cluster_*
+        # family; the local node's summary is built from the SAME
+        # build_debug_vars body peers serve over the wire.
+        self.rollup = None
+        if self.cluster is not None:
+            from ..parallel.rollup import FleetRollup
+            from .handler import build_debug_vars
+            self.rollup = FleetRollup(
+                self.cluster,
+                local_vars_fn=lambda: build_debug_vars(self.api, self),
+                stats=self.stats)
         self._threads: list[threading.Thread] = []
         self._closing = threading.Event()
 
@@ -786,6 +798,15 @@ class Server:
         self.logger.info(
             f"pilosa-tpu listening on http://{self.config.bind} "
             f"(device {self.device})")
+        if self.cluster is not None and self.config.anti_entropy_interval > 0:
+            t = threading.Thread(target=self._monitor_anti_entropy,
+                                 daemon=True)
+            t.start()
+            self._threads.append(t)
+        if self.cluster is not None and self.config.repair_interval > 0:
+            t = threading.Thread(target=self._monitor_repair, daemon=True)
+            t.start()
+            self._threads.append(t)
         if self.config.metric_poll_interval > 0:
             t = threading.Thread(target=self._monitor_runtime, daemon=True)
             t.start()
@@ -825,6 +846,30 @@ class Server:
         batcher = self.api.executor.batcher
         self.stats.gauge("runtime.batcher_queued",
                          batcher.pending() if batcher is not None else 0)
+
+    def _monitor_anti_entropy(self):
+        """(server.go:514 monitorAntiEntropy)"""
+        while not self._closing.wait(self.config.anti_entropy_interval):
+            try:
+                self.cluster.sync_holder()
+            except Exception as e:
+                self.logger.error(f"anti-entropy sync failed: {e}")
+
+    def _monitor_repair(self):
+        """Dedicated quarantine-repair sweep (docs/robustness.md): a
+        corrupt fragment heals on the repair-interval cadence instead of
+        waiting out the (much longer) anti-entropy interval.  Cheap when
+        healthy — one holder scan finding nothing."""
+        while not self._closing.wait(self.config.repair_interval):
+            try:
+                if self.holder.quarantined_fragments():
+                    n = self.cluster.repair_quarantined()
+                    if n:
+                        self.logger.info(
+                            f"repaired {n} quarantined fragment(s) "
+                            f"from replicas")
+            except Exception as e:
+                self.logger.error(f"quarantine repair failed: {e}")
 
     def _monitor_runtime(self):
         while not self._closing.wait(self.config.metric_poll_interval):
@@ -881,6 +926,32 @@ class Server:
         self.stats.gauge("ingest.merge_backlog", ing["pendingBytes"])
         self.stats.gauge("ingest.folds", ing["folds"])
         self.update_device_gauges()
+        self.update_routing_gauges()
+
+    def update_routing_gauges(self):
+        """Per-peer routing-state gauges (docs/cluster.md "Read routing
+        & rebalancing"), refreshed at scrape time like the storage
+        gauges: the operator's answer to "why is this replica not taking
+        reads" must reflect now, not the last metric poll."""
+        if self.cluster is None:
+            return
+        for nid, g in self.cluster.router.peer_states():
+            self.stats.gauge(f"cluster.peer.{nid}.ewma_rtt_ms",
+                             g["ewma_rtt_ms"])
+            self.stats.gauge(f"cluster.peer.{nid}.inflight",
+                             g["inflight"])
+            self.stats.gauge(f"cluster.peer.{nid}.queued", g["queued"])
+            self.stats.gauge(f"cluster.peer.{nid}.residency_age_s",
+                             g["residency_age_s"])
+            self.stats.gauge(f"cluster.peer.{nid}.breaker_open",
+                             g["breaker_open"])
+            self.stats.gauge(f"cluster.peer.{nid}.dispatches",
+                             g["dispatches"])
+        snap = self.cluster.overlay_snapshot()
+        self.stats.gauge("cluster.overlay_entries", len(snap["entries"]))
+        self.stats.gauge("cluster.overlay_epoch", snap["epoch"])
+        self.stats.gauge("cluster.balancer_handoffs",
+                         self.cluster.balancer.handoffs)
 
     def update_device_gauges(self):
         """The container-kernel wrappers' launch counts and the stacked
@@ -930,6 +1001,8 @@ class Server:
         # final group-commit flush AFTER the listener is gone (no new
         # submissions) and BEFORE the holder closes the WAL files
         self.committer.close()
+        if self.rollup is not None:
+            self.rollup.close()
         if self.cluster is not None:
             self.cluster.close()
         self.api.executor.close()

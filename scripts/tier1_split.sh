@@ -74,9 +74,15 @@ tests/test_server.py
 tests/test_slo.py
 tests/test_tenant.py
 tests/test_topology.py
+tests/test_torch_antientropy.py
+tests/test_torch_balancer.py
+tests/test_torch_churn.py
 tests/test_torch_cluster.py
 tests/test_torch_cluster_diff.py
+tests/test_torch_cluster_obs.py
+tests/test_torch_cluster_tls.py
 tests/test_torch_qwire.py
+tests/test_torch_resize.py
 tests/test_warmup.py
 "
 

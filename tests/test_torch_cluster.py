@@ -12,8 +12,10 @@ node-down replica retry, Options-wrapped aggregates, TopN tanimoto
 nodes, a write failing with a replica down, an application error not
 marking a peer down, the sole-owner retry, a dead sole owner failing
 loud, schema catch-up after recovery and pooled-connection
-replacement.  The anti-entropy, resize and TLS cases belong to the
-cluster plane's second part, which is not ported.
+replacement.  The anti-entropy, resize, balancer, chaos, fleet-rollup
+and TLS cases are in tests/test_torch_antientropy.py,
+test_torch_resize.py, test_torch_balancer.py, test_torch_churn.py,
+test_torch_cluster_obs.py and test_torch_cluster_tls.py.
 """
 
 import json

@@ -15,7 +15,8 @@ and run containers; ``Count``, ``Intersect``, ``TopN`` with a filter,
 wall-clock ``windowWaitS``); the ``/schema`` round trip; and the error
 cases of tests/test_server.py.  Then: data directories
 written by either server reopen in the other with the same answers;
-the refusals (no card, ``balancer``, cluster TLS, ``container_kernels``); the
+the refusals (no card, ``container_kernels``) and the cluster keys that
+are now taken (``balancer``, cluster TLS); the
 ``import`` / ``ingest`` / ``export`` CLI against both; and 8 threads of
 mixed queries and ingests against the port server, whose answers must
 equal a serial run's.
@@ -319,12 +320,20 @@ def test_refusals(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_server.Server(port_server.Config(
             data_dir=str(tmp_path / "a"), bind="localhost:0"))
-    # only the cluster plane's second part honours these
-    with pytest.raises(ValueError, match="balancer"):
-        port_server.Server(_port_cfg(tmp_path / "b",
-                                     cluster_hosts=["localhost:1"],
-                                     balancer=True))
-    with pytest.raises(ValueError, match="TLS"):
+    # a cluster node takes ``balancer = true`` (the coordinator runs the
+    # hot-shard balancer) and loads its TLS certificates for serving and
+    # for its cluster client: missing files fail as they do in the JAX
+    # server, at construction, with the same error type
+    srv = port_server.Server(_port_cfg(tmp_path / "b",
+                                       cluster_hosts=["localhost:1"],
+                                       balancer=True,
+                                       anti_entropy_interval=0))
+    srv.open()
+    try:
+        assert srv.cluster.balancer_on and srv.cluster.is_coordinator
+    finally:
+        srv.close()
+    with pytest.raises(FileNotFoundError):
         port_server.Server(_port_cfg(tmp_path / "b",
                                      cluster_hosts=["localhost:1"],
                                      tls_certificate="c.pem",
