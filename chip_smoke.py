@@ -77,7 +77,30 @@ its own lines and its seconds:
    With ``--profile`` each run of phases 5, 6 and 7 ends with one
    request under torch.profiler: the card's busy and idle share and its
    top kernels.
-8. cfg5_budget — BASELINE config 5 under the device budget (bench.py
+8. warm_start — over the served data dir after the ingest (its corpus
+   removed first): a cold restart (``warmup_top_n = 0``) sending the 8
+   one-client requests of the mix twice each, then a warm restart with
+   the default ``warmup_top_n`` over the corpus the cold server wrote,
+   sending them once more, with ``?explain=true``; compressed (96 MB)
+   and then dense.  Gates: ``/status`` WARMING then READY; the warmup
+   replayed 2 × its planned entries with 0 errors and 0 skipped; every
+   corpus signature held as a graph at READY; after READY no capture,
+   every request a replay whose plan says ``compile: warm``, and (when
+   compressed) both kernels launched inside replayed graphs; every
+   answer equal to the oracle.  Then the SLO leg: a compressed server
+   with ``timeseries-interval = 1``, ``timeseries-window = 60`` and
+   ``slo-latency-ms = 1`` under about 20 s of the mix must fire
+   ``slo-latency-burn``, leave a flight-recorder bundle, answer ``POST
+   /debug/bundle`` and resolve after the load stops, with answers
+   byte-identical to the compressed cold server's, whose alert rules
+   were off; on it,
+   ``/debug/compiles`` (0 retraces in the process), ``/debug/launches``
+   (the padding waste ratio), the ``/metrics`` device families,
+   ``/debug/timeseries`` and the CLI ``top``.  Printed: seconds to
+   READY cold and warm, the replay seconds, first- and second-request
+   p50, captures, pool MB at READY, the alert's fire and resolve
+   times.
+9. cfg5_budget — BASELINE config 5 under the device budget (bench.py
    ``bench_config5_compressed``, pilosa_tpu_torch/cfg5.py): the sparse
    corpus of 954 shards (1,000,341,504 columns; 1431 MiB of dense words
    against a 768 MiB budget), the gate ``TopN(metric, Intersect(Row(seg
@@ -97,7 +120,7 @@ its own lines and its seconds:
    budget, and the compressed leg must launch both kernels.  Printed
    per leg: slices, prefetch hits and misses, pins, evictions, upload
    MB, peak MB, calls/s, p50, launches a request and the fallbacks.
-9. cluster — config 5's cluster half (bench.py
+10. cluster — config 5's cluster half (bench.py
    ``bench_config5_distributed``): four port servers in this process,
    sharing the card on localhost ports, the dense corpus at 256 shards
    loaded through node0's ``import-roaring`` (512 POSTs, forwarded to
@@ -120,7 +143,7 @@ its own lines and its seconds:
    fragments and MiB fetched, shards per node, and each node's resident
    MB, stacks, graphs and pool MB before the resize and after the
    cleaner.
-10. replicas — three port servers, ``replica_n`` 2, compressed-resident
+11. replicas — three port servers, ``replica_n`` 2, compressed-resident
    under a 512 MiB device budget, over config 5's sparse corpus cut to
    64 shards, node2 dialed through a ``ChaosProxy``
    (``pilosa_tpu_torch/utils/netchaos.py``): load and warm, a latency on
@@ -134,10 +157,10 @@ its own lines and its seconds:
    their plain versions.  Printed: hedges, repair seconds, the
    anti-entropy counters (blocks compared and merged, errors), launches
    and captures after the repair, kernel times beside their bound.
-11. the ``kernels`` JSON line, a JSON line of the phases' records, the
-   ``served`` JSON line, the ``cfg5_budget`` / ``cluster`` /
-   ``replicas`` JSON line, the nvidia-smi line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+12. the ``kernels`` JSON line, a JSON line of the phases' records, the
+   ``served`` and ``warm_start`` JSON lines, the ``cfg5_budget`` /
+   ``cluster`` / ``replicas`` JSON line, the nvidia-smi line, and last
+   the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the result line.  It imports
 nothing of JAX or the JAX package.
@@ -1084,6 +1107,358 @@ def served_wq(srv, label: str, replays: bool) -> dict:
     return rec
 
 
+# -- phase 8: warm start and the device-runtime observability -------------
+
+WARM_SIGNATURES = N_BATCHES    # requests of the warm-start mix, each its own
+#                                signature, sent twice from one client
+SLO_LOAD_S = 20.0              # seconds of compressed mix in the SLO leg
+PR5_DENSE_PAD_PCT = 19.5       # dense replay p50 over eager, PR 5 (PERF.md)
+
+
+def warm_batches() -> list:
+    """The warm-start mix: the N_BATCHES one-client requests of
+    ``served_batches``."""
+    return served_batches()[1:1 + WARM_SIGNATURES]
+
+
+def wait_ready(srv, t0: float, timeout: float = 120.0) -> tuple:
+    """Poll ``/status`` every 50 ms from just after ``open()`` until it
+    says READY; returns (seconds from ``t0``, the phases seen in order)."""
+    seen = []
+    deadline = time.monotonic() + timeout
+    while True:
+        st = http(srv.port, "GET", "/status", timeout=30)
+        state = st["nodes"][0]["state"]
+        if not seen or seen[-1] != state:
+            seen.append(state)
+        if state == "READY" and not st["warming"]:
+            return time.perf_counter() - t0, seen
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no READY after {timeout} s: {st}")
+        time.sleep(0.05)
+
+
+def warm_request(srv, batch, want, label: str):
+    """One mix request with ``?explain=true``; returns (seconds, raw
+    body, the whole-query plan entries)."""
+    import urllib.request
+    from pilosa_tpu_torch import ssb
+    req = urllib.request.Request(
+        f"http://localhost:{srv.port}/index/{ssb.SSB_INDEX}/query"
+        f"?explain=true", data=ssb.ssb_batch(batch).encode(),
+        method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        raw = resp.read()
+    dt = time.perf_counter() - t0
+    out = json.loads(raw)
+    if out["results"] != want:
+        raise AssertionError(f"warm_start {label}: {out['results'][:3]} "
+                             f"!= oracle {want[:3]}")
+    plan = [e for e in out.get("explain", {}).get("plan", [])
+            if e.get("mode") == "wholequery"]
+    return dt, plan
+
+
+def post_raw(port: int, body: bytes) -> bytes:
+    """One mix request; returns the raw response body."""
+    import urllib.request
+    from pilosa_tpu_torch import ssb
+    req = urllib.request.Request(
+        f"http://localhost:{port}/index/{ssb.SSB_INDEX}/query", data=body,
+        method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return resp.read()
+
+
+def warm_leg(data_dir: str, hist, tab, device, n_shards: int,
+             label: str, cold_kw=None, **kw) -> tuple:
+    """A cold restart (``warmup_top_n = 0``, no corpus; ``cold_kw`` on
+    top of ``kw``) sending the warm mix twice from one client and then
+    once more without explain, then a warm restart with the default
+    ``warmup_top_n`` over the corpus the cold server wrote, sending it
+    once more.  Returns the leg's record and the cold server's raw
+    bodies of the last round; raises on a failed gate."""
+    import os
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.utils import devobs
+    from pilosa_tpu_torch.warmup import SignatureCorpus
+    corpus = os.path.join(data_dir, "signatures.log")
+    if os.path.exists(corpus):
+        os.remove(corpus)        # the cold restart starts with no corpus
+    shards = list(range(n_shards))
+    batches = warm_batches()
+    want = [[served_oracle(hist, tab, shards, c) for c in b]
+            for b in batches]
+    rec = {}
+
+    t0 = time.perf_counter()
+    srv = start_server(data_dir, device, warmup_top_n=0,
+                       **{**kw, **(cold_kw or {})})
+    try:
+        ready_s, seen = wait_ready(srv, t0)
+        wq = srv.api.executor.wholequery
+        c0, w0 = devobs.COMPILES.totals(), wq.snapshot()
+        first = [warm_request(srv, b, w, f"{label} cold")[0]
+                 for b, w in zip(batches, want)]
+        second = [warm_request(srv, b, w, f"{label} cold")[0]
+                  for b, w in zip(batches, want)]
+        c1, w1 = devobs.COMPILES.totals(), wq.snapshot()
+        from pilosa_tpu_torch import ssb
+        raw = [post_raw(srv.port, ssb.ssb_batch(b).encode())
+               for b in batches]
+        if [json.loads(r)["results"] for r in raw] != want:
+            raise AssertionError(f"warm_start {label}: cold answers")
+        rec["cold_slo_engine"] = srv.slo is not None
+        rec["cold"] = {
+            "ready_s": ready_s, "phases": seen,
+            "first_p50_ms": statistics.median(first) * 1e3,
+            "second_p50_ms": statistics.median(second) * 1e3,
+            "first_ms": [round(x * 1e3, 3) for x in first],
+            "second_ms": [round(x * 1e3, 3) for x in second],
+            "captures": c1["compiles"] - c0["compiles"],
+            "capture_s": round(c1["compileSecondsTotal"]
+                               - c0["compileSecondsTotal"], 6),
+            "replays": w1["replays"] - w0["replays"],
+            "pool_mb": (wq.pool_reserved_bytes() or 0) / 2**20}
+    finally:
+        srv.close()
+    folded = SignatureCorpus.load(corpus)
+    corpus_sigs = {r["sig"] for r in folded.values() if r.get("sig")}
+    rec["corpus_entries"] = len(folded)
+
+    t0 = time.perf_counter()
+    srv = start_server(data_dir, device, **kw)
+    try:
+        ready_s, seen = wait_ready(srv, t0)
+        wq = srv.api.executor.wholequery
+        st = srv.warmup.status()
+        held = wq.held_sigs()
+        pool_mb = (wq.pool_reserved_bytes() or 0) / 2**20
+        c0, w0 = devobs.COMPILES.totals(), wq.snapshot()
+        kernels.reset_launches()
+        firsts, plans = [], []
+        for b, w in zip(batches, want):
+            dt, plan = warm_request(srv, b, w, f"{label} warm")
+            firsts.append(dt)
+            plans.extend(plan)
+        replayed = dict(kernels.REPLAYED)
+        c1, w1 = devobs.COMPILES.totals(), wq.snapshot()
+        rec["warm"] = {
+            "ready_s": ready_s, "phases": seen,
+            "planned": st["planned"], "replayed": st["replayed"],
+            "errors": st["errors"], "skipped": st["skipped"],
+            "replay_s": st["elapsedS"], "replay_capture_s": st["compileS"],
+            "retraces_during_warm": st["retracesDuringWarm"],
+            "corpus_signatures": len(corpus_sigs),
+            "held_at_ready": len(corpus_sigs & held),
+            "graphs_at_ready": len(held),
+            "pool_mb_at_ready": pool_mb,
+            "first_p50_ms": statistics.median(firsts) * 1e3,
+            "first_ms": [round(x * 1e3, 3) for x in firsts],
+            "captures_after_ready": c1["compiles"] - c0["compiles"],
+            "replays_after_ready": w1["replays"] - w0["replays"],
+            "compile_cold_plans": sum(1 for e in plans
+                                      if e["compile"] != "warm"),
+            "launches_replayed": replayed}
+    finally:
+        srv.close()
+    w = rec["warm"]
+    say("warm_start", leg=label, **{
+        k: json.dumps(v) if isinstance(v, (dict, list)) else v
+        for k, v in {**{f"cold_{k}": v for k, v in rec["cold"].items()
+                        if not k.endswith("_ms")},
+                     **{k: v for k, v in w.items()
+                        if k != "first_ms"}}.items()})
+    say("warm_start", leg=label, ready_s_cold=rec["cold"]["ready_s"],
+        ready_s_warm=w["ready_s"], replay_s=w["replay_s"],
+        first_p50_ms_cold=rec["cold"]["first_p50_ms"],
+        second_p50_ms_cold=rec["cold"]["second_p50_ms"],
+        first_p50_ms_warm=w["first_p50_ms"])
+    if w["phases"][0] != "WARMING" or w["phases"][-1] != "READY":
+        raise AssertionError(f"warm_start {label}: /status went "
+                             f"{w['phases']}, not WARMING then READY")
+    if rec["cold"]["phases"] != ["READY"]:
+        raise AssertionError(f"warm_start {label}: the cold restart went "
+                             f"{rec['cold']['phases']}")
+    if w["planned"] != rec["corpus_entries"] or \
+            w["replayed"] != 2 * w["planned"] or w["errors"] or \
+            w["skipped"]:
+        raise AssertionError(f"warm_start {label}: warmup {w}")
+    if w["held_at_ready"] != w["corpus_signatures"] or \
+            not w["corpus_signatures"]:
+        raise AssertionError(f"warm_start {label}: {w['held_at_ready']} "
+                             f"of {w['corpus_signatures']} corpus "
+                             f"signatures held as graphs at READY")
+    if w["captures_after_ready"] or w["compile_cold_plans"] or \
+            w["replays_after_ready"] < len(batches):
+        raise AssertionError(f"warm_start {label}: after READY {w}")
+    if kw.get("device_budget_mb") and torch.device(device).type == "cuda":
+        for name, n in w["launches_replayed"].items():
+            if n <= 0:
+                raise AssertionError(f"warm_start {label}: no replayed "
+                                     f"graph launched {name}")
+    return rec, raw
+
+
+def observe_server(srv) -> dict:
+    """The device-runtime surfaces of a live server: /debug/compiles,
+    /debug/launches, /metrics (device families), /debug/timeseries and
+    the CLI ``top``."""
+    import contextlib
+    import io
+    from pilosa_tpu_torch import cli
+    comp = http(srv.port, "GET", "/debug/compiles")
+    lau = http(srv.port, "GET", "/debug/launches")
+    import urllib.request
+    with urllib.request.urlopen(
+            f"http://localhost:{srv.port}/metrics", timeout=60) as r:
+        text = r.read().decode()
+    fams = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE pilosa_tpu_device_"):
+            _, _, name, typ = line.split()
+            fams[name] = typ
+        elif line.startswith("pilosa_tpu_device_"):
+            float(line.rpartition(" ")[2])      # every sample parses
+    ts = http(srv.port, "GET", "/debug/timeseries")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["top", "-host", f"localhost:{srv.port}",
+                       "--count", "1", "--interval", "0.1"])
+    top = buf.getvalue()
+    by_sig = sorted(({"sig": e["sig"], "captures": e["compiles"],
+                      "capture_s": round(e["totalCompileS"], 6),
+                      "retraces": e["retraces"]}
+                     for e in comp["entries"]),
+                    key=lambda e: -e["capture_s"])
+    rec = {"captures": comp["compiles"], "retraces": comp["retraces"],
+           "capture_s": comp["compileSecondsTotal"],
+           "signatures": comp["executables"], "top_by_capture_s":
+           by_sig[:5], "launches": lau["launches"],
+           "padding_waste_ratio": lau["paddingWasteRatio"],
+           "pr5_dense_pad_pct": PR5_DENSE_PAD_PCT,
+           "kernel_launches": lau["kernelLaunches"],
+           "decode_peak_mb": lau["decodePeakBytes"] / 2**20,
+           "device_families": len(fams), "timeseries_samples":
+           len(ts["samples"]), "top_rc": rc, "top_lines": top.count("\n")}
+    say("warm_start", leg="observe", **{
+        k: json.dumps(v) if isinstance(v, (dict, list)) else v
+        for k, v in rec.items()})
+    for fam in ("pilosa_tpu_device_compiles_total",
+                "pilosa_tpu_device_retraces_total",
+                "pilosa_tpu_device_launches_total",
+                "pilosa_tpu_device_padding_waste_ratio"):
+        if fams.get(fam) != "gauge":
+            raise AssertionError(f"/metrics lacks {fam}: {fams}")
+    if fams.get("pilosa_tpu_device_launch_seconds") != "histogram":
+        raise AssertionError(f"/metrics lacks the launch histogram")
+    if rec["retraces"]:
+        raise AssertionError(f"retraces in this process: {by_sig}")
+    if not rec["captures"] or not rec["timeseries_samples"] or rc != 0 \
+            or "pilosa-tpu top @" not in top or "kernels: backend cuda" \
+            not in top and torch.device(srv.device).type == "cuda":
+        raise AssertionError(f"device-runtime surfaces: {rec}\n{top}")
+    return rec
+
+
+def slo_leg(data_dir: str, hist, tab, device, n_shards: int,
+            raw_off: list) -> dict:
+    """A compressed server with ``timeseries-interval = 1``,
+    ``timeseries-window = 60`` (SLO windows of 3 and 15 samples) and
+    ``slo-latency-ms = 1``: SLO_LOAD_S of the warm mix from one client
+    must fire ``slo-latency-burn``, leave a flight-recorder bundle (and
+    ``POST /debug/bundle`` must return one), and resolve after the load
+    stops; its answers must be byte-identical to ``raw_off``, those of
+    the compressed cold server, whose alert rules were off.  The
+    observability surfaces are read on the live server."""
+    import os
+    from pilosa_tpu_torch import ssb
+    shards = list(range(n_shards))
+    batches = warm_batches()
+    want = [[served_oracle(hist, tab, shards, c) for c in b]
+            for b in batches]
+    bodies = [ssb.ssb_batch(b).encode() for b in batches]
+
+    def post(port, i):
+        raw = post_raw(port, bodies[i])
+        if json.loads(raw)["results"] != want[i]:
+            raise AssertionError(f"slo leg: request {i} != oracle")
+        return raw
+
+    common = dict(device_budget_mb=BUDGET_MB, warmup_top_n=0,
+                  timeseries_interval=1, timeseries_window=60,
+                  slo_latency_ms=1, flight_recorder_mb=64)
+    rec = {}
+    srv = start_server(data_dir, device, **common)
+    try:
+        eng = srv.slo
+        raw_on = [post(srv.port, i) for i in range(len(batches))]
+        t0 = time.perf_counter()
+        n = 0
+        fired_after = None
+        while time.perf_counter() - t0 < SLO_LOAD_S:
+            post(srv.port, n % len(batches))
+            n += 1
+            if fired_after is None and "slo-latency-burn" in eng.active:
+                fired_after = time.perf_counter() - t0
+        rec["requests"] = n + len(batches)
+        rec["fired_after_s"] = fired_after
+        alerts = http(srv.port, "GET", "/debug/alerts")
+        rec["fired"] = "slo-latency-burn" in alerts["active"] or \
+            any(h["id"] == "slo-latency-burn" and h["action"] == "fire"
+                for h in alerts["history"])
+        rec["windows"] = alerts["windows"]
+        rec["on_fire_bundles"] = srv.flightrec.captures
+        bdir = os.path.join(data_dir, "flightrec")
+        rec["bundle_files"] = len([f for f in os.listdir(bdir)
+                                   if f.startswith("bundle-")]) \
+            if os.path.isdir(bdir) else 0
+        out = http(srv.port, "POST", "/debug/bundle",
+                   {"reason": "chip-smoke"})
+        rec["bundle_endpoint"] = os.path.isfile(out["path"])
+        rec["observe"] = observe_server(srv)
+        t1 = time.perf_counter()
+        while "slo-latency-burn" in eng.active and \
+                time.perf_counter() - t1 < 30:
+            time.sleep(0.2)
+        rec["resolved_after_s"] = time.perf_counter() - t1
+        rec["resolved"] = "slo-latency-burn" not in eng.active and \
+            eng.resolved_total >= 1
+    finally:
+        srv.close()
+    rec["byte_identical"] = raw_on == raw_off
+    say("warm_start", leg="slo", **{
+        k: json.dumps(v) if isinstance(v, (dict, list)) else v
+        for k, v in rec.items() if k != "observe"})
+    if not (rec["fired"] and rec["on_fire_bundles"] >= 1
+            and rec["bundle_files"] >= 1 and rec["bundle_endpoint"]
+            and rec["resolved"] and rec["byte_identical"]):
+        raise AssertionError(f"slo leg: {rec}")
+    if (rec["windows"]["fastN"], rec["windows"]["slowN"]) != (3, 15):
+        raise AssertionError(f"slo leg windows {rec['windows']}")
+    return rec
+
+
+def run_warm_start(data_dir: str, hist, tab, device,
+                   n_shards: int) -> dict:
+    """Phase ``warm_start`` over the served data dir (after the ingest):
+    the cold and warm restarts compressed (96 MB) and dense, then the
+    SLO leg with the observability surfaces."""
+    rec = {}
+    # the compressed cold server runs with its alert rules off: its
+    # answers are the SLO leg's reference
+    rec["compressed"], raw_off = warm_leg(
+        data_dir, hist, tab, device, n_shards, "compressed",
+        cold_kw={"alert_rules": "off"}, device_budget_mb=BUDGET_MB)
+    if rec["compressed"]["cold_slo_engine"]:
+        raise AssertionError("alert_rules off left an SLO engine")
+    rec["dense"], _ = warm_leg(data_dir, hist, tab, device, n_shards,
+                               "dense", compressed_resident=False)
+    rec["slo"] = slo_leg(data_dir, hist, tab, device, n_shards, raw_off)
+    return rec
+
+
 def run_served(holder, hist, device, n_shards: int = N_SHARDS,
                profile: bool = False) -> dict:
     """The port's server on ``device`` over the SSB corpus loaded through
@@ -1168,11 +1543,15 @@ def run_served(holder, hist, device, n_shards: int = N_SHARDS,
                 "grouped_after_ingest"][f"qps_{n}"],
                 dense_after_ingest_p50_ms=rec["after_ingest"][f"p50_ms_{n}"],
                 grouped_p50_ms=rec["grouped_after_ingest"][f"p50_ms_{n}"])
+        # phase warm_start runs over this data dir before it goes
+        t0 = time.perf_counter()
+        warm = run_warm_start(data_dir, hist, tab, device, n_shards)
+        warm["seconds"] = time.perf_counter() - t0
     rec["cli"] = cli_server_roundtrip(device)
-    return rec
+    return rec, warm
 
 
-# -- phase 8: BASELINE config 5 under the device budget ----------------------
+# -- phase 9: BASELINE config 5 under the device budget ----------------------
 
 CFG5_BUDGET_MB = 768
 CFG5_B = 32                    # calls per rotation request (bench.py)
@@ -1503,7 +1882,7 @@ def run_cfg5_budget(device, n_shards: int) -> tuple[dict, dict, dict]:
     return rec, dec, fus
 
 
-# -- phase 9: the cluster read plane, four port nodes on the one card -------
+# -- phase 10: the cluster read plane, four port nodes on the one card ------
 
 CLUSTER_NODES = 4
 CLUSTER_B = 64                 # calls per request (bench.py)
@@ -1927,7 +2306,7 @@ def cluster_resize_leg(servers, hosts, root, device, tab, shards,
     return out
 
 
-# -- phase 10: replicas, anti-entropy with repair, on the one card ----------
+# -- phase 11: replicas, anti-entropy with repair, on the one card ----------
 
 REPLICA_NODES = 3
 REPLICA_SHARDS = 64            # config 5's sparse corpus, cut from 954
@@ -2295,8 +2674,9 @@ def main(argv) -> int:
 
     # the served path: HTTP API, load, concurrent clients, ingest, CLI
     t0 = time.perf_counter()
-    served = run_served(holder, hist, device, profile=profile)
-    say("served", seconds=time.perf_counter() - t0)
+    served, warm = run_served(holder, hist, device, profile=profile)
+    say("served", seconds=time.perf_counter() - t0 - warm["seconds"])
+    say("warm_start", seconds=warm["seconds"])
     del cfg4, holder
     gc.collect()
 
@@ -2320,6 +2700,7 @@ def main(argv) -> int:
     src = "pilosa_tpu_torch/csrc/container_kernels.cu"
     lines = []
     served_launches = served["compressed"]["launches_per_request"]
+    warm_launches = warm["compressed"]["warm"]["launches_replayed"]
     # launches: the compressed default-path run (whole-query; a replay
     # counts the launches its graph recorded, of which "replayed"), and
     # the grouped run of the same requests
@@ -2355,6 +2736,10 @@ def main(argv) -> int:
                       "launches_grouped_run": None if grouped is None
                       else grouped[name],
                       "launches_per_served_request": per_served,
+                      # the compressed warm restart's client requests:
+                      # launches inside graphs the warm start captured
+                      "launches_warm_restart": warm_launches.get(name)
+                      if shape == "ssb_topn_filter" else None,
                       "max_abs_err": rec["err"], "ms": rec["ms"],
                       "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
@@ -2368,6 +2753,7 @@ def main(argv) -> int:
                                 "compressed_grouped": c4_comp_g,
                                 "budget_mb": BUDGET_MB}}))
     print(json.dumps({"served": served}))
+    print(json.dumps({"warm_start": warm}))
     print(json.dumps({"cfg5_budget": c5, "cluster": clus,
                       "replicas": repl}))
     print(card)

@@ -11,10 +11,12 @@ fan-out), broadcasts schema changes, fans imports out to shard owners
 and reports the node list, state, membership epoch and placement-overlay
 epoch on ``/status``.
 
-Deviations from the JAX module: ``device`` names the torch device the
-executor runs on (None means ``cuda`` and raises without a card), and
-there is no warm-start coordinator, so ``/status`` reports READY at
-once, as a bare JAX ``API`` does.
+While the Server's warm-start coordinator (warmup/replayer.py) replays
+its corpus, ``/status`` reports ``WARMING`` (``warming: true``, phase
+``warming``) and then ``READY``; a bare ``API`` reports READY at once.
+
+Deviation from the JAX module: ``device`` names the torch device the
+executor runs on (None means ``cuda`` and raises without a card).
 """
 
 from __future__ import annotations
@@ -92,6 +94,10 @@ class API:
         Executor."""
         self.holder = holder
         self.cluster = cluster  # None = single-node
+        # Warm-start coordinator (warmup/replayer.py), injected by the
+        # Server; None (bare API) means no warming phase — /status
+        # reports READY immediately.
+        self.warmup = None
         self.stats = stats if stats is not None else StatsClient()
         self.executor = Executor(
             holder, device=device, stacked=use_mesh, stats=self.stats,
@@ -396,8 +402,13 @@ class API:
 
     def status(self) -> dict:
         self._validate("Status")
+        # warm-start phase: while the replayer is warming, this node
+        # advertises WARMING — peers' probe folds and read routers treat
+        # it as not-READY; clustered nodes also carry it in their local
+        # node state (the Server flips it when the warmup finishes)
+        warming = self.warmup is not None and self.warmup.warming()
         nodes = [{"id": "node0", "uri": "", "isCoordinator": True,
-                  "state": "READY"}]
+                  "state": "WARMING" if warming else "READY"}]
         state = STATE_NORMAL
         epoch = 0
         out = {}
@@ -435,8 +446,10 @@ class API:
             "quarantinedFragments": len(quarantined),
             "degraded": bool(quarantined),
         }
-        out["warming"] = False
-        out["phase"] = "ready"
+        out["warming"] = warming
+        out["phase"] = "warming" if warming else "ready"
+        if self.warmup is not None:
+            out["warmup"] = self.warmup.status()
         return out
 
     def info(self) -> dict:

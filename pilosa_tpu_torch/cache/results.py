@@ -17,16 +17,39 @@ under different generations counts as an INVALIDATION and evicts the
 stale entry eagerly, so churned queries don't pool garbage.
 ``gen_summary`` (the compact form the cluster plane piggybacks) is
 copied for the serving and cluster slices.
+
+Deviation: ``bypassed()`` makes lookups miss on its thread of execution.
+The port's warm start replays each corpus query twice (its second run
+captures the program's CUDA graph), and a cached answer would skip the
+device.
 """
 
 from __future__ import annotations
 
+import contextvars
 from collections import OrderedDict
+from contextlib import contextmanager
 
 import numpy as np
 
 from ..utils import tenant as qtenant
 from ..utils.locks import make_lock
+
+
+# Set while the warm-start replay runs (warmup/replayer.py): a replay
+# must reach the device to capture its program, so lookups miss.
+_BYPASS: contextvars.ContextVar[bool] = \
+    contextvars.ContextVar("result_cache_bypass", default=False)
+
+
+@contextmanager
+def bypassed():
+    """Lookups on this thread of execution miss while inside."""
+    token = _BYPASS.set(True)
+    try:
+        yield
+    finally:
+        _BYPASS.reset(token)
 
 
 # -- generation vectors ------------------------------------------------------
@@ -146,6 +169,8 @@ class ResultCache:
 
     def lookup(self, key):
         """Cached results list (shallow copy) or None."""
+        if _BYPASS.get():
+            return None
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:

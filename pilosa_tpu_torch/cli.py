@@ -1,13 +1,13 @@
-"""CLI: server|import|ingest|export|check|inspect|generate-config|config
-(reference cmd/root.go + ctl/) — the port of the JAX package's
-``cli.py``.
+"""CLI: server|import|ingest|export|check|inspect|top|alerts|bundle|
+generate-config|config (reference cmd/root.go + ctl/) — the port of the
+JAX package's ``cli.py``.
 
 Run as ``python -m pilosa_tpu_torch <command>``.  ``server`` takes
 ``--device`` (default ``cuda``, which raises without a card; ``cpu``
 runs the plain PyTorch paths).  The client commands speak HTTP and are
-the JAX package's.  Not ported: ``analyze`` (the invariant analyzer) and
-the observability clients ``top``, ``alerts`` and ``bundle``, whose
-server routes the port does not have yet.
+the JAX package's, including the observability clients ``top`` (the
+kernel backend line reads ``cuda`` or ``torch``), ``alerts`` and
+``bundle``.  Not ported: ``analyze`` (the invariant analyzer).
 """
 
 from __future__ import annotations
@@ -351,15 +351,227 @@ def cmd_inspect(args) -> int:
     return 0
 
 
+def _top_cluster(args) -> int:
+    """``top --cluster``: poll /debug/cluster and render the fleet —
+    per-node qps/p99/HBM/hedges with staleness flags plus the tail of
+    the merged event timeline (docs/observability.md "Cluster
+    plane")."""
+    import time as _time
+
+    base = _base_url(args.host)
+    mb = 1 << 20
+    polls = 0
+    try:
+        while True:
+            c = _http("GET", f"{base}/debug/cluster")
+            nodes = c.get("nodes") or {}
+            print(f"-- pilosa-tpu fleet @ {args.host}  "
+                  f"coordinator {c.get('coordinator')}  "
+                  f"epoch {c.get('epoch')}  "
+                  f"overlay {c.get('overlayEpoch')}")
+            print(f"   {'node':<8} {'state':<8} {'qps':>7} {'p99ms':>8} "
+                  f"{'hbmMB':>7} {'evict':>6} {'retrc':>6} "
+                  f"{'hedges':>8} {'waves':>6} {'quar':>5} {'stale':>6}")
+            for nid in sorted(nodes):
+                n = nodes[nid]
+                stale = "-" if not n.get("stale") else (
+                    f"{n['staleS']:.0f}s" if n.get("staleS") is not None
+                    else "?")
+                p99 = n.get("p99Ms")
+                hedges = f"{n.get('hedges', '-')}/{n.get('hedgeWins', '-')}"
+                print(f"   {nid:<8} {n.get('state', '?'):<8} "
+                      f"{n.get('qps', 0):>7.1f} "
+                      f"{p99 if p99 is not None else '-':>8} "
+                      f"{n.get('hbmResidentBytes', 0) // mb:>7} "
+                      f"{n.get('evictions', '-'):>6} "
+                      f"{n.get('retraces', '-'):>6} "
+                      f"{hedges:>8} "
+                      f"{n.get('retryWaves', '-'):>6} "
+                      f"{n.get('quarantinedFragments', '-'):>5} "
+                      f"{stale:>6}")
+            tail = (c.get("timeline") or [])[-args.events:] \
+                if args.events > 0 else []
+            if tail:
+                print("   -- recent events")
+                for e in tail:
+                    extra = " ".join(
+                        f"{k}={v}" for k, v in e.items()
+                        if k not in ("event", "node", "wall", "seq"))
+                    print(f"   {e.get('node', '?'):<8} "
+                          f"{e.get('event')} {extra}")
+            polls += 1
+            if args.count and polls >= args.count:
+                return 0
+            _time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_top(args) -> int:
+    """Live terminal summary of one node: poll /debug/timeseries +
+    /debug/vars and render qps, p99, the HBM split, evictions/s, and
+    compile/retrace counts — the operator loop for a box with no
+    Prometheus attached (docs/observability.md "Device runtime").
+    ``--cluster`` renders the whole fleet from /debug/cluster
+    instead."""
+    import time as _time
+
+    if args.cluster:
+        return _top_cluster(args)
+    base = _base_url(args.host)
+    mb = 1 << 20
+    polls = 0
+    prev_retraces = None
+    try:
+        while True:
+            v = _http("GET", f"{base}/debug/vars")
+            ts = _http("GET", f"{base}/debug/timeseries")
+            samples = ts.get("samples") or []
+            last = samples[-1] if samples else {}
+            dt = ts.get("intervalS") or 1.0
+            qps = last.get("httpQueriesDelta", 0) / dt
+            evs = last.get("evictionsDelta", 0) / dt
+            p99 = (v.get("timings", {}).get("http.query") or {}).get("p99")
+            p99s = f"{p99 * 1e3:.1f}" if p99 is not None else "-"
+            bud = v.get("deviceBudget", {})
+            dev = v.get("device", {})
+            comp = dev.get("compiles", {})
+            lau = dev.get("launches", {})
+            adm = (v.get("admission") or {}).get("public", {})
+            bat = v.get("dispatchBatcher") or {}
+            retr = comp.get("retraces", 0)
+            flag = ""
+            if prev_retraces is not None and retr > prev_retraces:
+                # the PR-7-class red flag, front and center
+                flag = f"  !! +{retr - prev_retraces} RETRACE"
+            prev_retraces = retr
+            print(f"-- pilosa-tpu top @ {args.host}  "
+                  f"up {last.get('uptimeS', '-')}s  "
+                  f"({len(samples)} samples x {dt}s)")
+            print(f"   qps {qps:.1f}  p99 {p99s}ms  "
+                  f"inflight {adm.get('inUse', 0)}  "
+                  f"waiting {adm.get('waiting', 0)}  "
+                  f"batcher queued {bat.get('queued', 0)}")
+            print(f"   hbm {bud.get('residentBytes', 0) // mb}MB resident"
+                  f" ({bud.get('compressedBytes', 0) // mb}MB compressed"
+                  f" / {bud.get('denseBytes', 0) // mb}MB dense"
+                  f" / {bud.get('pinnedBytes', 0) // mb}MB pinned)  "
+                  f"evictions/s {evs:.2f}")
+            # compile-s/interval: the ring's capture-seconds delta —
+            # a warm restart's captures land before READY
+            comp_s = last.get("compileSDelta", 0.0)
+            print(f"   device: compiles {comp.get('compiles', 0)}  "
+                  f"retraces {retr}{flag}  "
+                  f"compile-s/int {comp_s:.2f}  "
+                  f"launches {lau.get('launches', 0)}  "
+                  f"padding {100 * lau.get('paddingWasteRatio', 0):.1f}%  "
+                  f"decode peak {lau.get('decodePeakBytes', 0) // mb}MB")
+            # container-kernel plane: the resolved backend rides the
+            # device.kernel_backend 0/1 gauge (1 = the CUDA kernels)
+            kb = (v.get("gauges") or {}).get("device.kernel_backend")
+            print(f"   kernels: backend "
+                  f"{'-' if kb is None else 'cuda' if kb else 'torch'}  "
+                  f"launches {lau.get('kernelLaunches', 0)}  "
+                  f"tiles {lau.get('kernelTiles', 0)}")
+            active = (v.get("alerts") or {}).get("active") or {}
+            if active:
+                print("   !! ALERTS: " + "  ".join(
+                    f"{aid}[{a.get('severity')}]"
+                    for aid, a in sorted(active.items())))
+            warm = v.get("warmup") or {}
+            if warm.get("phase") == "warming":
+                print(f"   WARMING: {warm.get('replayed', 0)}"
+                      f"/{warm.get('planned', 0)} replayed  "
+                      f"errors {warm.get('errors', 0)}  "
+                      f"budget {warm.get('budgetS', 0)}s")
+            # per-peer routing load (docs/cluster.md "Read routing &
+            # rebalancing"): EWMA RTT, in-flight depth, breaker state
+            routing = (v.get("cluster") or {}).get("routing") or {}
+            for nid, pr in sorted((routing.get("peers") or {}).items()):
+                rtt = pr.get("ewmaRttMs")
+                print(f"   peer {nid}: "
+                      f"rtt {rtt if rtt is not None else '-'}ms  "
+                      f"inflight {pr.get('inFlight', 0)}"
+                      f"+{pr.get('reportedInFlight', 0)}  "
+                      f"queued {pr.get('reportedQueued', 0)}  "
+                      f"dispatches {pr.get('dispatches', 0)}"
+                      f"{'  BREAKER-OPEN' if pr.get('breakerOpen') else ''}"
+                      f"{'  DOWN' if pr.get('state') == 'DOWN' else ''}")
+            polls += 1
+            if args.count and polls >= args.count:
+                return 0
+            _time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_alerts(args) -> int:
+    """Render /debug/alerts: objectives, burn-rate windows, the active
+    alert table, and recent fire/resolve transitions
+    (docs/observability.md "SLOs & alerting")."""
+    base = _base_url(args.host)
+    a = _http("GET", f"{base}/debug/alerts")
+    if not a.get("enabled"):
+        print("alert evaluation disabled (alert-rules = \"off\" "
+              "or the time-series sampler is off)")
+        return 0
+    w = a.get("windows") or {}
+    print(f"-- pilosa-tpu alerts @ {args.host}  "
+          f"target {a.get('target')}  "
+          f"latency-slo {a.get('latencyMs')}ms  "
+          f"burn >{a.get('burnThreshold')}x  "
+          f"windows {w.get('fastS')}s/{w.get('slowS')}s")
+    print(f"   evaluations {a.get('evaluations', 0)}  "
+          f"fired {a.get('firedTotal', 0)}  "
+          f"resolved {a.get('resolvedTotal', 0)}")
+    active = a.get("active") or {}
+    if not active:
+        print("   no active alerts")
+    for aid, al in sorted(active.items()):
+        print(f"   ACTIVE [{al.get('severity')}] {aid}  "
+              f"for {al.get('durationS', 0):.0f}s  "
+              f"{al.get('detail', '')}")
+    hist = (a.get("history") or [])[-args.history:]
+    if hist:
+        import time as _time
+        print("   -- recent transitions")
+        for h in hist:
+            when = _time.strftime("%H:%M:%S",
+                                  _time.localtime(h.get("wall", 0)))
+            extra = h.get("detail", "") \
+                if h.get("action") == "fire" else ""
+            print(f"   {when} {h.get('action'):<7} "
+                  f"[{h.get('severity')}] {h.get('id')}  {extra}")
+    rec = a.get("flightRecorder")
+    if rec:
+        last = rec.get("last") or {}
+        print(f"   flight recorder: {rec.get('captures', 0)} bundles  "
+              f"{rec.get('diskBytes', 0) >> 20}MB"
+              f"/{rec.get('budgetMb', 0)}MB"
+              + (f"  last {last.get('path')}" if last else ""))
+    return 0
+
+
+def cmd_bundle(args) -> int:
+    """POST /debug/bundle: capture an on-demand flight-recorder
+    diagnostic bundle and print where it landed."""
+    base = _base_url(args.host)
+    out = _http("POST", f"{base}/debug/bundle",
+                json.dumps({"reason": args.reason}).encode())
+    last = out.get("last") or {}
+    print(f"bundle written: {out.get('path')} "
+          f"({last.get('bytes', 0) >> 10} KiB)")
+    return 0
+
+
 DEFAULT_CONFIG = """\
 # pilosa-tpu configuration (PyTorch / CUDA port)
 data-dir = "{data_dir}"
 bind = "localhost:10101"
 max-op-n = 10000
 device = "cuda"                # torch device; "cpu" runs the plain paths
-# The keys below of subsystems the port does not have yet (cross-query
-# batching, whole-query programs, warm start, the cluster plane, SLOs,
-# time series, the flight recorder) are accepted and unused.
+# compile-cache-dir and compile-cache-mb are accepted and unused: CUDA
+# graphs do not outlive their process (the warm start replays instead).
 # max-body-mb = 1024
 # compressed residency (docs/memory-budget.md)
 # compressed-resident = true   # sparse fragments stay HBM-resident as
@@ -437,11 +649,11 @@ device = "cuda"                # torch device; "cpu" runs the plain paths
 # flight-recorder-mb = 64  # on-alert diagnostic bundle disk budget
 #                          # under <data-dir>/flightrec, 0 = off
 # warm start (docs/warmup.md)
-# compile-cache-dir = ""   # persistent XLA compile cache; "" =
-#                          # <data-dir>/.compile-cache, "off" disables
-# compile-cache-mb = 256   # cache size bound, LRU-pruned; 0 = unbounded
-# warmup-top-n = 32        # corpus signatures replayed before READY,
-#                          # 0 = no warmup replay
+# compile-cache-dir = ""   # accepted and unused on the port
+# compile-cache-mb = 256   # accepted and unused on the port
+# warmup-top-n = 32        # corpus signatures replayed (twice each, so
+#                          # their CUDA graphs are captured) before
+#                          # READY, 0 = no warmup replay
 # warmup-budget-s = 30     # wall-clock budget for the warmup replay
 
 # elastic serving (docs/cluster.md "Read routing & rebalancing")
@@ -624,6 +836,35 @@ def main(argv=None) -> int:
     sp = sub.add_parser("inspect", help="inspect fragment file stats")
     sp.add_argument("files", nargs="+")
     sp.set_defaults(fn=cmd_inspect)
+
+    sp = sub.add_parser("top", help="live terminal summary of a node")
+    sp.add_argument("-host", default="localhost:10101")
+    sp.add_argument("--interval", type=float, default=2.0,
+                    help="seconds between polls")
+    sp.add_argument("--count", type=int, default=0,
+                    help="polls before exiting (0 = forever)")
+    sp.add_argument("--cluster", action="store_true",
+                    help="render the fleet rollup (/debug/cluster): "
+                         "per-node summaries + merged event timeline")
+    sp.add_argument("--events", type=int, default=8,
+                    help="timeline entries shown per --cluster poll")
+    sp.set_defaults(fn=cmd_top)
+
+    sp = sub.add_parser("alerts",
+                        help="show the SLO engine's alert state "
+                             "(/debug/alerts)")
+    sp.add_argument("-host", default="localhost:10101")
+    sp.add_argument("--history", type=int, default=16,
+                    help="recent fire/resolve transitions shown")
+    sp.set_defaults(fn=cmd_alerts)
+
+    sp = sub.add_parser("bundle",
+                        help="capture an on-demand flight-recorder "
+                             "diagnostic bundle (POST /debug/bundle)")
+    sp.add_argument("-host", default="localhost:10101")
+    sp.add_argument("--reason", default="manual",
+                    help="reason tag embedded in the bundle filename")
+    sp.set_defaults(fn=cmd_bundle)
 
     sp = sub.add_parser("generate-config", help="print default config")
     sp.set_defaults(fn=cmd_generate_config)

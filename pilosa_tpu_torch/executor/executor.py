@@ -55,8 +55,10 @@ Deviations from the JAX module:
   deadline (installed as current, checked between per-call dispatches
   and before the one device-to-host fetch), the ``stats`` timers and
   counters, the degraded-answer guard of the cache fill, and the
-  tracing span, profile stages and explain notes.  Not carried over:
-  the warm-start corpus recorder.
+  tracing span, profile stages and explain notes, and the warm-start
+  corpus recorder (``warm_recorder``, warmup/corpus.py): fed the
+  whole-query program signature of each launch and every successfully
+  served read-only query text.
 * Device launches are serialised by ``_device_lock``, the dispatch
   batcher's launch lock: one launch's temporaries at a time (eight
   unserialised dense SSB requests exhausted the 80 GB card), while a
@@ -511,6 +513,9 @@ class Executor:
         # The Server injects its Logger so wholequery.fallback events land
         # in the server log; None (bare executors) stays silent.
         self.logger = None
+        # Warm-start corpus recorder (warmup/corpus.py), injected by the
+        # Server; None (bare executors) records nothing.
+        self.warm_recorder = None
         self.wq_requests = 0
         self.wq_fallbacks = 0
         self.wq_last_fallback = ""
@@ -571,6 +576,9 @@ class Executor:
         from ..utils import explain as qexplain
         from ..utils import tenant as qtenant
         stats = self.stats
+        # the warm-start corpus records by query text, the only identity
+        # a restarted process can replay
+        qtext = query if isinstance(query, str) else None
         # Result-cache lookup first (before the parse): the key holds the
         # query text (an AST keys on its repr), the shard set and the
         # index's fragment generation vector, so any mutation misses.
@@ -605,6 +613,9 @@ class Executor:
                             "schemaEpoch": ckey[6],
                             "attrEpoch": ckey[7]}})
                 if out is not None:
+                    # result-cache entries exist only for read-only
+                    # queries (the fill sites gate on it)
+                    self._warm_note(index_name, qtext)
                     return out
         if isinstance(query, str):
             if translate and self.prepared is not None:
@@ -624,6 +635,7 @@ class Executor:
                         # quarantined-degraded answer stays uncached
                         cache.fill(qkey, ckey, out,
                                    tenant=qtenant.current_or_none())
+                    self._warm_note(index_name, qtext)
                     return out
                 stats.count("query.prepared.miss")
                 if out is not None:
@@ -656,7 +668,16 @@ class Executor:
             if query_is_readonly(query):
                 cache.fill(qkey, ckey, results,
                            tenant=qtenant.current_or_none())
+        if not any(c.name in WRITE_CALLS for c in query.calls):
+            self._warm_note(index_name, qtext)
         return results
+
+    def _warm_note(self, index_name: str, qtext):
+        """Feed one successfully served read-only string query to the
+        warm-start corpus recorder (no-op on bare executors)."""
+        rec = self.warm_recorder
+        if rec is not None and qtext is not None:
+            rec.note(index_name, qtext)
 
     def _dispatch_fetch(self, index_name: str, query, shards,
                         check_current, qprof) -> list[Any]:
@@ -854,6 +875,8 @@ class Executor:
             raise WholeQueryUnsupported("batch-chunks", f"B={B}")
 
     def _wq_note_plan(self, out, nodes, **tags):
+        if self.warm_recorder is not None:
+            self.warm_recorder.note_sig(out.sig)
         from ..utils import explain as qexplain
         qexplain.note("plan", {
             "mode": "wholequery", "program": out.sig,

@@ -430,8 +430,25 @@ def upload_decode(p: Packed, rows: int, target,
     mirror — Fragment.device()'s compressed upload path.  The transfer
     moves compressed bytes; the sparse->dense expansion happens on the
     device, through the decode kernel on a CUDA device (ops/kernels.py)
-    and its plain version on the CPU."""
+    and its plain version on the CPU.  A decode that launched the
+    kernel records one launch-ledger entry, as the JAX module records
+    its Pallas decodes (utils/devobs.py); it captures nothing, so it
+    notes no compile."""
+    import time
+
+    from ..utils import devobs
     from . import kernels
 
     stack = stack_packed([p], tiles_of(rows, words), target)
-    return kernels.decode_block(*stack, rows=rows, words=words)[0]
+    t0 = time.perf_counter()
+    with kernels.tallying_launches() as tally:
+        out = kernels.decode_block(*stack, rows=rows, words=words)[0]
+    launched = sum(tally.values())
+    if launched:
+        devobs.LEDGER.record(
+            sig=f"decode:{rows}x{words}:cuda", kind="decode", shards=1,
+            shards_padded=1, batch_rows=rows, batch_rows_padded=rows,
+            queue_s=0.0, dispatch_s=time.perf_counter() - t0,
+            decode_bytes=0, compiled=False,
+            kernel_launches=launched, kernel_tiles=stack.slots.numel())
+    return out

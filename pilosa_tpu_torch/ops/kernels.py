@@ -105,6 +105,22 @@ class recording_launches:
         _capture.rec = self.prev
 
 
+class tallying_launches:
+    """Context manager: the wrappers' launches on this thread inside it
+    are also added to the dict it returns (kernel -> launches); they
+    still count in LAUNCHES.  The whole-query runner tallies an eager
+    run's launches for the launch ledger (utils/devobs.py)."""
+
+    def __enter__(self) -> dict:
+        self.tally = {k: 0 for k in LAUNCHES}
+        self.prev = getattr(_capture, "tally", None)
+        _capture.tally = self.tally
+        return self.tally
+
+    def __exit__(self, *exc):
+        _capture.tally = self.prev
+
+
 def count_replay(rec: dict):
     """Count one replay of a graph whose capture recorded ``rec``."""
     with _launches_lock:
@@ -232,6 +248,9 @@ def _launch(name: str, st: containers.PackedStack, *args):
         return
     with _launches_lock:
         LAUNCHES[name] += 1
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[name] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -40,10 +40,16 @@ so does a fused whole-query pack whose program raised
 the ``mesh.slice`` failpoint once, matching the per-slice gate of the
 direct path.
 
+Every launch sets the launch-ledger context (``devobs.set_launch_ctx``:
+the queued wait, the tickets and the fused rows) where the JAX module
+does; the whole-query runner reads it into its ledger entry
+(utils/devobs.py).
+
 Deviations from the JAX module: no pow2 padding of a fused reducer
 batch (the eager reducers reuse no executable; whole-query programs pad
-inside the runner), no multi-process composition (one device), and no
-launch ledger or compile registry hook (utils/devobs.py is not ported).
+inside the runner) and no multi-process composition (one device).  The
+ledger records whole-query runs only: the grouped path's eager reducers
+launch no program of their own.
 A matrix ticket of a fused launch refused for its slices runs slice by
 slice; the JAX module's direct path runs its batched reducer over every
 shard at once, staging the over-budget working set whole.
@@ -61,6 +67,7 @@ import numpy as np
 
 from ..core import SHARD_WORDS
 from ..executor.plan import parametrize, plan_inputs
+from ..utils import devobs
 from ..utils import profile as qprof
 from ..utils.deadline import DeadlineExceeded, activate, current
 from ..utils.faults import FAULTS
@@ -505,15 +512,21 @@ class DispatchBatcher:
                 # deadline checks behave exactly as an un-batched call
                 # would; trace + profile context re-attach so events and
                 # spans parent under the query
-                with activate(t.ctx), GLOBAL_TRACER.attach(t.trace), \
-                        qprof.activate(t.prof), self.launch_lock:
-                    t0 = time.perf_counter()
-                    result = self._direct(t, sched)
-                    if t.prof is not None:
-                        t.prof.event("batcher.launch",
-                                     time.perf_counter() - t0,
-                                     node=t.prof_node, kind=t.kind,
-                                     fused=False)
+                ltok = devobs.set_launch_ctx(
+                    queue_s=max(time.monotonic() - t.enq, 0.0),
+                    tickets=1, rows=t.params.shape[0])
+                try:
+                    with activate(t.ctx), GLOBAL_TRACER.attach(t.trace), \
+                            qprof.activate(t.prof), self.launch_lock:
+                        t0 = time.perf_counter()
+                        result = self._direct(t, sched)
+                        if t.prof is not None:
+                            t.prof.event("batcher.launch",
+                                         time.perf_counter() - t0,
+                                         node=t.prof_node, kind=t.kind,
+                                         fused=False)
+                finally:
+                    devobs.reset_launch_ctx(ltok)
             except BaseException as e:
                 t.future.set_exception(
                     e if isinstance(e, Exception)
@@ -607,9 +620,16 @@ class DispatchBatcher:
                 node_mats.append(np.concatenate(mats_n)
                                  if len(mats_n) > 1 else mats_n[0])
             B = sum(m.shape[0] for m in node_mats)
-            with self.launch_lock:
-                out = runner.run(program, node_mats, p0["holder"],
-                                 p0["index"], p0["shards"])
+            queue_s = max(time.monotonic()
+                          - min(t.enq for t in tickets), 0.0)
+            ltok = devobs.set_launch_ctx(queue_s=queue_s,
+                                         tickets=len(tickets), rows=B)
+            try:
+                with self.launch_lock:
+                    out = runner.run(program, node_mats, p0["holder"],
+                                     p0["index"], p0["shards"])
+            finally:
+                devobs.reset_launch_ctx(ltok)
             self._note_fused(tickets, time.perf_counter() - t_launch0,
                              batch_rows=B)
             for ti, t in enumerate(tickets):
@@ -667,23 +687,30 @@ class DispatchBatcher:
             mats = [t.params for t in tickets]
             mat = np.concatenate(mats) if len(mats) > 1 else mats[0]
             B = mat.shape[0]
-            with self.launch_lock:
-                if kind == "count":
-                    parts = st.count_batch_async(
-                        p0["slotted"], mat, p0["holder"], p0["index"],
-                        p0["shards"])
-                elif kind == "row_counts":
-                    parts = st.row_counts_batch_async(
-                        p0["field"], p0["view"], p0["slotted"], mat,
-                        p0["holder"], p0["index"], p0["shards"])
-                elif kind == "bsi_sum":
-                    parts = st.bsi_sum_batch_async(
-                        p0["field"], p0["view"], p0["slotted"], mat,
-                        p0["holder"], p0["index"], p0["shards"])
-                else:  # segments
-                    by_shard = st.segments_batch(
-                        p0["slotted"], mat, p0["holder"], p0["index"],
-                        p0["shards"])
+            queue_s = max(time.monotonic()
+                          - min(t.enq for t in tickets), 0.0)
+            ltok = devobs.set_launch_ctx(queue_s=queue_s,
+                                         tickets=len(tickets), rows=B)
+            try:
+                with self.launch_lock:
+                    if kind == "count":
+                        parts = st.count_batch_async(
+                            p0["slotted"], mat, p0["holder"], p0["index"],
+                            p0["shards"])
+                    elif kind == "row_counts":
+                        parts = st.row_counts_batch_async(
+                            p0["field"], p0["view"], p0["slotted"], mat,
+                            p0["holder"], p0["index"], p0["shards"])
+                    elif kind == "bsi_sum":
+                        parts = st.bsi_sum_batch_async(
+                            p0["field"], p0["view"], p0["slotted"], mat,
+                            p0["holder"], p0["index"], p0["shards"])
+                    else:  # segments
+                        by_shard = st.segments_batch(
+                            p0["slotted"], mat, p0["holder"], p0["index"],
+                            p0["shards"])
+            finally:
+                devobs.reset_launch_ctx(ltok)
             # attribute the launch BEFORE resolving any future: once a
             # future resolves, its owner thread may serialize the profile
             self._note_fused(tickets, time.perf_counter() - t_launch0,

@@ -28,13 +28,14 @@ by (node, seq) — the fleet answer to "what state transitions happened
 around that spike", with per-node attribution intact.
 
 Port copy of the JAX package's ``parallel/rollup.py``
-(``summarize_vars`` and ``FleetRollup``).  Deviation: the port has no
-device-runtime observability or SLO engine yet, so its ``/debug/vars``
-carries no ``device`` compile registry / launch ledger and no
-``alerts`` table.  The summary fields read from them -- ``compiles``,
-``retraces``, ``launches``, ``paddingWasteRatio`` and the alert fields
-(``activeAlerts``, ``alertsFired``, ``alertIds``) -- therefore read 0
-(or empty) on a port node; nothing stands in for them.
+(``summarize_vars`` and ``FleetRollup``).  A port node's ``/debug/vars``
+carries the JAX package's ``device`` and ``alerts`` sections, so the
+summary fields ``compiles``, ``retraces``, ``launches`` and
+``paddingWasteRatio`` read its capture registry and launch ledger
+(utils/devobs.py; captures stand where compiles stand) and
+``activeAlerts``, ``alertsFired`` and ``alertIds`` its SLO engine.  The
+registry and ledger are process-wide, so nodes that share one process
+report the same device counters.
 """
 
 from __future__ import annotations

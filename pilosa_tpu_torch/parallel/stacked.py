@@ -75,7 +75,9 @@ Deviations from the JAX module, by design:
   queued kernels that read it: no event fence or ``record_stream`` is
   needed.  The price is that the host-to-device copy does not overlap
   device compute; the host densify and the pageable-memory transfer
-  overlap the consumer's host work.
+  overlap the consumer's host work.  Each yielded slice sets the
+  launch ledger's slice position (``devobs.set_slice``), as the JAX
+  module does.
 * The whole-query program's cache (``_graphs``, the JAX module's
   executable cache keyed with ``_exec_seq``) holds captured CUDA graphs.
   A graph bakes in the addresses of the stacked tensors it read, so each
@@ -105,6 +107,7 @@ from ..core import SHARD_WORDS
 from ..executor.plan import eval_plan, parametrize, plan_inputs
 from ..ops import bitset, bsi, containers, kernels
 from ..storage.membudget import DEFAULT_BUDGET
+from ..utils import devobs
 from ..utils import profile as qprof
 from ..utils.deadline import check_current
 from ..utils.faults import FAULTS
@@ -993,16 +996,21 @@ class _ShardSchedule:
         prof = qprof.current()
         budget = self.stacked._budget
         if len(self.slices) <= 1:
-            for sl in self.slices:
-                FAULTS.hit("mesh.slice", key=self.index)
-                check_current("mesh shard slice")
-                if prof is None:
-                    yield sl
-                else:
-                    t0, up0, ev0 = (time.perf_counter(),
-                                    budget.upload_bytes, budget.evictions)
-                    yield sl
-                    self._slice_event(prof, 0, sl, t0, up0, ev0)
+            try:
+                for sl in self.slices:
+                    FAULTS.hit("mesh.slice", key=self.index)
+                    check_current("mesh shard slice")
+                    devobs.set_slice(0, 1)
+                    if prof is None:
+                        yield sl
+                    else:
+                        t0, up0, ev0 = (time.perf_counter(),
+                                        budget.upload_bytes,
+                                        budget.evictions)
+                        yield sl
+                        self._slice_event(prof, 0, sl, t0, up0, ev0)
+            finally:
+                devobs.set_slice(None)
             return
         pool = self.stacked._uploader_pool()
         fut = None   # in-flight prefetch of the slice about to be served
@@ -1036,6 +1044,9 @@ class _ShardSchedule:
                         GLOBAL_TRACER.task(self._stage,
                                            name="mesh.prefetch_slice"),
                         self.slices[i + 1])
+                # launch-ledger slice position: launches between this
+                # yield and the next run against slice i
+                devobs.set_slice(i, len(self.slices))
                 yield sl
                 # the consumer enqueued its launches against this slice
                 # between the yield and here: let the budget rotate it
@@ -1045,6 +1056,7 @@ class _ShardSchedule:
                     budget.unpin(k)
                 pins = []
         finally:
+            devobs.set_slice(None)
             for k in pins:
                 budget.unpin(k)
             if fut is not None:

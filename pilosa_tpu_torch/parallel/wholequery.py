@@ -59,15 +59,25 @@ Deviations from the JAX module:
   captured into a CUDA graph.
 * ``program_keys`` is sorted, so programs over one key set share one
   staged stack whatever their call order.
-* No launch ledger or compile registry (utils/devobs.py is not
-  ported): ``sig`` is a digest of the program key, ``compiled`` says
-  whether this launch captured its graph, and the runner counts
-  captures, replays and capture time itself (``snapshot``).
+* Captures stand where compiles stand (utils/devobs.py).  ``sig`` is
+  ``devobs.sig_of`` of the program key without the executor's
+  ``_exec_seq`` (stable across restarts, so the warm-start corpus can
+  name it); ``compiled`` says whether this launch captured its graph.
+  ``_capture`` notes each capture in the process-wide registry
+  (``devobs.COMPILES``) with its seconds and the fingerprint of the
+  padded params and staged inputs, flagging a capture that replaces a
+  graph the LRU evicted over the same inputs (the retrace rule is in
+  the devobs docstring).  Every run — eager or replay — records one
+  launch-ledger entry (``devobs.LEDGER``): the real rows against the
+  ``pad_pow2_rows`` rows, the kernel launches it made, the dense bytes
+  its decodes write, and the queue wait and ticket count the batcher
+  set (``devobs.set_launch_ctx``).  ``dispatch_s`` is host time around
+  the eager body or the replay, with no device synchronisation.  The
+  runner also keeps its own counters (``snapshot``).
 """
 
 from __future__ import annotations
 
-import hashlib
 import time
 from collections import OrderedDict
 
@@ -78,6 +88,7 @@ from ..core import SHARD_WORDS
 from ..executor.plan import _gather_rows_dev, eval_plan, params_to, \
     plan_inputs
 from ..ops import bitset, bsi, containers, kernels
+from ..utils import devobs
 from ..utils import profile as qprof
 from ..utils.deadline import check_current
 from .stacked import _Frags, _flatten_present, _sig_rows, _unpack_frags
@@ -280,15 +291,17 @@ class _GraphEntry:
     the kernel launches one replay makes."""
 
     __slots__ = ("graph", "params", "outputs", "inputs", "ckey",
-                 "launches")
+                 "launches", "sig")
 
-    def __init__(self, graph, params, outputs, inputs, ckey, launches):
+    def __init__(self, graph, params, outputs, inputs, ckey, launches,
+                 sig):
         self.graph = graph
         self.params = params
         self.outputs = outputs
         self.inputs = inputs
         self.ckey = ckey
         self.launches = launches
+        self.sig = sig
 
 
 def _mats_to(pad_mats, device):
@@ -312,6 +325,8 @@ class WholeQueryRunner:
         self._side = None
         self._anchor = None
         self._seen: OrderedDict = OrderedDict()
+        # graph keys the LRU evicted (the retrace rule, utils/devobs.py)
+        self._evicted: OrderedDict = OrderedDict()
         # counters (chip_smoke.py and /debug/vars read ``snapshot``)
         self.runs = 0
         self.eager_runs = 0
@@ -416,7 +431,7 @@ class WholeQueryRunner:
                tuple(tuple(a.shape for a in m) if isinstance(m, tuple)
                      else m.shape for m in pad_mats),
                st._exec_seq)
-        sig = hashlib.sha1(repr(key[:-1]).encode()).hexdigest()[:16]
+        sig = devobs.sig_of(key[:-1])
         body = self._body(program, live, sched)
         flats = [g[2] for g in live]
         self.runs += 1
@@ -427,25 +442,76 @@ class WholeQueryRunner:
             if node.kind in ("row_counts", "group_counts")
             for gi in sched[ni] if live[gi][1][node.primary][0] == "z")
         t0 = time.perf_counter()
-        if st.device.type != "cuda":
-            outs = body(_mats_to(exact_mats, st.device), flats)
-            compiled = False
+        if not self._use_graphs():
+            with kernels.tallying_launches() as tally:
+                outs = body(_mats_to(exact_mats, st.device), flats)
+            compiled, launches, padded = False, sum(tally.values()), False
         else:
-            outs, compiled = self._run_graph(
+            outs, compiled, launches, padded = self._run_graph(
                 key + (tuple(id(t) for f in flats for t in f),),
                 (index, tuple(keys), tuple(shards)), body, exact_mats,
-                pad_mats, flats)
-        prof = qprof.current()
-        if prof is not None:
-            prof.event("device.launch", time.perf_counter() - t0,
-                       kind="wholequery", sig=sig,
-                       shards=sum(len(g[0]) for g in live),
-                       batchRows=sum(actual_b),
-                       batchRowsPadded=sum(_mat_rows(m) for m in pad_mats),
-                       compiled=compiled)
+                pad_mats, flats, sig, lambda: self._fingerprint(
+                    pad_mats, live))
+        dt = time.perf_counter() - t0
+        self._record(program, sig, live, actual_b,
+                     pad_mats if padded else exact_mats, dt, compiled,
+                     launches)
         parts = [[outs[j] for j in idxs]
                  for idxs in self._out_index(program, sched)]
         return WholeOut(parts, meta, sig, compiled)
+
+    @staticmethod
+    def _fingerprint(pad_mats, live) -> str:
+        """Shape fingerprint of a capture: the padded params, then each
+        group's staged inputs — a packed stack by its slot map only
+        (its table and payload lengths are data; utils/devobs.py)."""
+        args = [a for m in pad_mats
+                for a in (m if isinstance(m, tuple) else (m,))]
+        for g in live:
+            i = 0
+            for _k, n, _s in g[3]:
+                args.append(g[2][i])
+                i += n
+        return devobs.fingerprint(args)
+
+    def _record(self, program, sig, live, actual_b, run_mats, dt,
+                compiled, launches):
+        """One launch-ledger entry and one profile event for this run:
+        ``run_mats`` are the params it ran over (padded for a replay)."""
+        st = self.stacked
+        fused = program_fused_only(program, st)
+        decode_bytes = tiles = 0
+        for shard_list, _sig_map, flat, layout, _pk, _ps in live:
+            i = 0
+            for k, n, s in layout:
+                if n > 1:
+                    tiles += flat[i].numel()   # the slot map [S, tiles]
+                    if k not in fused:
+                        decode_bytes += (len(shard_list) * _sig_rows(s)
+                                         * SHARD_WORDS * 4)
+                i += n
+        shards = sum(len(g[0]) for g in live)
+        rows_padded = sum(_mat_rows(m) for m in run_mats)
+        ctx = devobs.launch_ctx() or {}
+        rows = ctx.get("rows")
+        if rows is None:
+            rows = sum(actual_b)
+        devobs.LEDGER.record(
+            sig=sig, kind="wholequery", shards=shards,
+            shards_padded=shards, batch_rows=rows,
+            batch_rows_padded=rows_padded,
+            queue_s=ctx.get("queue_s", 0.0),
+            tickets=ctx.get("tickets", 1), dispatch_s=dt,
+            compiled=compiled, decode_bytes=decode_bytes,
+            slice_pos=devobs.current_slice(),
+            kernel_launches=launches,
+            kernel_tiles=tiles if launches else 0)
+        prof = qprof.current()
+        if prof is not None:
+            prof.event("device.launch", dt, kind="wholequery", sig=sig,
+                       shards=shards, shardsPadded=shards,
+                       batchRows=rows, batchRowsPadded=rows_padded,
+                       decodeBytes=decode_bytes, compiled=compiled)
 
     def _node_meta(self, program, actual_b, live, sched, empty_shards):
         meta = []
@@ -554,11 +620,17 @@ class WholeQueryRunner:
 
     # -- CUDA graphs -------------------------------------------------------
 
-    def _run_graph(self, gkey, ckey, body, exact_mats, pad_mats, flats):
+    def _use_graphs(self) -> bool:
+        """CUDA graphs on a CUDA device; the body runs eagerly elsewhere."""
+        return self.stacked.device.type == "cuda"
+
+    def _run_graph(self, gkey, ckey, body, exact_mats, pad_mats, flats,
+                   sig, fp_fn):
         """Run the program for ``gkey``: eagerly on its first sighting
         (over the request's own rows, ``exact_mats``), else replay its
         graph over the padded ``pad_mats``, captured now if this is its
-        second.  Returns (outputs outside graph memory, captured now)."""
+        second.  Returns (outputs outside graph memory, captured now,
+        kernel launches, whether the run was padded)."""
         st = self.stacked
         with st._sc_lock:
             entry = st._graphs.get(gkey)
@@ -569,22 +641,33 @@ class WholeQueryRunner:
                 self._seen[gkey] = None
                 while len(self._seen) > self.SEEN_MAX:
                     self._seen.popitem(last=False)
+            evicted = entry is None and \
+                self._evicted.pop(gkey, False) is None
         if first:
             self.eager_runs += 1
-            return body(_mats_to(exact_mats, st.device), flats), False
+            with kernels.tallying_launches() as tally:
+                outs = body(_mats_to(exact_mats, st.device), flats)
+            return outs, False, sum(tally.values()), False
         captured = entry is None
         if captured:
-            entry = self._capture(gkey, ckey, body, pad_mats, flats)
+            entry = self._capture(gkey, ckey, body, pad_mats, flats, sig,
+                                  fp_fn, evicted)
+        self._load_params(entry, pad_mats)
+        entry.graph.replay()
+        kernels.count_replay(entry.launches)
+        self.replays += 1
+        return ([o.clone() for o in entry.outputs], captured,
+                sum(entry.launches.values()), True)
+
+    @staticmethod
+    def _load_params(entry, pad_mats):
+        """Copy this launch's padded params into the graph's buffers."""
         for buf, m in zip(entry.params, pad_mats):
             for b, a in (zip(buf, m) if isinstance(m, tuple)
                          else ((buf, m),)):
                 if a.size:
                     b.copy_(torch.from_numpy(a).pin_memory(),
                             non_blocking=True)
-        entry.graph.replay()
-        kernels.count_replay(entry.launches)
-        self.replays += 1
-        return [o.clone() for o in entry.outputs], captured
 
     def _graph(self, fn):
         """Capture ``fn()`` into a CUDA graph in the shared pool on the
@@ -612,33 +695,54 @@ class WholeQueryRunner:
         cur.wait_stream(self._side)
         return graph, outputs, rec
 
-    def _capture(self, gkey, ckey, body, pad_mats, flats):
-        """Capture ``body`` into a CUDA graph over static params buffers
-        and cache the entry, which it returns.  Raises if the capture
-        fails."""
+    def _open_pool(self):
+        """The graphs' shared memory pool and side stream, made at the
+        first capture."""
+        if self._pool is not None:
+            return
+        dev = self.stacked.device
+        self._pool = torch.cuda.MemPool()
+        self._side = torch.cuda.Stream(dev)
+        # The allocators count the graphs over a pool and free it when
+        # the count drops to 0, which happens whenever every program is
+        # dropped with its stacks (an ingest overlay); capturing into it
+        # again then fails.  A one-op graph held for the runner's
+        # lifetime keeps the pool open.
+        self._anchor = self._graph(
+            lambda: torch.zeros(1, dtype=torch.int32, device=dev))
+
+    def _capture(self, gkey, ckey, body, pad_mats, flats, sig, fp_fn,
+                 evicted):
+        """Capture ``body`` into a CUDA graph over static params buffers,
+        note it in the capture registry and cache the entry, which it
+        returns.  Raises if the capture fails."""
         st = self.stacked
-        dev = st.device
-        if self._pool is None:
-            self._pool = torch.cuda.MemPool()
-            self._side = torch.cuda.Stream(dev)
-            # The allocators count the graphs over a pool and free it
-            # when the count drops to 0, which happens whenever every
-            # program is dropped with its stacks (an ingest overlay);
-            # capturing into it again then fails.  A one-op graph held
-            # for the runner's lifetime keeps the pool open.
-            self._anchor = self._graph(
-                lambda: torch.zeros(1, dtype=torch.int32, device=dev))
-        params = _mats_to(pad_mats, dev)
+        self._open_pool()
+        # A capture cannot release the caching allocator's free cached
+        # blocks (the allocator frees them on an out-of-memory only when
+        # no capture is underway), so blocks that earlier work left
+        # cached can leave the capture no room: release them first.
+        # A capture happens once per program.
+        torch.cuda.empty_cache()
+        params = _mats_to(pad_mats, st.device)
         t0 = time.perf_counter()
         graph, outputs, rec = self._graph(lambda: body(params, flats))
-        self.capture_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.capture_s += dt
         self.captures += 1
+        devobs.COMPILES.note_call(sig, "wholequery", dt, fp_fn(),
+                                  evicted=evicted)
         entry = _GraphEntry(graph, params, outputs,
-                            [t for f in flats for t in f], ckey, rec)
+                            [t for f in flats for t in f], ckey, rec, sig)
         with st._sc_lock:
             st._graphs[gkey] = entry
             while len(st._graphs) > st.graphs_max:
-                st._graphs.popitem(last=False)
+                old, _ = st._graphs.popitem(last=False)
+                # a later capture of the same key (same staged inputs)
+                # is a retrace: the LRU, not a re-stage, dropped it
+                self._evicted[old] = None
+                while len(self._evicted) > self.SEEN_MAX:
+                    self._evicted.popitem(last=False)
         return entry
 
     def pool_reserved_bytes(self) -> int | None:
@@ -647,6 +751,11 @@ class WholeQueryRunner:
         if self._pool is None:
             return None
         return sum(s["total_size"] for s in self._pool.snapshot())
+
+    def held_sigs(self) -> set:
+        """Signatures of the programs held as captured graphs now."""
+        with self.stacked._sc_lock:
+            return {e.sig for e in self.stacked._graphs.values()}
 
     def snapshot(self) -> dict:
         with self.stacked._sc_lock:

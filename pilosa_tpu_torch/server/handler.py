@@ -11,24 +11,27 @@ Port of the JAX package's ``server/handler.py``.  The router, the
 request wrapper (body limits, admission gates, deadline and trace
 headers, streaming routes) and the public routes are copied;
 ``/debug/vars`` and ``/metrics`` report the parts the port has (stats,
-budgets, the kernel wrappers' launch counts, the stack cache with its
-overlay and re-stage counters, the ingest committer, the cluster's
-breakers, routing state, placement overlay, balancer and anti-entropy
-health, and on the coordinator's ``/metrics`` the fleet rollup's
-``pilosa_tpu_cluster_*`` family).  ``/debug/cluster`` answers the fleet
-rollup (parallel/rollup.py), or this node's own summary without a
-cluster.  With a cluster, the server registers the cluster plane's
-node-to-node routes (``/internal/query``, ``/internal/cluster/message``,
+budgets, the capture registry and launch ledger with the kernel
+wrappers' launch counts, the stack cache with its overlay and re-stage
+counters, the ingest committer, the warm start, the time-series ring,
+the SLO engine and flight recorder, the cluster's breakers, routing
+state, placement overlay, balancer and anti-entropy health, and on the
+coordinator's ``/metrics`` the fleet rollup's ``pilosa_tpu_cluster_*``
+family).  The device-runtime routes are the JAX package's:
+``/debug/compiles`` (captures stand where compiles stand,
+utils/devobs.py), ``/debug/launches``, ``/debug/timeseries``,
+``/debug/alerts``, ``POST /debug/bundle`` and the dashboards
+``/debug/dashboard`` and ``/debug/dashboard/cluster``.
+``/debug/cluster`` answers the fleet rollup (parallel/rollup.py), or
+this node's own summary without a cluster.  With a cluster, the server
+registers the cluster plane's node-to-node routes
+(``/internal/query``, ``/internal/cluster/message``,
 ``/internal/import*``, ``/internal/translate*``,
 ``/internal/index/{index}/shards``, ``/internal/fragment/*``,
 ``/internal/attr/diff``) and the resize routes
 (``/cluster/resize/add-node``, ``/cluster/resize/remove-node``), and
 ``/ingest`` forwards each record to its shard owners through
-``/internal/ingest``.  Not registered (404) until the port has their
-subsystems: device-runtime observability (``/debug/compiles``,
-``/debug/launches``, ``/debug/timeseries``), SLOs and the flight
-recorder (``/debug/alerts``, ``/debug/bundle``) and the dashboards
-(``/debug/dashboard*``).
+``/internal/ingest``.
 """
 
 from __future__ import annotations
@@ -252,17 +255,47 @@ def build_debug_vars(api: API, server=None) -> dict:
         server.update_storage_gauges(container_stats=container_stats)
         if getattr(server, "cluster", None) is not None:
             out["storage"]["antiEntropy"] = server.cluster.ae_snapshot()
-    # device: the container-kernel wrappers' launch counts (the port has
-    # no compile registry or launch ledger; ops/kernels.py counts)
+    # device runtime (docs/observability.md "Device runtime"): the
+    # capture registry and launch-ledger aggregates, plus the kernel
+    # wrappers' launch counts; full detail at /debug/compiles,
+    # /debug/launches, /debug/timeseries
     from ..ops import kernels
+    from ..utils import devobs
     out["device"] = {"device": str(ex.device),
+                     "compiles": devobs.COMPILES.totals(),
+                     "launches": devobs.LEDGER.aggregates(),
                      "kernelLaunches": dict(kernels.LAUNCHES)}
+    if ex.wholequery is not None:
+        out["device"]["graphs"] = ex.wholequery.snapshot()
+    # warm start: phase, replay progress and capture seconds
+    warm = getattr(server, "warmup", None) if server is not None else None
+    if warm is not None:
+        out["warmup"] = warm.status()
     # streaming ingest (docs/ingest.md): group-commit backlog, flush
     # counters, and the delta-overlay journal footprint
     committer = getattr(server, "committer", None) \
         if server is not None else None
     if committer is not None:
         out["ingest"] = committer.snapshot()
+    ts = getattr(server, "timeseries", None) if server is not None \
+        else None
+    if ts is not None:
+        snap_ts = ts.snapshot()
+        out["timeseries"] = {
+            k: snap_ts[k] for k in ("intervalS", "windowS",
+                                    "capacity", "samplesTotal",
+                                    "coveredS")}
+    # SLOs & alerting: the compact active-alert table — folded into
+    # /debug/cluster per node by the fleet rollup; the full lifecycle
+    # view is /debug/alerts
+    slo_eng = getattr(server, "slo", None) if server is not None \
+        else None
+    if slo_eng is not None:
+        out["alerts"] = slo_eng.vars_summary()
+    flightrec = getattr(server, "flightrec", None) if server is not None \
+        else None
+    if flightrec is not None:
+        out["flightRecorder"] = flightrec.snapshot()
     return out
 
 
@@ -614,10 +647,13 @@ def build_router(api: API, server=None) -> Router:
         # default scrape that works today.
         exemplars = req.query.get("exemplars", [""])[0] == "true"
         text = api.stats.prometheus_text(exemplars=exemplars)
-        # the batcher's histogram/summary series don't fit the stats
-        # client's counter/gauge model; it exports its own lines
+        # the batcher's and launch ledger's histogram/summary series
+        # don't fit the stats client's counter/gauge model; they export
+        # their own lines
         if api.executor.batcher is not None:
             text += api.executor.batcher.prometheus_text()
+        from ..utils import devobs
+        text += devobs.LEDGER.prometheus_text()
         # fleet rollup (docs/observability.md "Cluster plane"): the
         # pilosa_tpu_cluster_* family with node labels.  Exported by
         # the COORDINATOR's scrape only — every node exporting it would
@@ -739,6 +775,93 @@ def build_router(api: API, server=None) -> Router:
         return locks.report()
 
     r.add("GET", "/debug/locks", debug_locks)
+
+    # -- device runtime (docs/observability.md "Device runtime") -----------
+
+    def debug_compiles(req, args):
+        """Capture registry: per-signature CUDA graph captures, capture
+        wall time, last shape fingerprint and retraces (the rule is in
+        utils/devobs.py)."""
+        from ..utils import devobs
+        return devobs.COMPILES.snapshot()
+
+    r.add("GET", "/debug/compiles", debug_compiles)
+
+    def debug_launches(req, args):
+        """Launch ledger: the ring of recent device launches (padding,
+        decode bytes, queue-vs-dispatch split, slice position) plus its
+        lifetime aggregates."""
+        from ..utils import devobs
+        return devobs.LEDGER.snapshot()
+
+    r.add("GET", "/debug/launches", debug_launches)
+
+    def debug_timeseries(req, args):
+        """In-process time-series ring (utils/timeseries.py): the last
+        timeseries-window seconds of runtime samples."""
+        ts = getattr(server, "timeseries", None) if server is not None \
+            else None
+        if ts is None:
+            return {"intervalS": 0, "windowS": 0, "capacity": 0,
+                    "samplesTotal": 0, "coveredS": 0, "samples": []}
+        return ts.snapshot()
+
+    r.add("GET", "/debug/timeseries", debug_timeseries)
+
+    # -- SLOs & alerting (docs/observability.md "SLOs & alerting") ---------
+
+    def debug_alerts(req, args):
+        """SLO engine state (utils/slo.py): objectives, burn-rate
+        windows, the active-alert table with durations, recent
+        fire/resolve transitions, and the evaluated rule list — plus
+        the flight recorder's capture accounting."""
+        slo_eng = getattr(server, "slo", None) if server is not None \
+            else None
+        if slo_eng is None:
+            out = {"enabled": False, "active": {}, "history": [],
+                   "rules": [], "evaluations": 0, "firedTotal": 0,
+                   "resolvedTotal": 0}
+        else:
+            out = slo_eng.snapshot()
+        flightrec = getattr(server, "flightrec", None) \
+            if server is not None else None
+        if flightrec is not None:
+            out["flightRecorder"] = flightrec.snapshot()
+        return out
+
+    r.add("GET", "/debug/alerts", debug_alerts)
+
+    def debug_bundle(req, args):
+        """On-demand flight-recorder capture (CLI ``bundle``): snapshots
+        every debug surface into one JSON bundle on disk.  Bypasses the
+        on-fire rate limit — an operator asking twice wants two
+        bundles."""
+        if server is None or getattr(server, "flightrec", None) is None:
+            raise ApiError(
+                "flight recorder disabled (flight-recorder-mb = 0)")
+        reason = req.json().get("reason", "manual")
+        if not isinstance(reason, str):
+            raise ApiError("reason must be a string")
+        path = server.capture_bundle(reason, force=True)
+        if path is None:
+            raise ApiError("bundle capture failed (see server log)")
+        return {"path": path, "last": server.flightrec.last}
+
+    r.add("POST", "/debug/bundle", debug_bundle)
+
+    def debug_dashboard(req, args):
+        from .dashboard import DASHBOARD_HTML
+        return ("text/html; charset=utf-8", DASHBOARD_HTML)
+
+    r.add("GET", "/debug/dashboard", debug_dashboard)
+
+    def debug_dashboard_cluster(req, args):
+        """Fleet page: per-node table + merged timeline rendered from
+        /debug/cluster (docs/observability.md "Cluster plane")."""
+        from .dashboard import CLUSTER_DASHBOARD_HTML
+        return ("text/html; charset=utf-8", CLUSTER_DASHBOARD_HTML)
+
+    r.add("GET", "/debug/dashboard/cluster", debug_dashboard_cluster)
 
     # -- pprof-style profiling (handler.go:280 /debug/pprof) ---------------
 

@@ -13,6 +13,8 @@ import dataclasses
 import os
 import threading
 
+import torch
+
 from ..api import API
 from ..executor.executor import resolve_device
 from ..storage import Holder
@@ -28,9 +30,9 @@ DEFAULT_DATA_DIR = "~/.pilosa" + "_tpu"
 @dataclasses.dataclass
 class Config:
     """(reference server/config.go:36 Config) — the JAX package's keys,
-    defaults, TOML names and env names, plus ``device``.  Keys of
-    subsystems the port does not have yet are accepted and unused (see
-    the ``Server`` docstring); two are refused there instead."""
+    defaults, TOML names and env names, plus ``device``.  The compile
+    cache's two keys are accepted and unused, and a ``container_kernels``
+    other than "auto" is refused (see the ``Server`` docstring)."""
     data_dir: str = DEFAULT_DATA_DIR
     bind: str = "localhost:10101"
     max_op_n: int = 10000
@@ -316,17 +318,15 @@ class Config:
     # axis.
     batch_temp_mb: int = 4096
     # -- warm start (docs/warmup.md) ---------------------------------------
-    # Directory for jax's persistent XLA compilation cache, so a
-    # restarted process reuses executables instead of recompiling.
-    # "" = <data-dir>/.compile-cache; "off" disables the on-disk cache
-    # (the signature corpus + warmup replay still run).
+    # The JAX package's persistent XLA compile cache knobs: accepted and
+    # unused on the port, whose CUDA graphs do not outlive their process
+    # (warmup/__init__.py).
     compile_cache_dir: str = ""
-    # Size bound (MB) for the compile-cache directory, LRU-pruned by
-    # file mtime at startup and clean shutdown.  0 = unbounded.
     compile_cache_mb: int = 256
-    # Corpus signatures the AOT warmup replayer replays at startup (the
-    # top-N by traffic) before this node reports READY.  0 disables the
-    # replay (corpus recording still runs for the next restart).
+    # Corpus signatures the warmup replayer replays at startup (the
+    # top-N by traffic, twice each so that their CUDA graphs are
+    # captured) before this node reports READY.  0 disables the replay
+    # (corpus recording still runs for the next restart).
     warmup_top_n: int = 32
     # Wall-clock budget (seconds) for the warmup replay: entries beyond
     # it are skipped (counted) and the node goes READY anyway — warmup
@@ -586,14 +586,28 @@ class Server:
     quarantine-repair sweep; ``balancer = true`` runs the balancer on
     the coordinator.
 
+    The device runtime, as the JAX Server wires it: the process-wide
+    capture registry logs retraces through this server's logger and the
+    launch ledger takes ``launch_ledger_size`` (utils/devobs.py); with
+    ``timeseries_interval > 0`` a monitor thread samples the time-series
+    ring and runs the SLO engine over it after every accepted sample;
+    ``flight_recorder_mb > 0`` keeps bundles under
+    ``<data-dir>/flightrec``; diagnostics report to
+    ``diagnostics_endpoint`` when one is set (off by default).  The warm
+    start: after the holder opens, the ``WarmupCoordinator`` loads
+    ``<data-dir>/signatures.log`` and, when ``warmup_top_n > 0`` and the
+    corpus holds entries, replays the top N twice each on its own thread
+    (the second run captures each program's CUDA graph) while
+    ``/status`` says WARMING; then READY.  It is closed, with its final
+    corpus flush, before the executor and the holder close.
+
     Refused at construction: a ``container_kernels`` other than "auto".
 
     ``decode_workspace_mb`` sets the shard schedule's decode-workspace
     ceiling (parallel/stacked.py ``DECODE_WORKSPACE_BYTES``).
 
-    Accepted and unused: the device-runtime observability, time-series,
-    SLO, flight-recorder and diagnostics keys; and the warm-start keys —
-    ``/status`` is READY at once, as for a bare JAX ``API``."""
+    Accepted and unused: ``compile_cache_dir`` and ``compile_cache_mb``
+    (CUDA graphs do not outlive their process; warmup/__init__.py)."""
 
     def __init__(self, config: Config | None = None):
         self.config = config or Config()
@@ -744,6 +758,56 @@ class Server:
         if self.config.event_log:
             os.makedirs(data_dir, exist_ok=True)
             EVENTS.open_log(os.path.join(data_dir, "events.log"))
+        # Device-runtime observability: the process-wide capture
+        # registry logs retraces through THIS server's logger (most
+        # recent Server wins), the launch ledger resizes to the
+        # configured ring, and the time-series ring samples the runtime
+        # gauges on its own monitor thread.
+        from ..utils import devobs
+        devobs.COMPILES.logger = self.logger
+        devobs.LEDGER.resize(self.config.launch_ledger_size)
+        from ..utils.timeseries import TimeSeriesRing
+        self.timeseries = None
+        self._ts_prev: dict = {}
+        if self.config.timeseries_interval > 0:
+            self.timeseries = TimeSeriesRing(
+                interval_s=self.config.timeseries_interval,
+                window_s=self.config.timeseries_window)
+        # SLO engine + flight recorder: burn-rate evaluation rides the
+        # time-series monitor thread, and a fire transition captures a
+        # rate-limited diagnostic bundle before the rings rotate.
+        from ..utils.flightrec import FlightRecorder
+        self.flightrec = None
+        if self.config.flight_recorder_mb > 0:
+            self.flightrec = FlightRecorder(
+                os.path.join(data_dir, "flightrec"),
+                budget_mb=self.config.flight_recorder_mb,
+                logger=self.logger, stats=self.stats)
+        from ..utils import tenant as _tenant
+        from ..utils.slo import SLOEngine
+        self.slo = None
+        if self.timeseries is not None:
+            slo = SLOEngine(
+                self.timeseries, self.stats,
+                latency_ms=self.config.slo_latency_ms,
+                target=self.config.slo_target,
+                rules=self.config.alert_rules,
+                logger=self.logger, on_fire=self._on_alert_fire,
+                tenant_registry=_tenant.REGISTRY)
+            if slo.enabled:
+                self.slo = slo
+        # Warm start: the durable signature corpus and the coordinator
+        # that replays it before READY; the executor feeds the recorder
+        # on its success paths.
+        from .. import warmup as _warmup
+        self.warmup = _warmup.WarmupCoordinator(
+            self.api.executor,
+            os.path.join(data_dir, "signatures.log"),
+            top_n=self.config.warmup_top_n,
+            budget_s=self.config.warmup_budget_s,
+            logger=self.logger, stats=self.stats)
+        self.api.warmup = self.warmup
+        self.api.executor.warm_recorder = self.warmup.recorder
         self.httpd = make_http_server(
             self.api, host, port, server=self, tls=tls,
             max_body_bytes=self.config.max_body_mb << 20,
@@ -770,6 +834,10 @@ class Server:
                 self.cluster,
                 local_vars_fn=lambda: build_debug_vars(self.api, self),
                 stats=self.stats)
+        from ..utils.diagnostics import DiagnosticsCollector
+        self.diagnostics = DiagnosticsCollector(
+            self, self.config.diagnostics_endpoint,
+            self.config.diagnostics_interval)
         self._threads: list[threading.Thread] = []
         self._closing = threading.Event()
 
@@ -790,8 +858,19 @@ class Server:
     def open(self):
         """(reference server.go:417 Open)"""
         self.holder.open()
+        # Warm start: load the corpus and decide the phase AFTER the
+        # holder is queryable and BEFORE the listener serves /status — a
+        # probing peer never sees a cold node as READY.  The replay runs
+        # on the coordinator's own thread, concurrent with the rest of
+        # startup.
+        warming = self.warmup.open()
         if self.cluster is not None:
             self.cluster.open(self.api)
+        if warming:
+            if self.cluster is not None:
+                self.cluster.set_local_warming(True)
+            self.warmup.on_ready = self._warmup_ready
+        self.warmup.start()
         t = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         t.start()
         self._threads.append(t)
@@ -811,6 +890,19 @@ class Server:
             t = threading.Thread(target=self._monitor_runtime, daemon=True)
             t.start()
             self._threads.append(t)
+        if self.timeseries is not None:
+            t = threading.Thread(target=self._monitor_timeseries,
+                                 daemon=True)
+            t.start()
+            self._threads.append(t)
+        self.diagnostics.open()  # no-op unless an endpoint is configured
+
+    def _warmup_ready(self):
+        """Warmup-replay completion hook: flip the local node's
+        advertised state to READY (peers' probe folds catch up within
+        one health interval)."""
+        if self.cluster is not None:
+            self.cluster.set_local_warming(False)
 
     def collect_runtime_stats(self):
         """Process-level gauges (server.go:813 monitorRuntime; /proc in
@@ -832,6 +924,14 @@ class Server:
             pass
         self.stats.gauge("runtime.threads", threading.active_count())
         self.stats.gauge("runtime.gc_gen0", _gc.get_count()[0])
+        from ..utils.gcnotify import global_notifier
+        snap = global_notifier().snapshot()
+        for gen in range(3):
+            self.stats.gauge(f"runtime.gc_collections_gen{gen}",
+                             snap["collections"][gen])
+            self.stats.gauge(f"runtime.gc_pause_ms_gen{gen}",
+                             round(snap["pause_s"][gen] * 1e3, 3))
+        self.stats.gauge("runtime.gc_collected", snap["collected"])
         from ..storage.membudget import DEFAULT_BUDGET, HOST_STAGE_BUDGET
         b = DEFAULT_BUDGET.stats()
         self.stats.gauge("runtime.host_stage_bytes",
@@ -908,9 +1008,6 @@ class Server:
         self.stats.gauge("runtime.hbm_compressed_bytes",
                          b["compressedBytes"])
         self.stats.gauge("runtime.hbm_dense_bytes", b["denseBytes"])
-        from ..parallel import stacked as _stacked
-        self.stats.gauge("device.decode_workspace_limit_bytes",
-                         _stacked.DECODE_WORKSPACE_BYTES)
         cs = container_stats if container_stats is not None \
             else self.holder.container_stats()
         self.stats.gauge("storage.containers_array", cs["array"])
@@ -954,10 +1051,34 @@ class Server:
                          self.cluster.balancer.handoffs)
 
     def update_device_gauges(self):
-        """The container-kernel wrappers' launch counts and the stacked
-        executor's stagings and ingest overlays (the port's stand-ins
-        for the JAX package's compile registry and launch ledger)."""
+        """Capture-registry + launch-ledger gauges under the JAX
+        package's names, refreshed at scrape time so /metrics and
+        /debug/vars see current values; then the kernel wrappers'
+        per-kernel launch counts and the stacked executor's stagings and
+        ingest overlays.  ``device.kernel_launches`` counts every kernel
+        launch, replays included (ops/kernels.py), where the JAX gauge
+        counts the ledger's; ``device.kernel_backend`` is 1 when the
+        executor's device runs the CUDA kernels."""
         from ..ops import kernels
+        from ..parallel import stacked as _stacked
+        from ..utils import devobs
+        c = devobs.COMPILES.totals()
+        self.stats.gauge("device.compiles_total", c["compiles"])
+        self.stats.gauge("device.retraces_total", c["retraces"])
+        self.stats.gauge("device.compile_seconds_total",
+                         c["compileSecondsTotal"])
+        led = devobs.LEDGER.aggregates()
+        self.stats.gauge("device.launches_total", led["launches"])
+        self.stats.gauge("device.launch_rows", led["rowsActual"])
+        self.stats.gauge("device.padded_rows", led["rowsPadded"])
+        self.stats.gauge("device.padding_waste_ratio",
+                         led["paddingWasteRatio"])
+        self.stats.gauge("device.decode_workspace_peak_bytes",
+                         led["decodePeakBytes"])
+        self.stats.gauge("device.decode_workspace_limit_bytes",
+                         _stacked.DECODE_WORKSPACE_BYTES)
+        self.stats.gauge("device.kernel_backend", 1 if kernels.resolve(
+            self.api.executor.device) == "cuda" else 0)
         with kernels._launches_lock:
             launches = dict(kernels.LAUNCHES)
         for name, n in launches.items():
@@ -968,6 +1089,157 @@ class Server:
         if st is not None:
             self.stats.gauge("device.stack_builds", st.stack_builds)
             self.stats.gauge("device.stack_overlays", st.overlays)
+
+    def sample_timeseries(self, force: bool = False) -> bool:
+        """One time-series sample: level gauges (the device budget's
+        split, host stage, admission and batcher occupancy, decode
+        high-watermark, instantaneous p99, the allocator's reserved
+        bytes on a CUDA device) plus per-interval DELTAS of the monotone
+        counters (edge histogram count/sum, evictions, uploads,
+        captures/retraces, launches, padding), the JAX Server's columns
+        under its names.  The previous counter snapshot only advances
+        when the ring accepts the sample, so deltas always span exactly
+        one retained interval."""
+        if self.timeseries is None:
+            return False
+        from ..parallel import stacked as _stacked
+        from ..storage.membudget import DEFAULT_BUDGET, HOST_STAGE_BUDGET
+        from ..utils import devobs
+        from ..utils import events as _events_mod
+        b = DEFAULT_BUDGET.stats()
+        req_count, _ = self.stats.timing_totals("http.request")
+        q_count, q_sum = self.stats.timing_totals("http.query")
+        comp = devobs.COMPILES.totals()
+        led = devobs.LEDGER.aggregates()
+        adm = self.admission.snapshot()
+        counters = {
+            "httpRequests": req_count,
+            "httpQueries": q_count,
+            "httpQueryS": q_sum,
+            "evictions": b["evictions"],
+            "evictedBytes": b["evictedBytes"],
+            "uploadBytes": b["uploadBytes"],
+            "compiles": comp["compiles"],
+            "retraces": comp["retraces"],
+            "compileS": comp["compileSecondsTotal"],
+            "launches": led["launches"],
+            "rowsActual": led["rowsActual"],
+            "rowsPadded": led["rowsPadded"],
+            "kernelLaunches": led["kernelLaunches"],
+            "kernelTiles": led["kernelTiles"],
+        }
+        # SLO counters: bad http.query counts — 5xx responses and
+        # queries over the latency objective (exact from the fixed
+        # histogram buckets) — whose ring deltas feed the burn windows
+        q_good = self.stats.bucket_count_le(
+            "http.query", self.config.slo_latency_ms / 1e3)
+        counters.update({
+            "sloErrors": self.stats.count_value("http.query_5xx"),
+            "sloSlowQueries": max(q_count - q_good, 0),
+        })
+        # cluster-health motion; zero-valued on single-node servers
+        counters.update({
+            "hedges": self.stats.count_value("cluster.hedges"),
+            "hedgeWins": self.stats.count_value("cluster.hedge_wins"),
+            "retryWaves": self.stats.count_value("cluster.retry_waves"),
+            "partialResults": self.stats.count_value(
+                "cluster.partial_results"),
+            "routingFallbacks": self.stats.count_value(
+                "routing.fallback"),
+            "breakerSkips": self.stats.count_value(
+                "routing.breaker_skip"),
+            "balancerHandoffs": self.cluster.balancer.handoffs
+            if self.cluster is not None else 0,
+            "fleetEvents": _events_mod.EVENTS.last_seq(),
+            "breakerOpens": self.stats.count_value("breaker.opened"),
+            "ingestRejected": self.stats.count_value("ingest.rejected"),
+        })
+        from ..utils import tenant as _tenant
+        counters["tenantSheds"] = sum(
+            t["shed"] for t in _tenant.REGISTRY.snapshot().values())
+        # the counter sources are process-wide and predate this Server:
+        # the first sample's deltas are zero, not lifetime totals
+        prev = self._ts_prev or counters
+        values = {k + "Delta": round(v - prev.get(k, 0), 6)
+                  for k, v in counters.items()}
+        p99 = self.stats.percentile("http.query", 0.99)
+        batcher = self.api.executor.batcher
+        dev = self.api.executor.device
+        values.update({
+            "hbmResidentBytes": b["residentBytes"],
+            "hbmCompressedBytes": b["compressedBytes"],
+            "hbmDenseBytes": b["denseBytes"],
+            "hbmPinnedBytes": b["pinnedBytes"],
+            "hostStageBytes": HOST_STAGE_BUDGET.resident_bytes,
+            "admissionInUse": adm["inUse"],
+            "admissionWaiting": adm["waiting"],
+            "batcherQueued": batcher.pending() if batcher is not None
+            else 0,
+            "decodePeakBytes": led["decodePeakBytes"],
+            "decodeWorkspaceBytes": _stacked.DECODE_WORKSPACE_BYTES,
+            "httpQueryP99Ms": round(p99 * 1e3, 3) if p99 else 0.0,
+            "quarantinedFragments": len(
+                self.holder.quarantined_fragments()),
+            # the caching allocator's reserved bytes: stacks, decode
+            # temporaries and the graph pool together
+            "deviceReservedBytes": torch.cuda.memory_reserved(dev)
+            if dev.type == "cuda" else 0,
+        })
+        accepted = self.timeseries.sample(values, force=force)
+        if accepted:
+            self._ts_prev = counters
+        return accepted
+
+    def _monitor_timeseries(self):
+        while not self._closing.wait(self.config.timeseries_interval):
+            try:
+                accepted = self.sample_timeseries()
+                # SLO evaluation rides the sampler cadence (one pass per
+                # accepted sample), off the query and scrape paths
+                if accepted and self.slo is not None:
+                    self.slo.evaluate()
+            except Exception as e:
+                # a silently dead sampler shows a flat-lined ring that
+                # reads as "idle", not "broken"
+                self.logger.error(f"time-series sample failed: {e}")
+
+    def _on_alert_fire(self, alert: dict):
+        """Fire-transition hook (utils/slo.py): capture a diagnostic
+        bundle while the rings still hold the incident's evidence.
+        Rate-limited inside the recorder; runs on the monitor thread."""
+        if self.flightrec is None:
+            return
+        self.flightrec.capture("alert-" + alert["id"], self.build_bundle)
+
+    def build_bundle(self) -> dict:
+        """The flight-recorder payload: every bounded debug surface,
+        snapshotted into one JSON document."""
+        from ..utils import devobs
+        from ..utils.events import EVENTS
+        from .handler import build_debug_vars
+        return {
+            "node": self.config.node_id,
+            "bind": self.config.bind,
+            "vars": build_debug_vars(self.api, self),
+            "timeseries": self.timeseries.snapshot()
+            if self.timeseries is not None else None,
+            "events": EVENTS.snapshot(),
+            "slowLog": self.slowlog.snapshot(),
+            "compiles": devobs.COMPILES.snapshot(),
+            "launches": devobs.LEDGER.snapshot(),
+            "alerts": self.slo.snapshot() if self.slo is not None
+            else None,
+        }
+
+    def capture_bundle(self, reason: str, force: bool = False
+                       ) -> str | None:
+        """On-demand bundle capture (POST /debug/bundle, CLI
+        ``bundle``); returns the bundle path or None when rate-limited
+        or failed."""
+        if self.flightrec is None:
+            return None
+        return self.flightrec.capture(reason, self.build_bundle,
+                                      force=force)
 
     def drain(self, timeout: float | None = None) -> bool:
         """Graceful drain: stop ADMITTING public queries (new ones get
@@ -993,6 +1265,7 @@ class Server:
         # the drain deadline instead of seeing a connection reset
         self.drain()
         self._closing.set()
+        self.diagnostics.close()
         self.httpd.shutdown()
         # sever live keep-alive connections: their handler threads would
         # otherwise keep serving THIS closed server's holder
@@ -1005,6 +1278,10 @@ class Server:
             self.rollup.close()
         if self.cluster is not None:
             self.cluster.close()
+        # warm start: stop the replay/flush thread and take the final
+        # corpus flush while the capture registry holds this run's
+        # entries — before the executor and the holder close
+        self.warmup.close()
         self.api.executor.close()
         from ..utils.events import EVENTS
         if self.config.event_log:

@@ -55,6 +55,7 @@ tests/test_torch_storage.py
 tests/test_torch_wholequery.py
 tests/test_translate.py
 tests/test_wholequery.py
+tests/test_torch_devobs.py
 "
 
 # Leg 2: cluster plane (fan-out, chaos, routing, resize, wire) + server
@@ -84,6 +85,8 @@ tests/test_torch_cluster_tls.py
 tests/test_torch_qwire.py
 tests/test_torch_resize.py
 tests/test_warmup.py
+tests/test_torch_warmup.py
+tests/test_torch_slo.py
 "
 
 _check_partition() {

@@ -7,10 +7,11 @@ never blocks a scrape on a dead peer with the chaos events in the merged
 timeline, the single-node ``/debug/cluster`` fallback and the
 ``/debug/events`` cursor.
 
-The port has no device-runtime observability yet, so the rollup's
-``retraces`` (like ``compiles``, ``launches``, ``paddingWasteRatio`` and
-the alert fields) reads 0 where the JAX case compares it with the
-compile registry.  The two dashboard cases wait for the dashboards.
+The rollup's device and alert fields read each node's ``/debug/vars``
+``device`` (capture registry and launch ledger, process-wide) and
+``alerts`` sections, as in the JAX case; and the two dashboard cases
+check that every field the node and fleet pages read exists in a real
+time-series sample and rollup summary.
 """
 
 import json
@@ -117,10 +118,13 @@ def test_rollup_agrees_with_per_node_vars(cluster3):
         hq = v["timings"].get("http.query") or {}
         assert n["queries"] == hq.get("count", 0)
         assert n["evictions"] == v["deviceBudget"]["evictions"]
-        # no compile registry on the port: the field reads 0
-        assert "compiles" not in v["device"]
-        assert n["retraces"] == 0 and n["compiles"] == 0
-        assert n["launches"] == 0 and n["paddingWasteRatio"] == 0.0
+        assert n["retraces"] == v["device"]["compiles"]["retraces"]
+        assert n["compiles"] == v["device"]["compiles"]["compiles"]
+        assert n["launches"] == v["device"]["launches"]["launches"] > 0
+        assert n["paddingWasteRatio"] == \
+            v["device"]["launches"]["paddingWasteRatio"]
+        assert n["activeAlerts"] == len(v["alerts"]["active"])
+        assert n["alertsFired"] == v["alerts"]["firedTotal"]
         assert n["hedges"] == int(
             v["counts"].get("cluster.hedges", 0))
         assert n["quarantinedFragments"] == \
@@ -261,6 +265,61 @@ def test_debug_cluster_single_node_fallback(tmp_path):
         assert isinstance(out["timeline"], list)
     finally:
         srv.close()
+
+
+def _html(port, path):
+    with urllib.request.urlopen(
+            f"http://localhost:{port}{path}", timeout=30) as r:
+        assert r.headers["Content-Type"].startswith("text/html")
+        return r.read().decode()
+
+
+def test_dashboard_page_fields_exist_in_timeseries(tmp_path):
+    """Golden: every `s.<field>` the node dashboard's chart functions
+    read must exist in a real time-series sample — a renamed sample key
+    would otherwise ship a silently-flat chart."""
+    srv = make_server(tmp_path, timeseries_interval=0.05,
+                      slow_query_threshold=0)
+    try:
+        html = _html(srv.port, "/debug/dashboard")
+        assert "device runtime" in html
+        assert srv.sample_timeseries(force=True)
+        sample = srv.timeseries.last(1)[0]
+        refs = set(re.findall(r"\bs\.(\w+)", html))
+        # `s` also names the samples ARRAY in render(): drop JS
+        # builtins, keep the per-sample field reads
+        refs -= {"length", "map", "slice", "filter", "forEach"}
+        assert refs, "no field references parsed from the dashboard"
+        missing = sorted(r for r in refs if r not in sample)
+        assert not missing, f"dashboard reads absent fields: {missing}"
+        for key in ("hedgesDelta", "retryWavesDelta",
+                    "partialResultsDelta", "routingFallbacksDelta",
+                    "balancerHandoffsDelta", "fleetEventsDelta"):
+            assert key in sample
+    finally:
+        srv.close()
+
+
+def test_cluster_dashboard_fields_exist_in_rollup(cluster3):
+    """Golden: every `n.<field>` the fleet page reads from a node entry
+    must exist in a real rollup summary, and every `c.<field>` in the
+    snapshot envelope."""
+    servers, ports = cluster3
+    html = _html(ports[0], "/debug/dashboard/cluster")
+    assert "fleet" in html
+    roll, _ = _req(ports[0], "GET", "/debug/cluster?refresh=true",
+                   timeout=30)
+    node0 = roll["nodes"]["node0"]
+    n_refs = set(re.findall(r"\bn\.(\w+)\b", html))
+    # staleS/error only appear on degraded entries; qps/stale always
+    always = n_refs - {"staleS", "error"}
+    missing = sorted(r for r in always if r not in node0)
+    assert not missing, f"fleet page reads absent node fields: {missing}"
+    c_refs = set(re.findall(r"\bc\.(\w+)\b", html))
+    missing_c = sorted(r for r in c_refs - {"ttlS"} if r not in roll)
+    assert not missing_c, \
+        f"fleet page reads absent snapshot fields: {missing_c}"
+    assert "ttlS" in roll
 
 
 def test_debug_events_since_cursor_over_http(cluster3):

@@ -105,8 +105,12 @@ def _jax_cfg(data_dir, **kw):
 
 
 def _port_cfg(data_dir, **kw):
+    # the same warm-start, sampler and flight-recorder settings as the
+    # JAX server's, so /status compares whole
     return port_server.Config(data_dir=str(data_dir), bind="localhost:0",
-                              device="cpu", metric_poll_interval=0, **kw)
+                              device="cpu", metric_poll_interval=0,
+                              warmup_top_n=0, timeseries_interval=0,
+                              flight_recorder_mb=0, **kw)
 
 
 @contextlib.contextmanager
@@ -236,13 +240,10 @@ def test_quick_start_bytes_equal(tmp_path):
         for path in ("/", "/version", "/info", "/schema", "/index",
                      "/index/repository"):
             both(pair, "GET", path)
-        # /status: the JAX Server adds its warm-start coordinator's
-        # report ("warmup"), which the port does not have; the rest is
-        # identical
+        # /status, the warm-start coordinator's report included
         j, p = pair
         sj = json.loads(_raw(j, "GET", "/status")[2])
         sp = json.loads(_raw(p, "GET", "/status")[2])
-        sj.pop("warmup")
         assert sp == sj
 
 
