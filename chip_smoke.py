@@ -7,7 +7,8 @@ star-schema corpus at its full 256 shards, BASELINE config 4 (BSI
 Sum / range predicates + GroupBy over 64 shards at depth 20), each
 dense-resident and compressed-resident, and BASELINE config 5 over 954
 shards under a device budget smaller than its working set and on four
-cluster nodes — through the user entry points
+cluster nodes, and the SSB and config-4 corpora split over two rank
+processes of one multi-process engine — through the user entry points
 ``pilosa_tpu_torch.executor.Executor`` and
 ``pilosa_tpu_torch.server.Server``, and holds every CUDA kernel of
 those paths against its plain PyTorch version.  Phases, each printing
@@ -52,6 +53,24 @@ its own lines and its seconds:
    launch both kernels.  Printed: qps, request p50, launches and batch
    chunks per request, prepared hits, the GroupBy time, resident MB and
    the whole-query counters.
+6b. multiprocess — the multi-process engine
+   (pilosa_tpu_torch/parallel/multihost.py): two rank processes, fresh
+   interpreters running this script with ``--rank``, join one process
+   group over gloo on ``cuda:0`` (they share the one card, where NCCL
+   refuses two ranks; gloo stages each collective through the host, so
+   the path runs eagerly, with no CUDA graph).  Each builds its half of
+   the SSB corpus (128 of 256 shards) and of config 4's (32 of 64) from
+   the seeds and, compressed-resident, runs the SSB mix, config 4's
+   requests and the multihost worker's query set (Row, TopN, Rows,
+   GroupBy, Sum / Min / Max on ``v``) through ``Executor(...,
+   group=...)``.  Every answer of every rank must equal the oracle and
+   the single-process port's answers (phases 5 and 6, and the worker set
+   run here in one process); both kernels must launch in both ranks
+   (counts reset just before each corpus's run, read just after), and
+   rank 0 holds both kernels on its own half stacks against their plain
+   versions.  A rank that fails or outlives its timeout fails the run.
+   Printed per rank: seconds, request p50s and launches, beside the
+   card's name and power limit.
 7. served — the port's server (``pilosa_tpu_torch.server``) on the card
    in a fresh data dir: ``ssb`` and its four fields created over HTTP,
    the 256-shard corpus loaded through ``import-roaring`` (one POST per
@@ -159,7 +178,8 @@ its own lines and its seconds:
    and captures after the repair, kernel times beside their bound.
 12. the ``kernels`` JSON line, a JSON line of the phases' records, the
    ``served`` and ``warm_start`` JSON lines, the ``cfg5_budget`` /
-   ``cluster`` / ``replicas`` JSON line, the nvidia-smi line, and last
+   ``cluster`` / ``replicas`` JSON line, the ``multiprocess`` JSON line,
+   the nvidia-smi line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the result line.  It imports
@@ -170,6 +190,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -396,21 +417,24 @@ def measure_group(placed, sig, S: int, dec: dict, fus: dict,
     fus["ops"] += 2 * st.payload.numel()  # AND + popcount a payload word
 
 
-def check_ssb_shapes(holder, device, rg: int = 1, c: int = 3):
+def check_ssb_shapes(holder, device, rg: int = 1, c: int = 3, group=None,
+                     label: str = "kernels"):
     """Each kernel at the shapes the main path gives it for
     ``TopN(rev, Intersect(Row(region=rg), Row(category=c)))`` over every
     shard, on the stacks the stacked executor itself places:
     decode_block over the region and category stacks (the filter's
     operands), fused_row_counts over the rev stack under that filter, for
-    every signature group — one for the SSB key list, which is asserted."""
+    every signature group — one for the SSB key list, which is asserted.
+    ``group``: one rank of a process group, which stacks its own shards
+    only."""
     from pilosa_tpu_torch.parallel.stacked import StackedExecutor
     from pilosa_tpu_torch import ssb
-    st = StackedExecutor(device)
+    st = StackedExecutor(device, group=group)
     keys = [("rev", "standard"), ("region", "standard"),
             ("category", "standard")]
     shards = list(range(N_SHARDS))
     groups = st._placed_groups(keys, holder, ssb.SSB_INDEX, shards)
-    say("kernels", ssb_groups=len(groups),
+    say(label, ssb_groups=len(groups),
         group_shards=[len(g[0]) for g in groups],
         sigs=[g[2] for g in groups])
     if len(groups) != 1:
@@ -600,37 +624,41 @@ CFG4_REQUESTS = 6     # timed 64-Sum requests per residency, after one warm
 CFG4_REQUESTS_GROUPED = 1     # the same on the grouped path
 
 
-def cfg4_corpus(n_shards: int):
+def cfg4_corpus(n_shards: int, group=None):
     """The config-4 holder at ``n_shards`` (64 on the card; its value
-    count scales with the shards, so the density stays the config's)."""
+    count scales with the shards, so the density stays the config's).
+    ``group``: one rank's slice (bsi64.build)."""
     from pilosa_tpu_torch import bsi64
     from pilosa_tpu_torch.storage import Holder
     holder = Holder(None)
     oracle = bsi64.build(holder, np.random.default_rng(SEED + 4),
                          n_shards=n_shards,
                          n_values=bsi64.N_VALUES * n_shards
-                         // bsi64.N_SHARDS)
+                         // bsi64.N_SHARDS, group=group)
     return holder, oracle
 
 
-def check_bsi_stack(holder, device, n_shards: int) -> dict:
+def check_bsi_stack(holder, device, n_shards: int, group=None,
+                    label: str = "bsi64") -> dict:
     """``decode_block`` at the shape every compressed Sum / Min / Max /
     range predicate gives it: the packed ``bsig_v`` stack the stacked
     executor places over all shards (one signature group, asserted),
-    bit-exact against its plain version; timed."""
+    bit-exact against its plain version; timed.  ``group``: one rank of
+    a process group, which stacks its own shards only."""
     from pilosa_tpu_torch import bsi64
     from pilosa_tpu_torch.core import SHARD_WORDS
     from pilosa_tpu_torch.ops import containers, kernels
     from pilosa_tpu_torch.parallel.stacked import StackedExecutor
-    st = StackedExecutor(device)
+    st = StackedExecutor(device, group=group)
     groups = st._placed_groups([("v", "bsig_v")], holder, bsi64.INDEX,
                                list(range(n_shards)))
     if len(groups) != 1 or not isinstance(groups[0][1][0],
                                           containers.PackedStack):
         raise AssertionError(f"bsig_v does not stack into one packed "
                              f"group: {[g[2] for g in groups]}")
-    _, (pk,), (sig,) = groups[0]
+    shard_list, (pk,), (sig,) = groups[0]
     rows = sig[1]
+    n_stacked = len(shard_list)
 
     def run():
         return kernels.decode_block(*pk, rows=rows, words=SHARD_WORDS)
@@ -644,8 +672,8 @@ def check_bsi_stack(holder, device, n_shards: int) -> dict:
     rec["err"] = max_abs_err(got, want)
     rec["ms"] = time_ms(run, iters=20)
     rec["plain_ms"] = time_ms(plain, iters=3, warmup=1)
-    rec["bytes"] = stack_bytes(pk) + n_shards * rows * SHARD_WORDS * 4
-    say("bsi64", bsig_stack_shards=n_shards, rows=rows,
+    rec["bytes"] = stack_bytes(pk) + n_stacked * rows * SHARD_WORDS * 4
+    say(label, bsig_stack_shards=n_stacked, rows=rows,
         containers=pk.types.numel(), payload_words=pk.payload.numel(),
         types=json.dumps({t: int((pk.types == i).sum()) for i, t in
                           enumerate(("array", "bitmap", "run"))}),
@@ -781,6 +809,278 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
         **{k: (json.dumps(v) if isinstance(v, (dict, list)) else v)
            for k, v in rec.items()})
     return answers, rec
+
+
+# -- phase 6b: the multi-process engine ---------------------------------------
+
+MP_WORLD = 2                   # rank processes on the one card
+MP_RANK_TIMEOUT_S = 240        # each rank's own limit
+
+
+def mp_worker_queries() -> list:
+    """The multihost worker's query set (tests/multihost_worker.py) on
+    config 4's fields: ``seg`` (8 rows) and the int field ``v``."""
+    return ["Row(seg=3)", "TopN(seg, n=5)", "Rows(seg)",
+            "GroupBy(Rows(seg), Rows(seg))", "Sum(field=v)",
+            "Min(field=v)", "Max(field=v)", "Count(Row(seg=5))"]
+
+
+def mp_normalize(results) -> list:
+    """Executor results as JSON values; a Row as its column count and
+    the sha256 of its sorted column ids."""
+    import hashlib
+    from pilosa_tpu_torch import bsi64
+    out = []
+    for r in results:
+        if hasattr(r, "columns"):
+            cols = np.asarray(sorted(int(c) for c in r.columns()),
+                              dtype=np.int64)
+            out.append([int(cols.size),
+                        hashlib.sha256(cols.tobytes()).hexdigest()])
+        elif hasattr(r, "rows"):
+            out.append([int(x) for x in r.rows])
+        else:
+            out.append(bsi64.normalize([r])[0])
+    return json.loads(json.dumps(out))
+
+
+def mp_oracle(oracle) -> list:
+    """numpy answers of ``mp_worker_queries`` over the full config-4
+    data, in ``mp_normalize``'s form."""
+    import hashlib
+    from pilosa_tpu_torch import bsi64
+    cols, vals, segs = oracle
+    row3 = np.sort(cols[segs == 3]).astype(np.int64)
+    counts = np.bincount(segs, minlength=bsi64.SEG_ROWS)
+    order = np.lexsort((np.arange(counts.size), -counts))
+    want = [[int(row3.size), hashlib.sha256(row3.tobytes()).hexdigest()],
+            [(int(i), int(counts[i])) for i in order[:5] if counts[i]],
+            [int(i) for i in np.nonzero(counts)[0]],
+            bsi64.oracle_group_by(vals, segs, -1),
+            (int(vals.sum()), int(vals.size)),
+            bsi64.oracle_min_max(vals, -1, False),
+            bsi64.oracle_min_max(vals, -1, True),
+            int(counts[5])]
+    return json.loads(json.dumps(want))
+
+
+def rank_main(argv) -> int:
+    """One rank of phase ``multiprocess``: joins the process group over
+    gloo on ``cuda:0`` (both ranks share the one card, where NCCL refuses
+    two ranks), builds its slice of the SSB corpus (256 shards) and of
+    config 4's (64 shards) from the seeds, and runs the SSB mix, config
+    4's requests and the multihost worker's set compressed-resident
+    through ``Executor(..., group=...)``, counting kernel launches per
+    corpus.  Rank 0 then holds both kernels on its own stacks against
+    their plain versions.  Prints one ``RANK {...}`` JSON line."""
+    from pilosa_tpu_torch import bsi64, ssb
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel import multihost
+    from pilosa_tpu_torch.storage import Holder
+    from pilosa_tpu_torch.storage.membudget import DEFAULT_BUDGET
+    rank = int(argv[argv.index("--rank") + 1])
+    world = int(argv[argv.index("--world") + 1])
+    port = int(argv[argv.index("--port") + 1])
+    device = argv[argv.index("--device") + 1]
+    n_cfg4 = int(argv[argv.index("--cfg4-shards") + 1])
+    t_rank = time.perf_counter()
+    # the ranks share the host: split its cores, or their intra-op
+    # threads spin against each other while one waits in a collective
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    # gloo: the ranks share one card
+    group, device = multihost.init_distributed(
+        f"localhost:{port}", world, rank, backend="gloo", device=device)
+    rec = {"rank": rank, "world": world, "backend": "gloo",
+           "device": str(device)}
+    t0 = time.perf_counter()
+    lo, hi = multihost.shard_range(N_SHARDS, rank, world)
+    holder = Holder(None)
+    ssb.build_ssb(holder, np.random.default_rng(SEED), n_shards=N_SHARDS,
+                  keep=range(lo, hi))
+    cfg4, _ = cfg4_corpus(n_cfg4, group)
+    rec.update(ssb_shards=[lo, hi], bsi64_shards=list(
+        multihost.shard_range(n_cfg4, rank, world)),
+        build_s=time.perf_counter() - t0)
+    DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20      # compressed-resident
+
+    # the SSB mix: the batches of run_ssb, one pass
+    rng = np.random.default_rng(SEED + 1)
+    batches = [ssb.ssb_calls(rng, BATCH) for _ in range(N_BATCHES + 1)]
+    ex = Executor(holder, device=device, group=group)
+    if ex.wholequery is not None or not ex.multiprocess:
+        raise AssertionError("a grouped executor built a whole-query runner")
+    kernels.reset_launches()
+    answers, lat = [], []
+    for i, calls in enumerate(batches):
+        t0 = time.perf_counter()
+        answers.append(ssb.normalize(ex.execute(ssb.SSB_INDEX,
+                                                ssb.ssb_batch(calls))))
+        torch.cuda.synchronize()
+        if i:
+            lat.append(time.perf_counter() - t0)
+    rec["ssb"] = {"launches": dict(kernels.LAUNCHES),
+                  "batch_p50_ms": statistics.median(lat) * 1e3,
+                  "batch_ms": [round(x * 1e3, 3) for x in lat],
+                  "fused_calls": ex.stacked.fused_calls,
+                  "answers": answers}
+    ex.close()
+
+    # config 4: the 64-Sum requests, the GroupBy, Min / Max / Count /
+    # TopN, then the multihost worker's set
+    rng = np.random.default_rng(SEED + 5)
+    xs_all = [rng.integers(0, bsi64.V_MAX, size=bsi64.SUMS_PER_REQUEST)
+              for _ in range(CFG4_REQUESTS + 1)]
+    ex = Executor(cfg4, device=device, group=group)
+    kernels.reset_launches()
+    answers, lat = [], []
+    for i, xs in enumerate(xs_all):
+        t0 = time.perf_counter()
+        answers.append(bsi64.normalize(ex.execute(
+            bsi64.INDEX, bsi64.sum_request(xs))))
+        torch.cuda.synchronize()
+        if i:
+            lat.append(time.perf_counter() - t0)
+    ex.execute(bsi64.INDEX, bsi64.group_by_query(1))
+    t0 = time.perf_counter()
+    answers.append(bsi64.normalize(ex.execute(
+        bsi64.INDEX, bsi64.group_by_query(500_000))))
+    gb_ms = (time.perf_counter() - t0) * 1e3
+    x = int(xs_all[-1][0])
+    answers.append(bsi64.normalize(ex.execute(
+        bsi64.INDEX, f"Min(Row(v > {x}), field=v) Max(Row(v > {x}), "
+                     f"field=v) Count(Row(v > {x})) "
+                     f"TopN(seg, Row(v > {x}), n=5)")))
+    worker = [mp_normalize(ex.execute(bsi64.INDEX, q))[0]
+              for q in mp_worker_queries()]
+    rec["bsi64"] = {"launches": dict(kernels.LAUNCHES),
+                    "request_p50_ms": statistics.median(lat) * 1e3,
+                    "request_ms": [round(t * 1e3, 3) for t in lat],
+                    "group_by_ms": gb_ms,
+                    "answers": json.loads(json.dumps(answers)),
+                    "worker": worker}
+    ex.close()
+
+    if rank == 0:
+        # both kernels on this rank's own stacks against their plain
+        # versions (launches here are not the main path's)
+        dec, fus = check_ssb_shapes(holder, device, group=group,
+                                    label="multiprocess")
+        bsi_dec = check_bsi_stack(cfg4, device, n_cfg4,
+                                  group=group, label="multiprocess")
+        rec["kernel_recs"] = {"decode_block": dec, "fused_row_counts": fus,
+                              "decode_block_bsig_v": bsi_dec}
+    import torch.distributed as dist
+    dist.barrier()
+    multihost.close_distributed()
+    rec["seconds"] = time.perf_counter() - t_rank
+    print("RANK " + json.dumps(rec), flush=True)
+    return 0
+
+
+def run_multiprocess(device, card: str, hist, ssb_answers, cfg4, oracle,
+                     c4_answers, n_cfg4: int) -> dict:
+    """Phase ``multiprocess``: MP_WORLD rank processes (fresh
+    interpreters running ``rank_main``) on the one card.  Every rank's
+    answers must equal the oracle and the single-process port's answers
+    on the same data (the ``ssb`` and ``bsi64`` phases, and the worker
+    set run here on the single-process config-4 holder); both kernels
+    must launch in every rank.  Returns the phase's record."""
+    import tempfile
+    from pilosa_tpu_torch import bsi64, ssb
+    from pilosa_tpu_torch.executor import Executor
+    # the worker set on one process, compressed-resident as the ranks
+    ex = Executor(cfg4, device=device)
+    single = [mp_normalize(ex.execute(bsi64.INDEX, q))[0]
+              for q in mp_worker_queries()]
+    ex.close()
+    want_worker = mp_oracle(oracle)
+    if single != want_worker:
+        raise AssertionError(f"multihost worker set on one process: "
+                             f"{single} != oracle {want_worker}")
+    # free the parent's cached device memory for the ranks' contexts
+    gc.collect()
+    torch.cuda.empty_cache()
+    (port,) = free_ports(1)
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(MP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--rank", str(r), "--world",
+         str(MP_WORLD), "--port", str(port), "--device", str(device),
+         "--cfg4-shards", str(n_cfg4)],
+        stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(MP_WORLD)]
+    try:
+        for r, p in enumerate(procs):
+            left = MP_RANK_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {r} exceeded "
+                                     f"{MP_RANK_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    recs = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+        for line in out.splitlines():
+            if line.startswith("[") and not line.startswith("[RANK"):
+                print(f"  rank{r} {line}", flush=True)
+        recs.append(json.loads(next(
+            x for x in out.splitlines() if x.startswith("RANK "))[5:]))
+    shards = list(range(N_SHARDS))
+    rng = np.random.default_rng(SEED + 1)
+    batches = [ssb.ssb_calls(rng, BATCH) for _ in range(N_BATCHES + 1)]
+    want_c4 = json.loads(json.dumps(c4_answers))
+    for rec in recs:
+        r = rec["rank"]
+        got = rec["ssb"].pop("answers")
+        for calls, g in zip(batches, got):
+            check_answers(f"multiprocess rank {r}", hist, shards, calls, g)
+        if got != ssb_answers:
+            raise AssertionError(f"rank {r}: the SSB answers differ from "
+                                 f"the single-process port's")
+        got = rec["bsi64"].pop("answers")
+        if got != want_c4:
+            raise AssertionError(f"rank {r}: the config-4 answers differ "
+                                 f"from the single-process port's")
+        got = rec["bsi64"].pop("worker")
+        if got != want_worker or got != single:
+            raise AssertionError(f"rank {r}: the multihost worker set "
+                                 f"{got} != oracle {want_worker}")
+        for corpus, names in (("ssb", ("decode_block", "fused_row_counts")),
+                              ("bsi64", ("decode_block",))):
+            for name in names:
+                if rec[corpus]["launches"].get(name, 0) <= 0:
+                    raise AssertionError(f"rank {r} never launched {name} "
+                                         f"on the {corpus} corpus")
+        say("multiprocess", rank=r, card=repr(card),
+            seconds=rec["seconds"], build_s=rec["build_s"],
+            ssb_shards=rec["ssb_shards"],
+            ssb_batch_p50_ms=rec["ssb"]["batch_p50_ms"],
+            ssb_launches=json.dumps(rec["ssb"]["launches"]),
+            bsi64_shards=rec["bsi64_shards"],
+            bsi64_request_p50_ms=rec["bsi64"]["request_p50_ms"],
+            bsi64_group_by_ms=rec["bsi64"]["group_by_ms"],
+            bsi64_launches=json.dumps(rec["bsi64"]["launches"]))
+    kr = recs[0].pop("kernel_recs")
+    for name, k in kr.items():
+        if k["err"]:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"on rank 0's stacks: {k['err']}")
+    return {"world": MP_WORLD, "backend": "gloo", "card": card,
+            "wall_s": wall, "ranks": recs, "kernel_recs": kr}
 
 
 # -- phase 7: the served path -------------------------------------------------
@@ -2551,6 +2851,8 @@ def main(argv) -> int:
         print("chip_smoke: torch.cuda.is_available() is false — this "
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if "--rank" in argv:          # one rank of phase multiprocess
+        return rank_main(argv)
     from pilosa_tpu_torch import ssb
     from pilosa_tpu_torch.ops import kernels
     from pilosa_tpu_torch.storage import Holder
@@ -2672,6 +2974,14 @@ def main(argv) -> int:
                                      f"launched {name}")
     say("bsi64", seconds=time.perf_counter() - t0)
 
+    # the multi-process engine: two ranks on the card, each with half of
+    # the SSB and config-4 corpora
+    t0 = time.perf_counter()
+    DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
+    mp = run_multiprocess(device, card, hist, dense_ans, cfg4, oracle,
+                          c4_dense_ans, bsi64.N_SHARDS)
+    say("multiprocess", seconds=time.perf_counter() - t0, card=repr(card))
+
     # the served path: HTTP API, load, concurrent clients, ingest, CLI
     t0 = time.perf_counter()
     served, warm = run_served(holder, hist, device, profile=profile)
@@ -2743,6 +3053,27 @@ def main(argv) -> int:
                       "max_abs_err": rec["err"], "ms": rec["ms"],
                       "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
+    # phase multiprocess: each kernel at rank 0's half shapes; launches
+    # are rank 0's main-path run, with every rank's beside them
+    for name, key, corpus, shape in (
+            ("decode_block", "decode_block", "ssb",
+             "multiprocess_rank_ssb_topn_filter"),
+            ("fused_row_counts", "fused_row_counts", "ssb",
+             "multiprocess_rank_ssb_topn_filter"),
+            ("decode_block", "decode_block_bsig_v", "bsi64",
+             "multiprocess_rank_bsi64_bsig_v")):
+        rec = mp["kernel_recs"][key]
+        b_ms, b_by = bound(rec)
+        lines.append({"name": name, "route": "cuda", "source": src,
+                      "replaces": f"{JAX_KERNELS}:"
+                                  f"{245 if name == 'decode_block' else 326}",
+                      "shape": shape,
+                      "launches": mp["ranks"][0][corpus]["launches"][name],
+                      "launches_per_rank": [
+                          r[corpus]["launches"][name] for r in mp["ranks"]],
+                      "max_abs_err": rec["err"], "ms": rec["ms"],
+                      "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None})
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ssb": {"dense": dense_rec, "compressed": comp_rec,
                               "dense_grouped": dense_g_rec,
@@ -2756,6 +3087,7 @@ def main(argv) -> int:
     print(json.dumps({"warm_start": warm}))
     print(json.dumps({"cfg5_budget": c5, "cluster": clus,
                       "replicas": repl}))
+    print(json.dumps({"multiprocess": mp}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,9 +33,12 @@ SUMS_PER_REQUEST = 64
 
 
 def build(holder, rng, field_options=None, n_shards: int = N_SHARDS,
-          n_values: int = N_VALUES):
+          n_values: int = N_VALUES, group=None):
     """Fill ``holder`` with the config-4 index; returns (cols, vals,
-    segs), each int64 ``[n]``, sorted by column."""
+    segs), each int64 ``[n]``, sorted by column.  ``group``: a process
+    group this holder is one rank of (parallel/multihost.py): only the
+    rank's slice of the shards is imported, the others are empty
+    fragments, and the returned arrays still cover every shard."""
     if field_options is None:
         from .storage import FieldOptions as field_options
     idx = holder.create_index(INDEX, track_existence=False)
@@ -43,9 +46,16 @@ def build(holder, rng, field_options=None, n_shards: int = N_SHARDS,
     seg = idx.create_field("seg")
     cols = np.unique(rng.integers(0, n_shards * SHARD_WIDTH, size=n_values))
     vals = rng.integers(0, V_MAX, size=cols.size)
-    v.import_values(cols, vals)
     segs = rng.integers(0, SEG_ROWS, size=cols.size)
-    seg.import_bits(segs, cols)
+    if group is None:
+        v.import_values(cols, vals)
+        seg.import_bits(segs, cols)
+    else:
+        from .parallel import multihost
+        multihost.import_process_values(v, cols, vals, n_shards,
+                                        V_MAX.bit_length(), group)
+        multihost.import_process_slice(seg, segs, cols, n_shards,
+                                       SEG_ROWS - 1, group)
     return cols, vals.astype(np.int64), segs.astype(np.int64)
 
 

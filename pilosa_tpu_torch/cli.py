@@ -1,13 +1,14 @@
-"""CLI: server|import|ingest|export|check|inspect|top|alerts|bundle|
-generate-config|config (reference cmd/root.go + ctl/) — the port of the
-JAX package's ``cli.py``.
+"""CLI: server|import|ingest|export|check|inspect|analyze|top|alerts|
+bundle|generate-config|config (reference cmd/root.go + ctl/) — the port
+of the JAX package's ``cli.py``.
 
 Run as ``python -m pilosa_tpu_torch <command>``.  ``server`` takes
 ``--device`` (default ``cuda``, which raises without a card; ``cpu``
 runs the plain PyTorch paths).  The client commands speak HTTP and are
 the JAX package's, including the observability clients ``top`` (the
 kernel backend line reads ``cuda`` or ``torch``), ``alerts`` and
-``bundle``.  Not ported: ``analyze`` (the invariant analyzer).
+``bundle``.  ``analyze`` runs the port's invariant analyzer
+(``pilosa_tpu_torch/analysis``) over a checkout.
 """
 
 from __future__ import annotations
@@ -325,6 +326,20 @@ def cmd_check(args) -> int:
                 ok = False
                 print(f"{path}: CORRUPT {e}")
     return 0 if ok else 1
+
+
+def cmd_analyze(args) -> int:
+    """Run the port's invariant analyzer over a checkout
+    (docs/static-analysis.md): AST lint rules plus the cross-file
+    metric / event / alert / failpoint catalogs.  Exits non-zero on any
+    finding."""
+    from .analysis.astlint import main as analysis_main
+    argv = ["--root", args.root]
+    for r in args.rule or []:
+        argv += ["--rule", r]
+    if args.list_rules:
+        argv.append("--list-rules")
+    return analysis_main(argv)
 
 
 def cmd_inspect(args) -> int:
@@ -836,6 +851,16 @@ def main(argv=None) -> int:
     sp = sub.add_parser("inspect", help="inspect fragment file stats")
     sp.add_argument("files", nargs="+")
     sp.set_defaults(fn=cmd_inspect)
+
+    sp = sub.add_parser("analyze",
+                        help="run the port's invariant analyzer "
+                             "(AST lint suite) over a checkout")
+    sp.add_argument("--root", default=".",
+                    help="repo checkout to analyze (default: cwd)")
+    sp.add_argument("--rule", action="append", default=None,
+                    help="run only this rule id (repeatable)")
+    sp.add_argument("--list-rules", action="store_true")
+    sp.set_defaults(fn=cmd_analyze)
 
     sp = sub.add_parser("top", help="live terminal summary of a node")
     sp.add_argument("-host", default="localhost:10101")

@@ -65,6 +65,18 @@ Deviations from the JAX module:
   request waits for its ticket without the lock, so concurrent requests
   can fuse.  The per-shard branch (``stacked=False``, no batcher) runs
   its dispatch through the fetch under the same lock.
+
+Multi-process mode (``Executor(holder, device=..., group=...)``,
+parallel/multihost.py): the group goes to the stacked executor, whose
+reducers stack this rank's shards and end in collectives.  Every rank
+runs the same requests, so the request path may not branch on a rank's
+own data: under a group there are no whole-query programs (a CUDA graph
+cannot capture a gloo collective; the JAX module keeps multi-process
+meshes out of its programs too), the batcher fuses nothing, the result
+cache is off, unfiltered TopN skips the per-fragment rank caches, the
+GroupBy row grid takes the ranks' largest row counts, and
+``Rows(column=)`` gathers the ranks' row ids.  Requests run eagerly on
+the grouped path.
 """
 
 from __future__ import annotations
@@ -482,7 +494,7 @@ class Executor:
                  dispatch_batch_max: int = 32,
                  dispatch_batch_window_us: float = 200.0,
                  whole_query: bool = True,
-                 whole_query_fallback: str = "legacy"):
+                 whole_query_fallback: str = "legacy", group=None):
         """``stats``: a StatsClient for per-phase timings
         (parse/translate/dispatch/fetch) and cache counters, surfaced at
         /debug/vars; None records nothing.  ``dispatch_batch*``: the
@@ -492,7 +504,11 @@ class Executor:
         (parallel/wholequery.py); off restores the grouped per-stage
         path exactly.  ``whole_query_fallback``: "legacy" reroutes
         unsupported shapes to the grouped path (counted + logged);
-        "error" raises instead."""
+        "error" raises instead.  ``group``: a ``torch.distributed``
+        process group this executor is one rank of (multi-process mode,
+        module docstring); needs ``stacked``."""
+        if group is not None and not stacked:
+            raise ValueError("a process group needs stacked=True")
         self.holder = holder
         self.device = resolve_device(device)
         self.compiler = PlanCompiler(self.device)
@@ -526,14 +542,22 @@ class Executor:
             from ..parallel.stacked import StackedExecutor
             from ..parallel.wholequery import WholeQueryRunner
             from .prepared import PreparedCache
-            self.stacked = StackedExecutor(self.device)
+            self.stacked = StackedExecutor(self.device, group=group)
             self.batcher = DispatchBatcher(
                 self.stacked, enabled=dispatch_batch,
                 max_batch=dispatch_batch_max,
                 window_us=dispatch_batch_window_us, stats=self.stats,
                 launch_lock=self._device_lock)
             self.prepared = PreparedCache(self)
-            self.wholequery = WholeQueryRunner(self.stacked)
+            # a process group keeps whole-query programs out of the path
+            # (module docstring), as the JAX executor does
+            if not self.stacked.multiprocess:
+                self.wholequery = WholeQueryRunner(self.stacked)
+
+    @property
+    def multiprocess(self) -> bool:
+        """Whether this executor is one rank of a process group."""
+        return self.stacked is not None and self.stacked.multiprocess
 
     def close(self):
         if self.batcher is not None:
@@ -584,7 +608,9 @@ class Executor:
         # index's fragment generation vector, so any mutation misses.
         qkey = ckey = None
         cache = self.result_cache
-        if cache.limit_bytes > 0:
+        # under a process group a hit on one rank and a miss on another
+        # would wedge the collectives: no result cache there
+        if cache.limit_bytes > 0 and not self.multiprocess:
             idx0 = self.holder.index(index_name)
             if idx0 is not None:
                 if shards is None:
@@ -845,8 +871,9 @@ class Executor:
             try:
                 log.event("wholequery.fallback", index=index, node=e.node,
                           detail=e.detail)
-            # a stale/closed log stream costs a log line, never the
-            # query; the fallback is still counted in the stats above
+            # lint: allow(swallowed-exception) — a stale/closed log
+            # stream costs a log line, never the query; the fallback is
+            # still counted in the stats above
             except Exception:
                 pass
         if self.whole_query_fallback == "error":
@@ -1193,7 +1220,7 @@ class Executor:
         ids = c.args.get("ids")
         tan_thresh, attr_name, attr_values = topn_extras(c)
         if not c.children and ids is None and tan_thresh is None \
-                and attr_name is None \
+                and attr_name is None and not self.multiprocess \
                 and f.options.cache_type in ("ranked", "lru"):
             from ..cache.rank import topn_from_rank
             pairs = topn_from_rank(f, shards, n, stats=self.stats)
@@ -1527,7 +1554,7 @@ class Executor:
         # caches (cache/rank.py); they answer only when they can prove the
         # pruned rows cannot reach the top n, else the full scan runs.
         if not c.children and ids is None and tan_thresh is None \
-                and attr_name is None \
+                and attr_name is None and not self.multiprocess \
                 and f.options.cache_type in ("ranked", "lru"):
             from ..cache.rank import topn_from_rank
             pairs = topn_from_rank(f, shards, n, stats=self.stats)
@@ -1619,12 +1646,16 @@ class Executor:
         row_ids: set[int] = set()
         for vname in views:
             v = f.view(vname)
-            if v is None:
+            # under a process group every rank runs the collective, also
+            # one whose shards never wrote this view
+            if v is None and not self.multiprocess:
                 continue
             if self.stacked is not None and column is None:
                 counts = self.batcher.row_counts(
                     field_name, vname, None, self.holder, index, shards)
                 row_ids.update(int(i) for i in np.nonzero(counts)[0])
+                continue
+            if v is None:
                 continue
             for shard in shards:
                 if column is not None and column // SHARD_WIDTH != shard:
@@ -1642,6 +1673,12 @@ class Executor:
                     ids = np.nonzero(_host(bitset.row_counts(dev)))[0]
                 row_ids.update(int(i) for i in ids)
 
+        if column is not None and self.multiprocess:
+            # only the column's owner holds its bits
+            if not self.stacked.owned(self.holder, index,
+                                      [column // SHARD_WIDTH]):
+                row_ids = set()
+            row_ids = set().union(*self.stacked.gather_objects(row_ids))
         out = sorted(row_ids)
         if previous is not None:
             out = [r for r in out if r > previous]
@@ -1691,6 +1728,9 @@ class Executor:
                 (fr.max_row_id() + 1 for fr in v.fragments.values()
                  if fr.host_bytes()), default=0)
             caps.append(cap)
+        if self.multiprocess:
+            # every rank must lay out the same combos: the largest cap
+            caps = self.stacked.agree_max(caps)
         total = 1
         for c_ in caps:
             total *= c_

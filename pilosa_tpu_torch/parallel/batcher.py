@@ -45,9 +45,12 @@ the queued wait, the tickets and the fused rows) where the JAX module
 does; the whole-query runner reads it into its ledger entry
 (utils/devobs.py).
 
+Under a process group (parallel/multihost.py) no ticket is taken:
+every call goes direct, as the JAX module does on a multi-process mesh.
+
 Deviations from the JAX module: no pow2 padding of a fused reducer
 batch (the eager reducers reuse no executable; whole-query programs pad
-inside the runner) and no multi-process composition (one device).  The
+inside the runner).  The
 ledger records whole-query runs only: the grouped path's eager reducers
 launch no program of their own.
 A matrix ticket of a fused launch refused for its slices runs slice by
@@ -167,8 +170,11 @@ class DispatchBatcher:
     # -- routing -----------------------------------------------------------
 
     def _use_ticket(self) -> bool:
+        # multi-process: per-rank windows would fuse DIFFERENT batch
+        # shapes on different ranks and wedge the collectives;
         # dispatcher re-entrance would deadlock on its own queue
-        return self.enabled and threading.get_ident() != self._tid
+        return (self.enabled and not self.stacked.multiprocess
+                and threading.get_ident() != self._tid)
 
     def _submit(self, kind, key, params, scalar, payload,
                 temp_weight: int = 0):

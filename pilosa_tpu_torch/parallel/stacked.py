@@ -89,7 +89,31 @@ Deviations from the JAX module, by design:
   so a request that captured the old stack reads one consistent state.
   It is serialized under ``_ov_lock`` (the JAX module takes its executor
   lock).
-* Not in this slice: the multi-process mesh paths.
+
+Multi-process mode (``StackedExecutor(device, group=...)``, the JAX
+module's multi-process mesh, parallel/multihost.py): N ranks, each with
+its own card (or sharing one over gloo), hold the same shard set, each
+rank the data of its contiguous slice of the index's shards
+(``multihost.shard_range``; the other shards are empty placeholders).
+Every reducer stacks only this rank's shards of the requested set and
+ends in one fixed collective sequence, the same on every rank whatever
+its data: the JAX module's ``psum`` becomes ``dist.all_reduce(SUM)`` of
+the reduced partials, padded to one length agreed by an
+``all_reduce(MAX)`` of the ranks' lengths (``_all_sum``); its
+``all_gather`` of per-shard outputs becomes ``dist.all_gather`` of
+fixed-shape per-rank blocks (``segments``) or ``all_gather_object`` of
+the ragged per-shard extrema (``bsi_min_max``).  A rank that holds none
+of a group's shards joins the collectives with zeros.  Afterwards every
+rank holds the same answer.  As in the JAX module, the overlay refresh
+re-stages instead (a dense stack whose members journaled ingest since
+it was staged is rebuilt), and the over-budget shard schedule is off:
+one slice.  One deliberate deviation: the JAX module pins the dense
+form on a multi-process mesh, because one global SPMD array needs
+placeholder fragments of one shape.  Here there is no global array:
+each rank's stacks, ragged ``PackedStack`` ones included, hold only its
+own shards, so compressed-resident fragments stay compressed and
+``decode_block`` and ``fused_row_counts`` run in every rank.  The
+answers are the same.
 """
 
 from __future__ import annotations
@@ -104,6 +128,7 @@ import numpy as np
 import torch
 
 from ..core import SHARD_WORDS
+from . import multihost
 from ..executor.plan import eval_plan, parametrize, plan_inputs
 from ..ops import bitset, bsi, containers, kernels
 from ..storage.membudget import DEFAULT_BUDGET
@@ -222,8 +247,17 @@ class StackedExecutor:
     # the pair exceeding the limit.
     STREAM_SLICE_FRACTION = 0.5
 
-    def __init__(self, device, budget=None):
+    def __init__(self, device, budget=None, group=None):
         self.device = torch.device(device)
+        # multi-process mode (module docstring): this rank's place in
+        # the process group; one rank is the single-process path
+        self.group = group
+        self.rank, self.world = 0, 1
+        if group is not None:
+            import torch.distributed as dist
+            self.rank = dist.get_rank(group)
+            self.world = dist.get_world_size(group)
+        self.multiprocess = self.world > 1
         # (index, keys, shards) -> (gen token, groups): the stacked input
         # blocks, rebuilt only when a member fragment's data changes.
         # LRU-bounded, each entry charged to the device budget.
@@ -290,6 +324,99 @@ class StackedExecutor:
                 self._uploader = futures.ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="ptpu-prefetch")
             return self._uploader
+
+    # -- multi-process ownership and collectives ----------------------------
+
+    def _owners(self, holder, index, shards) -> list[int]:
+        """The rank owning each of ``shards``: the contiguous split of the
+        index's shard count that ``multihost.import_process_slice``
+        imports by (every rank holds the same shard set)."""
+        idx = holder.index(index)
+        n = max(idx.available_shards()) + 1 if idx is not None else 1
+        return [multihost.shard_owner(s, n, self.world) for s in shards]
+
+    def owned(self, holder, index, shards) -> list:
+        """This rank's shards of ``shards`` (all of them on one rank)."""
+        if not self.multiprocess:
+            return list(shards)
+        return [s for s, r in zip(shards, self._owners(holder, index,
+                                                       shards))
+                if r == self.rank]
+
+    def agree_max(self, values) -> list[int]:
+        """Element-wise maximum of an int vector over the ranks (the
+        vector itself on one rank)."""
+        values = [int(v) for v in values]
+        if not self.multiprocess or not values:
+            return values
+        import torch.distributed as dist
+        t = torch.tensor(values, dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return [int(v) for v in t.cpu()]
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's ``obj``, in rank order (``[obj]`` on one rank)."""
+        if not self.multiprocess:
+            return [obj]
+        import torch.distributed as dist
+        out = [None] * self.world
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def _all_sum(self, parts, lead: tuple, ragged: bool = True,
+                 keep_last: bool = False) -> list:
+        """The multi-process end of an additive reducer: this rank's
+        parts (``lead`` + a last axis of per-part length when ``ragged``)
+        summed into one block, zero-padded to the longest last axis of
+        any rank, and ``all_reduce``-summed.  ``keep_last``: the last
+        entry of the last axis stays last (a BSI sum's not-null count
+        after its magnitude bits).  Returns the reduced block as the
+        reducer's one part; no part when every rank's last axis is
+        empty, as one rank returns none when no group takes part."""
+        import torch.distributed as dist
+        n = None
+        if ragged:
+            (n,) = self.agree_max([max((p.shape[-1] for p in parts),
+                                       default=0)])
+            if n == 0:
+                return []
+        acc = torch.zeros(lead + ((n,) if ragged else ()),
+                          dtype=torch.int64, device=self.device)
+        for p in parts:
+            if keep_last:
+                acc[..., :p.shape[-1] - 1] += p[..., :-1]
+                acc[..., -1] += p[..., -1]
+            elif ragged:
+                acc[..., :p.shape[-1]] += p
+            else:
+                acc += p
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=self.group)
+        return [acc]
+
+    def _gather_shards(self, out: dict, holder, index, shards,
+                       tail: tuple) -> dict:
+        """The multi-process end of a per-shard reducer: this rank's
+        ``{shard: host uint32 [*tail]}`` rows, gathered as one fixed
+        ``[K, *tail]`` block a rank (K: the most shards any rank owns of
+        ``shards``, which every rank computes alike) and spread back to
+        ``{shard: rows}`` over every requested shard."""
+        import torch.distributed as dist
+        owners = self._owners(holder, index, shards)
+        per_rank = [[s for s, r in zip(shards, owners) if r == rank]
+                    for rank in range(self.world)]
+        k = max(len(p) for p in per_rank)
+        block = np.zeros((k,) + tail, dtype=np.uint32)
+        for i, s in enumerate(per_rank[self.rank]):
+            block[i] = out[s]
+        local = bitset.from_numpy(block, self.device)
+        got = [torch.empty_like(local) for _ in range(self.world)]
+        dist.all_gather(got, local, group=self.group)
+        res = {}
+        for rank, mine in enumerate(per_rank):
+            host = bitset.to_numpy(got[rank])
+            for i, s in enumerate(mine):
+                res[s] = host[i]
+        return res
 
     # -- shard grouping ----------------------------------------------------
 
@@ -386,7 +513,10 @@ class StackedExecutor:
             decoded.extend(k not in fo for k in kl)
         limit = self._budget.limit_bytes
         slices = [shards]
-        if limit and len(shards) > self.n_devices:
+        # multi-process: one slice (every rank must run one collective
+        # sequence, and a rank's slicing depends on its own data)
+        if limit and len(shards) > self.n_devices \
+                and not self.multiprocess:
             per, dec = self._estimate_shard_bytes(all_keys, decoded, holder,
                                                   index, shards)
             ws = max(1, DECODE_WORKSPACE_BYTES)
@@ -439,7 +569,9 @@ class StackedExecutor:
         device.  Returns [(shard_list, placed_per_key, sig)];
         ``placed_per_key[i]`` is None when key i's fragment is absent in
         the whole group, a ``PackedStack`` for a compressed entry, else
-        the dense ``[S, rows, W]`` stack."""
+        the dense ``[S, rows, W]`` stack.  In multi-process mode only
+        this rank's shards of ``shards`` are stacked."""
+        shards = self.owned(holder, index, shards)
         frags, token, epochs = self._stack_token(keys, holder, index, shards)
         ckey = (index, tuple(keys), tuple(shards))
         skey = ("stack", id(self), ckey)
@@ -447,6 +579,9 @@ class StackedExecutor:
             cached = self._stack_cache.get(ckey)
             if cached is not None and cached[0] == token:
                 self._stack_cache.move_to_end(ckey)
+        if cached is not None and cached[0] == token and \
+                cached[2] != epochs and self.multiprocess:
+            cached = None   # multi-process: re-stage, as the JAX module does
         if cached is not None and cached[0] == token:
             if cached[2] != epochs:
                 # the stack is current at its device_gen token, but
@@ -655,6 +790,8 @@ class StackedExecutor:
             seg = eval_plan(slotted, frags, params, lead=(len(shard_list),),
                             device=self.device)
             parts.append(bitset.count(seg))
+        if self.multiprocess:
+            return self._all_sum(parts, (), ragged=False)
         return parts
 
     def count(self, plan, holder, index, shards) -> int:
@@ -679,6 +816,9 @@ class StackedExecutor:
             host = bitset.to_numpy(segs)
             for i, shard in enumerate(shard_list):
                 out[shard] = host[i]
+        if self.multiprocess:
+            return self._gather_shards(out, holder, index, shards,
+                                       (SHARD_WORDS,))
         return out
 
     def segments_batch(self, slotted, params_mat, holder, index,
@@ -702,6 +842,9 @@ class StackedExecutor:
             host = bitset.to_numpy(segs)                     # [B, S, W]
             for i, shard in enumerate(shard_list):
                 out[shard] = host[:, i]
+        if self.multiprocess:
+            return self._gather_shards(out, holder, index, shards,
+                                       (B, SHARD_WORDS))
         return out
 
     @staticmethod
@@ -747,6 +890,8 @@ class StackedExecutor:
                 masked = frag if filt is None else frag & filt[:, None, :]
                 counts = bitset.row_counts(masked)           # [S, rows]
             parts.append(counts.sum(dim=0, dtype=torch.int64))
+        if self.multiprocess:
+            return self._all_sum(parts, ())
         return parts
 
     def row_counts(self, field: str, view: str, filter_plan, holder,
@@ -769,9 +914,12 @@ class StackedExecutor:
         out = []
         for lo in range(0, combos.shape[0], self.GROUP_CHUNK):
             sub = combos[lo: lo + self.GROUP_CHUNK]
-            out.append((lo, lo + sub.shape[0], self._group_counts_chunk(
+            parts = self._group_counts_chunk(
                 last_key, prefix_keys, sub, filter_plan, holder, index,
-                shards)))
+                shards)
+            if self.multiprocess:
+                parts = self._all_sum(parts, (sub.shape[0],))
+            out.append((lo, lo + sub.shape[0], parts))
         return out
 
     def _group_counts_chunk(self, last_key, prefix_keys, combos,
@@ -842,9 +990,12 @@ class StackedExecutor:
         device matrices, one per signature group; combine with
         ``bsi.weighted_sum`` per part and add."""
         fplan, params = self._slotted(filter_plan)
-        return [bsi.sum_counts(frag, filt).sum(dim=0, dtype=torch.int64)
-                for _, frag, filt in self._bsi_groups(
-                    field, view, fplan, params, holder, index, shards)]
+        parts = [bsi.sum_counts(frag, filt).sum(dim=0, dtype=torch.int64)
+                 for _, frag, filt in self._bsi_groups(
+                     field, view, fplan, params, holder, index, shards)]
+        if self.multiprocess:
+            return self._all_sum(parts, (2,), keep_last=True)
+        return parts
 
     def bsi_min_max(self, field: str, view: str, filter_plan, holder,
                     index, shards, want_max: bool) -> list:
@@ -859,6 +1010,8 @@ class StackedExecutor:
             out.extend(bsi.reconstruct_min_max(bits[i], int(neg[i]),
                                                int(cnt[i]))
                        for i in range(n))
+        if self.multiprocess:
+            return [x for part in self.gather_objects(out) for x in part]
         return out
 
     # -- batched variants: B same-shape calls over one [B, P] params -------
@@ -882,6 +1035,9 @@ class StackedExecutor:
                              lead=(len(shard_list),), device=self.device)
             parts.append(bitset.popcount_words(segs).sum(
                 dim=(-2, -1), dtype=torch.int64))           # [B]
+        if self.multiprocess:
+            return self._all_sum(parts, (params_mat.shape[0],),
+                                 ragged=False)
         return parts
 
     def row_counts_batch_async(self, field: str, view: str, slotted_filter,
@@ -919,6 +1075,8 @@ class StackedExecutor:
                     dim=1, dtype=torch.int64)                # [B|1, rows]
             # a filter-less group computes once and broadcasts over B
             parts.append(counts.expand(B, -1))
+        if self.multiprocess:
+            return self._all_sum(parts, (B,))
         return parts
 
     def bsi_sum_batch_async(self, field: str, view: str, slotted_filter,
@@ -936,6 +1094,8 @@ class StackedExecutor:
                              .expand((B,) + tuple(counts.shape[1:])))
             else:
                 parts.append(counts.sum(dim=1, dtype=torch.int64))
+        if self.multiprocess:
+            return self._all_sum(parts, (B, 2), keep_last=True)
         return parts
 
 
@@ -1063,7 +1223,8 @@ class _ShardSchedule:
                 try:
                     for k in fut.result():
                         budget.unpin(k)
-                # a failed prefetch already shows as a prefetch miss and
-                # a re-stage; this finally only releases its pins
+                # lint: allow(swallowed-exception) — a failed prefetch
+                # already shows as a prefetch miss and a re-stage; this
+                # finally only releases its pins
                 except (Exception, futures.CancelledError):
                     pass

@@ -345,6 +345,13 @@ class WholeQueryRunner:
     def precheck(self, program, holder, index, shards):
         """Raise WholeQueryUnsupported for shapes the single-program
         path cannot take; returns the program's stacked key list."""
+        if self.stacked.multiprocess:
+            # the executor builds no runner under a process group; this
+            # guards a hand-built one: a captured graph cannot hold the
+            # ranks' collectives
+            raise WholeQueryUnsupported(
+                "multiprocess-mesh",
+                "collectives run eagerly on the grouped path")
         keys = self.program_keys(program)
         if keys and shards:
             sched = self.stacked.shard_schedule(

@@ -29,7 +29,7 @@ SSB_INDEX = "ssb"
 
 
 def build_ssb(holder, rng, n_shards: int = N_SHARDS_SSB,
-              sparse: bool = True) -> np.ndarray:
+              sparse: bool = True, keep=None) -> np.ndarray:
     """Fill ``holder`` with the SSB fact index and return the oracle
     histogram ``int64[n_shards, 7, 5, 12, 8]``: per shard, the number of
     live words whose columns carry each (year, region, category, rev)
@@ -37,7 +37,13 @@ def build_ssb(holder, rng, n_shards: int = N_SHARDS_SSB,
 
     ``sparse=True`` keeps about 1.5% of fact words plus one contiguous
     fully-populated 512-word region per shard: the scattered + clustered
-    mix that packs into array AND run containers."""
+    mix that packs into array AND run containers.
+
+    ``keep``: a range of shards to store (one rank's slice of a
+    multi-process engine, parallel/multihost.py).  Every shard is still
+    drawn, so the corpus and the histogram are the seed's; the other
+    shards get empty fragments at each field's row count, as
+    ``multihost.import_process_slice`` leaves them."""
     idx = holder.create_index(SSB_INDEX, track_existence=False)
     views = {}
     for name, _rows in SSB_FIELDS:
@@ -61,8 +67,11 @@ def build_ssb(holder, rng, n_shards: int = N_SHARDS_SSB,
                 words[r, assign == r] = 0xFFFFFFFF
             words &= live[None, :]
             fr = views[name].create_fragment_if_not_exists(shard)
-            for r in range(n_rows):
-                fr.set_row(r, words[r])
+            if keep is None or shard in keep:
+                for r in range(n_rows):
+                    fr.set_row(r, words[r])
+            else:
+                fr.set_row(n_rows - 1, None)  # capacity only, no bits
             row_of.append(words.argmax(axis=0))
         on = live != 0
         np.add.at(hist[shard], tuple(r[on] for r in row_of), 1)

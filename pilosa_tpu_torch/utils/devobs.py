@@ -158,8 +158,9 @@ class CompileRegistry:
                 log.event("device.retrace", sig=sig, kind=kind,
                           compiles=n, compileS=round(dur_s, 4),
                           prevShapes=prev_fp, shapes=fp)
-            # a stale/closed log stream costs a log line, never the
-            # launch; the retrace is still counted above
+            # lint: allow(swallowed-exception) — a stale/closed log
+            # stream costs a log line, never the launch; the retrace is
+            # still counted above
             except Exception:
                 pass
         try:
@@ -171,8 +172,8 @@ class CompileRegistry:
                     {"sig": sig, "kind": kind, "compiles": n,
                      "prevShapes": prev_fp, "shapes": fp},
                     collect=ctx.collect)
-        # span synthesis is best-effort decoration; tracing must never
-        # fail a launch
+        # lint: allow(swallowed-exception) — span synthesis is
+        # best-effort decoration; tracing must never fail a launch
         except Exception:
             pass
         return True

@@ -56,6 +56,7 @@ tests/test_torch_wholequery.py
 tests/test_translate.py
 tests/test_wholequery.py
 tests/test_torch_devobs.py
+tests/test_torch_analysis.py
 "
 
 # Leg 2: cluster plane (fan-out, chaos, routing, resize, wire) + server
@@ -87,6 +88,7 @@ tests/test_torch_resize.py
 tests/test_warmup.py
 tests/test_torch_warmup.py
 tests/test_torch_slo.py
+tests/test_torch_multihost.py
 "
 
 _check_partition() {

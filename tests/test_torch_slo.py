@@ -12,9 +12,10 @@ cluster: a ChaosProxy straggler fires the latency burn alert, a bundle
 lands on disk inside the budget, the alert resolves after the heal.
 
 The JAX test runs the ``alert-names`` analyzer rule over a synthetic
-tree; the analyzer is not ported, so the catalog check here reads the
-docs table directly, for the port's rule registry and the JAX
-package's alike.  Answers are compared exactly.
+tree; the port's ``alert-names`` rule (tests/test_torch_analysis.py)
+lints the registrations against the catalog two ways, and the catalog
+case here still reads the docs table directly, for the port's rule
+registry and the JAX package's alike.  Answers are compared exactly.
 """
 
 import json
