@@ -7,8 +7,9 @@ star-schema corpus at its full 256 shards, BASELINE config 4 (BSI
 Sum / range predicates + GroupBy over 64 shards at depth 20), each
 dense-resident and compressed-resident, and BASELINE config 5 over 954
 shards under a device budget smaller than its working set and on four
-cluster nodes, and the SSB and config-4 corpora split over two rank
-processes of one multi-process engine — through the user entry points
+cluster nodes, the SSB and config-4 corpora split over two rank
+processes of one multi-process engine, and a server killed under write
+load and restarted — through the user entry points
 ``pilosa_tpu_torch.executor.Executor`` and
 ``pilosa_tpu_torch.server.Server``, and holds every CUDA kernel of
 those paths against its plain PyTorch version.  Phases, each printing
@@ -176,10 +177,35 @@ its own lines and its seconds:
    their plain versions.  Printed: hedges, repair seconds, the
    anti-entropy counters (blocks compared and merged, errors), launches
    and captures after the repair, kernel times beside their bound.
-12. the ``kernels`` JSON line, a JSON line of the phases' records, the
+12. parity — crash recovery of the served path on the card, the
+   whole-query deadline gate and the cache-clear route: a 32-shard
+   index (``f`` with a run row, ``a`` and ``b``, sparse) loaded through
+   ``import-roaring``; then two kill cycles of a ``python3 -m
+   pilosa_tpu_torch server --device cuda`` writer, compressed-resident
+   under 256 MiB, under single-bit ``Set`` load — one killed by the
+   ``fragment.wal=kill:25`` failpoint inside a WAL append, one by a
+   SIGKILL at a random write index.  After each kill the data dir is
+   restarted in this process compressed-resident, then dense: READY,
+   ``storage.degraded`` false, every acknowledged write present and at
+   most the one in flight extra, and five requests of one signature
+   (Counts under a filter and the TopN of ``f`` under ``a & b``) equal
+   to the host oracle on the default whole-query path, with graphs
+   replayed; the compressed restart must launch both kernels (counts
+   reset just before it, read just after), and both are held against
+   their plain versions on its own stacks.  The last compressed
+   restart also takes ``mesh.slice=delay:0.2@parity`` with
+   ``?timeout=0.05`` (504, ``query.deadline_abort`` counted, no
+   whole-query fallback; disarmed, the same request answers right) and
+   ``POST /internal/cache/clear`` (a repeated request hits the result
+   cache, the clear reports the entries, the next request misses and
+   equals the oracle).  Printed per restart, beside the card's name and
+   power limit: the WAL replay seconds (``Holder.open()`` on a copy of
+   the killed dir) and bytes, seconds to READY and the first request's
+   ms.
+13. the ``kernels`` JSON line, a JSON line of the phases' records, the
    ``served`` and ``warm_start`` JSON lines, the ``cfg5_budget`` /
    ``cluster`` / ``replicas`` JSON line, the ``multiprocess`` JSON line,
-   the nvidia-smi line, and last
+   the ``parity`` JSON line, the nvidia-smi line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the result line.  It imports
@@ -2845,6 +2871,452 @@ def run_replicas(device, n_shards: int = REPLICA_SHARDS) -> dict:
     return rec
 
 
+# -- phase 12: parity (crash recovery, deadline gate, cache clear) --------
+
+PARITY_INDEX = "parity"
+PARITY_SHARDS = 32
+PARITY_BUDGET_MB = 256         # a device budget: compressed residency
+PARITY_MAX_OP_N = 12           # snapshot every ~12 ops of a fragment
+PARITY_WRITE_ROWS = range(8, 14)   # f's rows the Set load writes
+PARITY_MAX_WRITES = 250
+# (field, rows, density of each row's bits in a shard): sparse enough
+# that every fragment is compressed-resident under the budget (fewer
+# than a quarter of its words nonzero); f's row 0 holds runs, its rows
+# 8-13 start empty and take the Set load
+PARITY_FIELDS = (("f", 8, 0.005), ("a", 4, 0.005), ("b", 8, 0.005))
+# the two kill cycles: a kill-mode failpoint inside the WAL append (as
+# tests/test_torch_crash.py arms it), then a manual SIGKILL
+PARITY_SPECS = ("fragment.wal=kill:25", "")
+# (x, y, rg, c) of ``parity_pql``: read requests of one signature (so
+# the second is captured and the rest replay), each with its own row
+# ids so that the result cache never answers one for another
+PARITY_REQUESTS = ((2, 1, 1, 3), (1, 0, 2, 5), (8, 3, 1, 3), (0, 2, 3, 7),
+                   (9, 1, 0, 1))
+
+
+def parity_corpus(rng) -> dict:
+    """``{field: {row: int64[columns]}}`` over PARITY_SHARDS shards, from
+    the seed: sparse rows (array containers) and f's row 0 as runs of
+    300 bits every 4096 columns (run containers)."""
+    width = 1 << 20
+    out = {}
+    for name, rows, p in PARITY_FIELDS:
+        out[name] = {}
+        for r in range(rows):
+            cols = []
+            for shard in range(PARITY_SHARDS):
+                if name == "f" and r == 0:
+                    starts = np.arange(0, width, 4096) + rng.integers(
+                        0, 3796, width // 4096)
+                    c = (starts[:, None] + np.arange(300)).ravel()
+                else:
+                    n = int(rng.binomial(width, p))
+                    c = np.unique(rng.integers(0, width, n))
+                cols.append(c + shard * width)
+            out[name][r] = np.sort(np.concatenate(cols)).astype(np.int64)
+    for r in PARITY_WRITE_ROWS:
+        out["f"][r] = np.zeros(0, dtype=np.int64)
+    return out
+
+
+def parity_bodies(corpus) -> list:
+    """One pilosa-roaring body per (field, shard)."""
+    from pilosa_tpu_torch.storage.roaring_io import pack_roaring
+    width = 1 << 20
+    out = []
+    for name, rows in corpus.items():
+        r_all = np.concatenate([np.full(c.size, r) for r, c in rows.items()])
+        c_all = np.concatenate(list(rows.values()))
+        shard_of = c_all // width
+        for shard in range(PARITY_SHARDS):
+            m = shard_of == shard
+            out.append((name, shard,
+                        pack_roaring(r_all[m], c_all[m] % width)))
+    return out
+
+
+def parity_pql(req) -> str:
+    """A Count under a filter, the TopN of f under ``a[rg] & b[c]`` and
+    an unfiltered Count."""
+    x, y, rg, c = req
+    return (f"Count(Intersect(Row(f={x}), Row(a={y}))) "
+            f"TopN(f, Intersect(Row(a={rg}), Row(b={c})), n=5) "
+            f"Count(Row(f=0))")
+
+
+def parity_oracle(state, req) -> list:
+    """The host's answers to ``parity_pql(req)`` from ``state``."""
+    x, y, rg, c = req
+    f = state["f"]
+    filt = np.intersect1d(state["a"][rg], state["b"][c])
+    counts = {r: np.intersect1d(cols, filt).size for r, cols in f.items()}
+    top = sorted((r for r in counts if counts[r] > 0),
+                 key=lambda r: (-counts[r], r))[:5]
+    return [int(np.intersect1d(f[x], state["a"][y]).size),
+            [{"id": r, "count": counts[r]} for r in top],
+            int(f[0].size)]
+
+
+def parity_writer(data_dir: str, spec: str, device, root: str):
+    """``python3 -m pilosa_tpu_torch server --device ...`` over the data
+    dir, compressed-resident under PARITY_BUDGET_MB, with ``spec`` armed
+    (the server arms config failpoints before it opens the holder).
+    Returns (process, port) once it serves."""
+    import socket
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    cfg = os.path.join(root, "writer.toml")
+    with open(cfg, "w") as f:
+        f.write(f'data-dir = "{data_dir}"\n'
+                f'bind = "localhost:{port}"\n'
+                f"max-op-n = {PARITY_MAX_OP_N}\n"
+                f"device-budget-mb = {PARITY_BUDGET_MB}\n"
+                f'failpoints = "{spec}"\n'
+                "warmup-top-n = 0\n"
+                "repair-interval = 0\n"
+                "[anti-entropy]\ninterval = 0\n")
+    # the writer's log goes to a file: a pipe nobody reads could fill
+    # and stall it mid-load
+    log = os.path.join(root, "writer.log")
+    with open(log, "ab") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch", "server", "-c", cfg,
+             "--device", str(device)],
+            stdout=out, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 120
+    while True:
+        try:
+            http(port, "GET", "/status", timeout=5)
+            return proc, port
+        except OSError:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                proc.kill()
+                proc.wait(timeout=30)
+                with open(log, "rb") as f:
+                    tail = f.read()[-2000:].decode(errors="replace")
+                raise AssertionError(
+                    f"the parity writer did not come up: {tail}")
+            time.sleep(0.2)
+
+
+def parity_write_load(proc, port: int, rng, acked: dict, filt) -> dict:
+    """Single-bit ``Set`` load until the writer dies at its failpoint;
+    a writer that outlives a random write index (every one, with no
+    failpoint armed) is SIGKILLed there.  Half the columns fall in the
+    ``a[1] & b[3]`` filter, so the recovered writes move the TopN.
+    Returns the cycle's record; ``acked`` gains the acknowledged writes
+    and the record's ``maybe`` holds the one in flight, if any."""
+    import http.client as httplib
+    import signal
+    width = PARITY_SHARDS << 20
+    manual_at = int(rng.integers(20, PARITY_MAX_WRITES))
+    used = set().union(*acked.values())
+    maybe = None
+    n_acked = 0
+    t0 = time.perf_counter()
+    for i in range(PARITY_MAX_WRITES):
+        row = int(rng.choice(list(PARITY_WRITE_ROWS)))
+        while True:
+            col = int(filt[rng.integers(0, filt.size)]) if i % 2 \
+                else int(rng.integers(0, width))
+            if col not in used:
+                break
+        used.add(col)
+        maybe = (row, col)
+        try:
+            http(port, "POST", f"/index/{PARITY_INDEX}/query",
+                 f"Set({col}, f={row})".encode(), timeout=30)
+        except (OSError, httplib.HTTPException):
+            rc = proc.wait(timeout=30)
+            if rc != -signal.SIGKILL:
+                raise AssertionError(f"the parity writer died rc={rc} "
+                                     f"under write load")
+            break
+        acked[row].add(col)
+        n_acked += 1
+        maybe = None
+        if i >= manual_at:
+            break
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=30)
+    return {"writes_acked": n_acked, "maybe": maybe,
+            "killed_by": "failpoint" if maybe is not None else "manual",
+            "load_s": time.perf_counter() - t0}
+
+
+def parity_replay_s(data_dir: str, root: str) -> tuple:
+    """Seconds ``Holder.open()`` takes on a copy of the killed data dir
+    (every snapshot loaded, every WAL frame replayed, the torn tail
+    truncated), and the WAL bytes it found."""
+    import shutil
+    from pilosa_tpu_torch.storage import Holder
+    copy = os.path.join(root, "replay-copy")
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(data_dir, copy)
+    wal = sum(os.path.getsize(os.path.join(d, fn))
+              for d, _, fns in os.walk(copy) for fn in fns
+              if fn.endswith(".wal"))
+    t0 = time.perf_counter()
+    h = Holder(copy)
+    h.open()
+    dt = time.perf_counter() - t0
+    h.close()
+    shutil.rmtree(copy)
+    return dt, wal
+
+
+def parity_restart(data_dir: str, device, label: str, state, acked,
+                   maybe, budget_mb: int) -> tuple:
+    """Restart on ``device`` over the killed data dir, in this process,
+    and hold it to the durability contract: READY, ``storage.degraded``
+    false, every acknowledged write present and at most the in-flight
+    one extra; then the read requests on the default whole-query path
+    (eager, captured, replayed) equal the host oracle.  Returns (the
+    server, left open, its record, the in-flight write if it landed)."""
+    from pilosa_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv = start_server(data_dir, device, max_op_n=PARITY_MAX_OP_N,
+                       device_budget_mb=budget_mb, warmup_top_n=0,
+                       anti_entropy_interval=0, result_cache_mb=16)
+    ready_s, seen = wait_ready(srv, t0)
+    try:
+        st = http(srv.port, "GET", "/status")
+        if st["storage"]["degraded"] is not False:
+            raise AssertionError(f"parity {label}: degraded after a "
+                                 f"kill: {st['storage']}")
+        landed = None
+        for row in PARITY_WRITE_ROWS:
+            [res] = http(srv.port, "POST", f"/index/{PARITY_INDEX}/query",
+                         f"Row(f={row})".encode())["results"]
+            got = set(res["columns"])
+            lost = acked[row] - got
+            extra = got - acked[row]
+            if lost:
+                raise AssertionError(f"parity {label}: row {row} lost "
+                                     f"{len(lost)} acknowledged writes, "
+                                     f"e.g. {sorted(lost)[:5]}")
+            if extra and (maybe is None or extra != {maybe[1]}
+                          or maybe[0] != row):
+                raise AssertionError(f"parity {label}: row {row} holds "
+                                     f"invented columns {sorted(extra)[:5]}")
+            if extra:
+                landed = maybe
+        # the oracle's write rows: what was acknowledged, and the write
+        # in flight if it landed
+        for row in PARITY_WRITE_ROWS:
+            cols = set(acked[row])
+            if landed is not None and landed[0] == row:
+                cols.add(landed[1])
+            state["f"][row] = np.array(sorted(cols), dtype=np.int64)
+        lat = []
+        for req in PARITY_REQUESTS:
+            t1 = time.perf_counter()
+            got = http(srv.port, "POST", f"/index/{PARITY_INDEX}/query",
+                       parity_pql(req).encode())["results"]
+            lat.append((time.perf_counter() - t1) * 1e3)
+            want = parity_oracle(state, req)
+            if got != want:
+                raise AssertionError(f"parity {label}: {parity_pql(req)} "
+                                     f"-> {got}, oracle {want}")
+        dv = http(srv.port, "GET", "/debug/vars")
+        graphs = dv["device"]["graphs"]
+        rec = {"ready_s": ready_s, "states": seen,
+               "first_request_ms": lat[0], "request_ms": lat[1:],
+               "budget_mb": budget_mb, "landed_in_flight": landed
+               is not None, "wq_fallbacks": dv["wholeQuery"]["fallbacks"],
+               "captures": graphs["captures"], "replays": graphs["replays"],
+               "launches": dict(dv["device"]["kernelLaunches"])}
+        if rec["wq_fallbacks"] or (torch.device(device).type == "cuda"
+                                   and not rec["replays"]):
+            raise AssertionError(f"parity {label}: whole-query {rec}")
+        return srv, rec, landed
+    except BaseException:
+        srv.close()
+        raise
+
+
+def parity_kernels(srv) -> tuple:
+    """Both kernels on the restarted server's own stacks for the TopN of
+    ``PARITY_REQUESTS[0]``, against their plain versions; returns
+    their records."""
+    dec, fus = _new_rec(), _new_rec()
+    _x, _y, rg, c = PARITY_REQUESTS[0]
+    st = srv.api.executor.stacked
+    keys = [("f", "standard"), ("a", "standard"), ("b", "standard")]
+    groups = st._placed_groups(keys, srv.holder, PARITY_INDEX,
+                               list(range(PARITY_SHARDS)))
+    for shard_list, placed, sig in groups:
+        measure_group(placed, sig, len(shard_list), dec, fus, rg, c)
+    for name, k in (("decode_block", dec), ("fused_row_counts", fus)):
+        if k["err"]:
+            raise AssertionError(f"parity: {name} differs from its plain "
+                                 f"version on the restarted server's "
+                                 f"stacks: {k['err']}")
+    return dec, fus
+
+
+def parity_deadline(srv, state) -> dict:
+    """``mesh.slice=delay:0.2@<index>`` armed: a whole-query request
+    with ``?timeout=0.05`` answers 504 with ``query.deadline_abort``
+    counted and no whole-query fallback; disarmed, the same request
+    answers the oracle."""
+    import urllib.error
+    from pilosa_tpu_torch.utils.faults import FAULTS
+    req = (3, 2, 2, 6)
+    before = http(srv.port, "GET", "/debug/vars")
+    FAULTS.configure(f"mesh.slice=delay:0.2@{PARITY_INDEX}")
+    t0 = time.perf_counter()
+    try:
+        http(srv.port, "POST", f"/index/{PARITY_INDEX}/query?timeout=0.05",
+             parity_pql(req).encode())
+        code, body = 200, {}
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    finally:
+        FAULTS.disarm()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = http(srv.port, "GET", "/debug/vars")
+    aborts = after["counts"].get("query.deadline_abort", 0) - \
+        before["counts"].get("query.deadline_abort", 0)
+    fallbacks = after["wholeQuery"]["fallbacks"] - \
+        before["wholeQuery"]["fallbacks"]
+    if code != 504 or aborts < 1 or fallbacks:
+        raise AssertionError(f"parity deadline: {code} {body}, "
+                             f"aborts {aborts}, fallbacks {fallbacks}")
+    got = http(srv.port, "POST", f"/index/{PARITY_INDEX}/query",
+               parity_pql(req).encode())["results"]
+    if got != parity_oracle(state, req):
+        raise AssertionError(f"parity deadline: disarmed answer {got}")
+    return {"code": code, "ms": ms, "budget_s": body.get("budgetS"),
+            "deadline_aborts": aborts, "wq_fallbacks": fallbacks}
+
+
+def parity_cache_clear(srv, state) -> dict:
+    """A repeated request hits the result cache; ``POST
+    /internal/cache/clear`` reports the entries it dropped; the next
+    request misses and equals the oracle."""
+    req = PARITY_REQUESTS[-1]
+    body = parity_pql(req).encode()
+    hits0 = http(srv.port, "GET", "/debug/vars")["resultCache"]["hits"]
+    got = http(srv.port, "POST", f"/index/{PARITY_INDEX}/query",
+               body)["results"]
+    rc = http(srv.port, "GET", "/debug/vars")["resultCache"]
+    cleared = http(srv.port, "POST", "/internal/cache/clear", b"")
+    got2 = http(srv.port, "POST", f"/index/{PARITY_INDEX}/query",
+                body)["results"]
+    rc2 = http(srv.port, "GET", "/debug/vars")["resultCache"]
+    want = parity_oracle(state, req)
+    if rc["hits"] != hits0 + 1 or cleared["resultEntries"] < 1 or \
+            rc2["misses"] != rc["misses"] + 1 or got != want or \
+            got2 != want:
+        raise AssertionError(f"parity cache clear: hits {hits0} -> "
+                             f"{rc['hits']}, cleared {cleared}, misses "
+                             f"{rc['misses']} -> {rc2['misses']}")
+    return {"cleared": cleared, "hits": rc["hits"],
+            "misses_after": rc2["misses"]}
+
+
+def run_parity(device, card: str) -> dict:
+    """Phase parity: crash recovery of the served path on the card, the
+    whole-query deadline gate and the cache-clear route.  The corpus is
+    loaded through ``import-roaring``; then two kill cycles of a CLI
+    server on ``device`` (a WAL-append failpoint, then a manual
+    SIGKILL), each followed by a compressed-resident restart (both
+    kernels must launch, and hold against their plain versions on the
+    restarted server's stacks) and a dense-resident restart over the
+    same data dir, each held to the durability contract and the oracle.
+    The last compressed restart also takes the deadline and cache-clear
+    legs."""
+    import tempfile
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 90)
+    state = parity_corpus(rng)
+    filt = np.intersect1d(state["a"][1], state["b"][3])
+    acked = {r: set() for r in PARITY_WRITE_ROWS}
+    rec = {"shards": PARITY_SHARDS, "budget_mb": PARITY_BUDGET_MB,
+           "card": card, "cycles": []}
+    with tempfile.TemporaryDirectory() as root:
+        data_dir = os.path.join(root, "data")
+        srv = start_server(data_dir, device, max_op_n=PARITY_MAX_OP_N,
+                           device_budget_mb=PARITY_BUDGET_MB,
+                           anti_entropy_interval=0, warmup_top_n=0)
+        try:
+            t0 = time.perf_counter()
+            http(srv.port, "POST", f"/index/{PARITY_INDEX}",
+                 {"options": {"trackExistence": False}})
+            for name, _rows, _p in PARITY_FIELDS:
+                http(srv.port, "POST",
+                     f"/index/{PARITY_INDEX}/field/{name}", {})
+            for name, shard, body in parity_bodies(state):
+                http(srv.port, "POST", f"/index/{PARITY_INDEX}/field/"
+                     f"{name}/import-roaring/{shard}", body,
+                     ctype="application/octet-stream")
+            rec["load_s"] = time.perf_counter() - t0
+        finally:
+            srv.close()
+        say("parity", leg="load", seconds=rec["load_s"],
+            bodies=PARITY_SHARDS * len(PARITY_FIELDS), card=repr(card))
+        for cycle, spec in enumerate(PARITY_SPECS):
+            proc, port = parity_writer(data_dir, spec, device, root)
+            try:
+                cyc = parity_write_load(proc, port, rng, acked, filt)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait(timeout=30)
+            cyc["spec"] = spec
+            cyc["replay_s"], cyc["wal_bytes"] = parity_replay_s(data_dir,
+                                                                root)
+            maybe = cyc.pop("maybe")
+            for label, budget in (("compressed", PARITY_BUDGET_MB),
+                                  ("dense", 0)):
+                srv, r, landed = parity_restart(
+                    data_dir, device, f"{label}{cycle}", state, acked,
+                    maybe, budget)
+                try:
+                    if landed is not None:
+                        acked[landed[0]].add(landed[1])
+                        maybe = None
+                    if label == "compressed":
+                        if torch.device(device).type == "cuda":
+                            for name, n in r["launches"].items():
+                                if n <= 0:
+                                    raise AssertionError(
+                                        f"parity: the restarted compressed "
+                                        f"server never launched {name}")
+                        # both kernels at every restart; the last
+                        # restart's records go to the kernels line
+                        dec, fus = parity_kernels(srv)
+                        if cycle == len(PARITY_SPECS) - 1:
+                            rec["deadline"] = parity_deadline(srv, state)
+                            rec["cache_clear"] = parity_cache_clear(
+                                srv, state)
+                finally:
+                    srv.close()
+                cyc[label] = r
+                say("parity", cycle=cycle, run=label, spec=repr(spec),
+                    killed_by=cyc["killed_by"], acked=cyc["writes_acked"],
+                    replay_s=cyc["replay_s"], wal_bytes=cyc["wal_bytes"],
+                    ready_s=r["ready_s"],
+                    first_request_ms=r["first_request_ms"],
+                    replays=r["replays"], launches=json.dumps(r["launches"]),
+                    card=repr(card))
+            rec["cycles"].append(cyc)
+    say("parity", leg="kernels", **{
+        f"{n}_{k}": r[k] for n, r in (("decode_block", dec),
+                                      ("fused_row_counts", fus))
+        for k in ("err", "ms", "plain_ms")}, card=repr(card))
+    say("parity", leg="deadline", **rec["deadline"], card=repr(card))
+    say("parity", leg="cache_clear", **rec["cache_clear"])
+    rec["kernel_recs"] = {"decode_block": dec, "fused_row_counts": fus}
+    rec["acked_total"] = sum(len(v) for v in acked.values())
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
 def main(argv) -> int:
     profile = "--profile" in argv
     if not torch.cuda.is_available():
@@ -3007,6 +3479,12 @@ def main(argv) -> int:
     say("replicas", seconds=time.perf_counter() - t0)
     repl_recs = repl.pop("kernel_recs")
 
+    # parity: crash recovery on the card, the deadline gate, cache clear
+    t0 = time.perf_counter()
+    par = run_parity(device, card)
+    say("parity", seconds=time.perf_counter() - t0)
+    par_recs = par.pop("kernel_recs")
+
     src = "pilosa_tpu_torch/csrc/container_kernels.cu"
     lines = []
     served_launches = served["compressed"]["launches_per_request"]
@@ -3032,7 +3510,16 @@ def main(argv) -> int:
              {"launches": repl["launches_after_repair"]}, None, None),
             ("fused_row_counts", repl_recs["fused_row_counts"],
              f"{JAX_KERNELS}:326", "replicas_repaired",
-             {"launches": repl["launches_after_repair"]}, None, None)):
+             {"launches": repl["launches_after_repair"]}, None, None),
+            # the compressed restart after the last kill cycle
+            ("decode_block", par_recs["decode_block"],
+             f"{JAX_KERNELS}:245", "parity_restart",
+             {"launches": par["cycles"][-1]["compressed"]["launches"]},
+             None, None),
+            ("fused_row_counts", par_recs["fused_row_counts"],
+             f"{JAX_KERNELS}:326", "parity_restart",
+             {"launches": par["cycles"][-1]["compressed"]["launches"]},
+             None, None)):
         b_ms, b_by = bound(rec)
         launches = run["launches" if "launches" in run
                        else "launches_phase"][name]
@@ -3088,6 +3575,7 @@ def main(argv) -> int:
     print(json.dumps({"cfg5_budget": c5, "cluster": clus,
                       "replicas": repl}))
     print(json.dumps({"multiprocess": mp}))
+    print(json.dumps({"parity": par}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

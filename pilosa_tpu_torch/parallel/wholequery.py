@@ -91,6 +91,7 @@ from ..ops import bitset, bsi, containers, kernels
 from ..utils import devobs
 from ..utils import profile as qprof
 from ..utils.deadline import check_current
+from ..utils.faults import FAULTS
 from .stacked import _Frags, _flatten_present, _sig_rows, _unpack_frags
 
 
@@ -389,6 +390,7 @@ class WholeQueryRunner:
         params[Pf])).  Returns unfetched device parts per node."""
         st = self.stacked
         keys = self.precheck(program, holder, index, shards)
+        FAULTS.hit("mesh.slice", key=index)
         check_current("whole-query dispatch")
         shards = list(shards)
         groups = st._placed_groups(keys, holder, index, shards) \

@@ -625,6 +625,25 @@ def build_router(api: API, server=None) -> Router:
     r.add("POST", "/recalculate-caches",
           lambda req, a: api.recalculate_caches() or {})
 
+    def cache_clear(req, args):
+        """Admin flush of the query cache subsystem (docs/caching.md):
+        drops every result-cache entry and marks every rank cache for
+        lazy rebuild.  Node-local, like the other /internal/ admin
+        surfaces."""
+        from ..cache.rank import iter_rank_caches
+        out = {"resultEntries": 0, "rankCaches": 0}
+        rc = api.executor.result_cache
+        if rc is not None:
+            out["resultEntries"] = rc.clear()
+        n = 0
+        for _frag, cache in iter_rank_caches(api.holder):
+            cache.invalidate()
+            n += 1
+        out["rankCaches"] = n
+        return out
+
+    r.add("POST", "/internal/cache/clear", cache_clear)
+
     # -- observability (handler.go:280-282) -------------------------------
     def debug_vars(req, args):
         """expvar-style snapshot: stats + HBM budget + query-cache state,

@@ -57,6 +57,16 @@ tests/test_translate.py
 tests/test_wholequery.py
 tests/test_torch_devobs.py
 tests/test_torch_analysis.py
+tests/test_torch_crash.py
+tests/test_torch_durability.py
+tests/test_torch_roaring_golden.py
+tests/test_torch_translate.py
+tests/test_torch_cache.py
+tests/test_torch_events.py
+tests/test_torch_explain.py
+tests/test_torch_pql.py
+tests/test_torch_cli.py
+tests/test_torch_observability.py
 "
 
 # Leg 2: cluster plane (fan-out, chaos, routing, resize, wire) + server
@@ -89,6 +99,10 @@ tests/test_warmup.py
 tests/test_torch_warmup.py
 tests/test_torch_slo.py
 tests/test_torch_multihost.py
+tests/test_torch_overload.py
+tests/test_torch_tenant.py
+tests/test_torch_routing.py
+tests/test_torch_topology.py
 "
 
 _check_partition() {
