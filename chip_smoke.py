@@ -8,8 +8,9 @@ Sum / range predicates + GroupBy over 64 shards at depth 20), each
 dense-resident and compressed-resident, and BASELINE config 5 over 954
 shards under a device budget smaller than its working set and on four
 cluster nodes, the SSB and config-4 corpora split over two rank
-processes of one multi-process engine, and a server killed under write
-load and restarted — through the user entry points
+processes of one multi-process engine, a server killed under write
+load and restarted, and the port's bench at its smoke size — through
+the user entry points
 ``pilosa_tpu_torch.executor.Executor`` and
 ``pilosa_tpu_torch.server.Server``, and holds every CUDA kernel of
 those paths against its plain PyTorch version.  Phases, each printing
@@ -109,7 +110,7 @@ its own lines and its seconds:
    compressed) both kernels launched inside replayed graphs; every
    answer equal to the oracle.  Then the SLO leg: a compressed server
    with ``timeseries-interval = 1``, ``timeseries-window = 60`` and
-   ``slo-latency-ms = 1`` under about 20 s of the mix must fire
+   ``slo-latency-ms = 1`` under about 8 s of the mix must fire
    ``slo-latency-burn``, leave a flight-recorder bundle, answer ``POST
    /debug/bundle`` and resolve after the load stops, with answers
    byte-identical to the compressed cold server's, whose alert rules
@@ -202,11 +203,18 @@ its own lines and its seconds:
    power limit: the WAL replay seconds (``Holder.open()`` on a copy of
    the killed dir) and bytes, seconds to READY and the first request's
    ms.
-13. the ``kernels`` JSON line, a JSON line of the phases' records, the
+13. bench — the port's bench (``python -m pilosa_tpu_torch.bench
+   --smoke --device cuda``, pilosa_tpu_torch/bench.py) as a subprocess:
+   every leg at its smoke size (configs 1-5 and the sparse config 5,
+   SSB, whole-query on / off, the HTTP legs, ingest).  It must exit 0
+   within BENCH_TIMEOUT_S, report every ported leg with its answer gate
+   passed, and launch both kernels in its compressed config-5 and SSB
+   legs (counted in that process).  Printed: its seconds a leg.
+14. the ``kernels`` JSON line, a JSON line of the phases' records, the
    ``served`` and ``warm_start`` JSON lines, the ``cfg5_budget`` /
    ``cluster`` / ``replicas`` JSON line, the ``multiprocess`` JSON line,
-   the ``parity`` JSON line, the nvidia-smi line, and last
-   the result line ``{"ok": true, "device": {...}}``.
+   the ``parity`` JSON line, the ``bench`` JSON line, the nvidia-smi
+   line, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the result line.  It imports
 nothing of JAX or the JAX package.
@@ -225,15 +233,16 @@ import time
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.ops.kernel_timing import (  # noqa: E402
+    bound, max_abs_err, measure_filtered, stack_bytes, time_ms)
+from pilosa_tpu_torch.ops.kernel_timing import new_rec as _new_rec
+
 SEED = 20261017
 N_SHARDS = 256
 BUDGET_MB = 96
 BATCH = 24            # calls per request, as bench.bench_ssb
 N_BATCHES = 8
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (guide table)
-INT32_OPS_PER_S = 67e12        # 32-bit ops outside the tensor cores
 SHARD_BYTES = 32768 * 4        # one row of a shard's dense words
-SLEEP_CYCLES = 50_000_000      # ~25 ms at the H100's boost clock
 # Where the replaced Pallas kernels live: the JAX package's directory,
 # named here only as a path for the report, never imported.
 JAX_KERNELS = "pilosa" + "_tpu/ops/kernels.py"
@@ -250,42 +259,6 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream, timed
-    with CUDA events around ``iters`` calls after ``warmup``.  The calls
-    are queued behind a sleep on the card (SLEEP_CYCLES), so that a
-    kernel whose host-side launch takes longer than its run on the card
-    is timed by the card and not by the host's launch rate."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest |a - b| over the uint32 (words) or int32 (counts) values."""
-    from pilosa_tpu_torch.ops.bitset import to_numpy
-    if a.shape != b.shape:
-        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    x, y = to_numpy(a).astype(np.int64), to_numpy(b).astype(np.int64)
-    return int(np.abs(x - y).max()) if x.size else 0
-
-
-def stack_bytes(st) -> int:
-    """Bytes of a ragged packed stack — its slot map, tables and payload,
-    each read once (the payload holds each container's words exactly,
-    plus at most 3 alignment words)."""
-    return sum(a.numel() * a.element_size() for a in st)
 
 
 # -- phase 4a: boundary packs ----------------------------------------------
@@ -390,57 +363,14 @@ def check_boundary_packs(device):
 
 # -- phase 4b: the SSB shapes on the main path -------------------------------
 
-def _new_rec() -> dict:
-    return {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "err": 0}
-
-
 def measure_group(placed, sig, S: int, dec: dict, fus: dict,
                   rg: int, c: int, plain_iters: int = 3):
     """Add one stacked group's kernel launches for the TopN filter to
     ``dec`` / ``fus``: decode the region and category stacks, then the
     fused count over the rev stack under region[rg] & category[c].  Each
     kernel is compared with its plain version on the same inputs."""
-    from pilosa_tpu_torch.core import SHARD_WORDS
-    from pilosa_tpu_torch.ops import containers, kernels
-    for st in placed:
-        if not isinstance(st, containers.PackedStack):
-            raise AssertionError("an SSB field is not compressed-resident")
-    dense = {}
-    for name, st, s in zip(("region", "category"), placed[1:], sig[1:]):
-        rows = s[1]
-
-        def run(st=st, rows=rows):
-            return kernels.decode_block(*st, rows=rows, words=SHARD_WORDS)
-
-        def plain(st=st, rows=rows):
-            return kernels.decode_block_plain(*st, rows=rows,
-                                              words=SHARD_WORDS)
-
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        dec["err"] = max(dec["err"], max_abs_err(got, want))
-        dec["ms"] += time_ms(run, iters=20)
-        dec["plain_ms"] += time_ms(plain, iters=plain_iters, warmup=1)
-        dec["bytes"] += stack_bytes(st) + S * rows * SHARD_WORDS * 4
-        dense[name] = got
-    filt = (dense["region"][:, rg] & dense["category"][:, c]).contiguous()
-    st, rows = placed[0], sig[0][1]
-
-    def frun():
-        return kernels.fused_row_counts(*st, filt, rows=rows,
-                                        words=SHARD_WORDS)
-
-    def fplain():
-        return kernels.fused_row_counts_plain(*st, filt, rows=rows,
-                                              words=SHARD_WORDS)
-
-    got, want = frun(), fplain()
-    torch.cuda.synchronize()
-    fus["err"] = max(fus["err"], max_abs_err(got, want))
-    fus["ms"] += time_ms(frun, iters=20)
-    fus["plain_ms"] += time_ms(fplain, iters=plain_iters, warmup=1)
-    fus["bytes"] += stack_bytes(st) + S * SHARD_WORDS * 4 + S * rows * 4
-    fus["ops"] += 2 * st.payload.numel()  # AND + popcount a payload word
+    measure_filtered(placed, sig, S, dec, fus, [(1, rg), (2, c)],
+                     plain_iters=plain_iters)
 
 
 def check_ssb_shapes(holder, device, rg: int = 1, c: int = 3, group=None,
@@ -473,40 +403,16 @@ def check_ssb_shapes(holder, device, rg: int = 1, c: int = 3, group=None,
     return dec, fus
 
 
-def bound(rec) -> tuple[float, str]:
-    t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = rec["ops"] / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # -- phase 5: the SSB request mix ------------------------------------------
 
 def profile_request(run, label: str):
-    """One request (``run()``) under torch.profiler: the card's busy time
-    (the sum of its kernel and copy durations) against the request's
-    wall time, and the kernels that took most of it.  CUPTI records
-    every kernel of the process, a server thread's too."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        kern.append((us, e.count, e.key))
-    busy_ms = sum(k[0] for k in kern) / 1e3
-    top = [(name[:48], round(us / 1e3, 3), n)
-           for us, n, name in sorted(kern, reverse=True)[:8]]
-    say("profile", run=label, wall_ms=wall * 1e3, device_busy_ms=busy_ms,
-        device_idle_share=1 - busy_ms / (wall * 1e3),
-        kernels=sum(k[1] for k in kern), top=json.dumps(top))
+    """One request (``run()``) under torch.profiler
+    (``pilosa_tpu_torch.utils.devobs.profile_request``): the card's busy
+    and idle share of its wall time and its top kernels, printed."""
+    from pilosa_tpu_torch.utils import devobs
+    rec = devobs.profile_request(run)
+    say("profile", run=label, **{k: json.dumps(v) if k == "top" else v
+                                 for k, v in rec.items()})
 
 
 def check_answers(label: str, hist, shards, calls, got):
@@ -646,7 +552,7 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False,
 
 # -- phase 6: BASELINE config 4 --------------------------------------------
 
-CFG4_REQUESTS = 6     # timed 64-Sum requests per residency, after one warm
+CFG4_REQUESTS = 4     # timed 64-Sum requests per residency, after one warm
 CFG4_REQUESTS_GROUPED = 1     # the same on the grouped path
 
 
@@ -1437,7 +1343,7 @@ def served_wq(srv, label: str, replays: bool) -> dict:
 
 WARM_SIGNATURES = N_BATCHES    # requests of the warm-start mix, each its own
 #                                signature, sent twice from one client
-SLO_LOAD_S = 20.0              # seconds of compressed mix in the SLO leg
+SLO_LOAD_S = 8.0               # seconds of compressed mix in the SLO leg
 PR5_DENSE_PAD_PCT = 19.5       # dense replay p50 over eager, PR 5 (PERF.md)
 
 
@@ -1936,53 +1842,13 @@ def check_cfg5_shapes(holder, device, shard_slice, a: int = 0,
     under seg[a] & seg[b], on the stacks the stacked executor places,
     each against its plain version."""
     from pilosa_tpu_torch import cfg5
-    from pilosa_tpu_torch.core import SHARD_WORDS
-    from pilosa_tpu_torch.ops import containers, kernels
     from pilosa_tpu_torch.parallel.stacked import StackedExecutor
     st = StackedExecutor(device)
     groups = st._placed_groups(CFG5_KEYS, holder, cfg5.INDEX, shard_slice)
     dec, fus = _new_rec(), _new_rec()
     for shard_list, placed, sig in groups:
-        S = len(shard_list)
-        met, seg = placed
-        if not (isinstance(met, containers.PackedStack)
-                and isinstance(seg, containers.PackedStack)):
-            raise AssertionError("a config-5 field is not "
-                                 "compressed-resident")
-        rows = sig[1][1]
-
-        def run(st_=seg, rows=rows):
-            return kernels.decode_block(*st_, rows=rows, words=SHARD_WORDS)
-
-        def plain(st_=seg, rows=rows):
-            return kernels.decode_block_plain(*st_, rows=rows,
-                                              words=SHARD_WORDS)
-
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        dec["err"] = max(dec["err"], max_abs_err(got, want))
-        dec["ms"] += time_ms(run, iters=10)
-        dec["plain_ms"] += time_ms(plain, iters=2, warmup=1)
-        dec["bytes"] += stack_bytes(seg) + S * rows * SHARD_WORDS * 4
-        filt = (got[:, a] & got[:, b]).contiguous()
-        mrows = sig[0][1]
-
-        def frun(st_=met, rows=mrows):
-            return kernels.fused_row_counts(*st_, filt, rows=rows,
-                                            words=SHARD_WORDS)
-
-        def fplain(st_=met, rows=mrows):
-            return kernels.fused_row_counts_plain(*st_, filt, rows=rows,
-                                                  words=SHARD_WORDS)
-
-        got, want = frun(), fplain()
-        torch.cuda.synchronize()
-        fus["err"] = max(fus["err"], max_abs_err(got, want))
-        fus["ms"] += time_ms(frun, iters=10)
-        fus["plain_ms"] += time_ms(fplain, iters=2, warmup=1)
-        fus["bytes"] += stack_bytes(met) + S * SHARD_WORDS * 4 + \
-            S * mrows * 4
-        fus["ops"] += 2 * met.payload.numel()
+        measure_filtered(placed, sig, len(shard_list), dec, fus,
+                         [(1, a), (1, b)], iters=10, plain_iters=2)
     say(phase, kernel_groups=len(groups),
         group_shards=[len(g[0]) for g in groups],
         decode_err=dec["err"], fused_err=fus["err"])
@@ -2212,7 +2078,7 @@ def run_cfg5_budget(device, n_shards: int) -> tuple[dict, dict, dict]:
 
 CLUSTER_NODES = 4
 CLUSTER_B = 64                 # calls per request (bench.py)
-CLUSTER_REQUESTS_1 = 6
+CLUSTER_REQUESTS_1 = 4
 CLUSTER_CLIENTS = 8
 CLUSTER_REQUESTS_8 = 2         # requests per client of the 8-client run
 
@@ -2426,7 +2292,7 @@ def run_cluster(device, n_shards: int) -> dict:
 
 
 BALANCER_REQUESTS = 4          # 64-call requests after the handoff
-RESIZE_REQUESTS = 6            # timed 64-call requests on five nodes
+RESIZE_REQUESTS = 4            # timed 64-call requests on five nodes
 
 
 def cluster_balancer_leg(servers, tab, shards) -> dict:
@@ -3317,6 +3183,51 @@ def run_parity(device, card: str) -> dict:
     return rec
 
 
+# -- phase 13: the port's bench at its smoke size ---------------------------
+
+BENCH_TIMEOUT_S = 120
+
+
+def run_bench(device) -> dict:
+    """``python -m pilosa_tpu_torch.bench --smoke --device cuda`` as a
+    subprocess: it must exit 0 and report every ported leg, each leg's
+    answers equal to its oracle, and both container kernels launched in
+    its compressed legs (config 5 sparse and SSB).  Returns its
+    per-leg seconds and headline figures."""
+    from pilosa_tpu_torch import bench
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pilosa_tpu_torch.bench", "--smoke",
+         "--device", str(device)], cwd=os.path.dirname(
+            os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench --smoke exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    configs = out["configs"]
+    want = [k for ks in bench.LEGS.values() for k in ks]
+    missing = [k for k in want if k not in configs]
+    if missing or out["corpus"]["gate"] != "pass":
+        raise AssertionError(f"bench --smoke: legs missing {missing}, "
+                             f"corpus gate {out['corpus']['gate']}")
+    launches = {}
+    for key in ("7_topn_1B_cols_sparse_compressed", "14_ssb_star_schema"):
+        comp = configs[key]["compressed"]
+        launches[key] = comp["kernel_launches_leg"]
+        if comp["kernels_gate"] != "pass" or \
+                min(launches[key].values()) <= 0:
+            raise AssertionError(f"bench --smoke: {key} compressed "
+                                 f"launched {launches[key]}")
+    rec = {"seconds": seconds, "legs_s": out["seconds"],
+           "intersect8_calls_per_s": out["value"],
+           "launches_compressed": launches, "legs": sorted(configs)}
+    say("bench", **{k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                    for k, v in rec.items()})
+    return rec
+
+
 def main(argv) -> int:
     profile = "--profile" in argv
     if not torch.cuda.is_available():
@@ -3485,6 +3396,9 @@ def main(argv) -> int:
     say("parity", seconds=time.perf_counter() - t0)
     par_recs = par.pop("kernel_recs")
 
+    # the port's bench at its smoke size: every leg, every gate
+    bench_rec = run_bench(device)
+
     src = "pilosa_tpu_torch/csrc/container_kernels.cu"
     lines = []
     served_launches = served["compressed"]["launches_per_request"]
@@ -3576,6 +3490,7 @@ def main(argv) -> int:
                       "replicas": repl}))
     print(json.dumps({"multiprocess": mp}))
     print(json.dumps({"parity": par}))
+    print(json.dumps({"bench": bench_rec}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

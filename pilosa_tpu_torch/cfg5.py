@@ -102,6 +102,30 @@ def oracle_topn5(oracle_words, shards, a: int, b: int, n: int = 5):
     return [(m, int(counts[m])) for m in order[:n] if counts[m] > 0]
 
 
+def table(oracle_words) -> np.ndarray:
+    """``int64[shard, a, b, m]``: bits of metric row m under seg rows a
+    and b in each shard, counted from the oracle words once, so a TopN
+    over any shard subset is a sum (``oracle_topn5`` by table)."""
+    n = len(oracle_words)
+    tab = np.zeros((n, SEG_ROWS, SEG_ROWS, METRIC_ROWS), np.int64)
+    for s in range(n):
+        w = oracle_words[s]
+        for a in range(SEG_ROWS):
+            for b in range(a + 1, SEG_ROWS):
+                mask = w[a] & w[b]
+                for m in range(METRIC_ROWS):
+                    tab[s, a, b, m] = tab[s, b, a, m] = int(
+                        np.bitwise_count(w[SEG_ROWS + m] & mask).sum())
+    return tab
+
+
+def rank(tab, shards, a: int, b: int, n: int = 5) -> list:
+    """``oracle_topn5``'s answer from ``table``: [(metric row, count)]."""
+    counts = tab[list(shards), a, b].sum(axis=0)
+    order = sorted(range(counts.size), key=lambda m: (-counts[m], m))
+    return [(m, int(counts[m])) for m in order[:n] if counts[m] > 0]
+
+
 def batch_pairs(rng, B: int) -> list[tuple[int, int]]:
     """The (a, b) filter pairs of one ``_cfg5_batch`` draw."""
     aa = rng.integers(0, SEG_ROWS, size=B)

@@ -302,6 +302,38 @@ class StackedExecutor:
         """Stacked shards a launch covers: every shard, on one device."""
         return max(1, n_shards)
 
+    def stacked_bytes(self, index: str) -> dict:
+        """(field, view) -> {"bytes", "rows", "packed_bytes"} of the
+        device stacks this executor holds for ``index``, summed over
+        signature groups: ``bytes`` of every block, dense and packed,
+        ``rows`` the widest dense ``[S, rows, W]`` block's rows (0 when
+        only packed), ``packed_bytes`` the packed stacks' share.  A key
+        held in several cached stacks (other key lists or shard sets)
+        counts at its largest."""
+        with self._sc_lock:
+            entries = [(ck[1], v[1]) for ck, v in self._stack_cache.items()
+                       if ck[0] == index]
+        out: dict = {}
+        for keys, groups in entries:
+            per: dict = {}
+            for _shards, placed, _sig in groups:
+                for key, p in zip(keys, placed):
+                    if p is None:
+                        continue
+                    acc = per.setdefault(
+                        key, {"bytes": 0, "rows": 0, "packed_bytes": 0})
+                    if isinstance(p, torch.Tensor):
+                        acc["bytes"] += p.numel() * p.element_size()
+                        acc["rows"] = max(acc["rows"], p.shape[1])
+                    else:
+                        nb = sum(a.numel() * a.element_size() for a in p)
+                        acc["bytes"] += nb
+                        acc["packed_bytes"] += nb
+            for key, acc in per.items():
+                if acc["bytes"] > out.get(key, {"bytes": -1})["bytes"]:
+                    out[key] = acc
+        return out
+
     def _drop_graphs(self, ckey):
         """Drop the whole-query programs captured over stack ``ckey``."""
         with self._sc_lock:

@@ -356,3 +356,33 @@ class LaunchLedger:
 # process, one telemetry surface.  Tests use deltas or private instances.
 COMPILES = CompileRegistry()
 LEDGER = LaunchLedger()
+
+
+def profile_request(run) -> dict:
+    """One request (``run()``) under torch.profiler on the card: its
+    wall ms, the card's busy ms (the sum of its kernel and copy
+    durations), the idle share, the kernel count and the eight kernels
+    that took most of it as ``[name, ms, calls]``.  CUPTI records every
+    kernel of the process, a server thread's too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        kern.append((us, e.count, e.key))
+    busy_ms = sum(k[0] for k in kern) / 1e3
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / (wall * 1e3),
+            "kernels": sum(k[1] for k in kern),
+            "top": [[name[:48], round(us / 1e3, 3), n]
+                    for us, n, name in sorted(kern, reverse=True)[:8]]}

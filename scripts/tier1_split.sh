@@ -103,6 +103,7 @@ tests/test_torch_overload.py
 tests/test_torch_tenant.py
 tests/test_torch_routing.py
 tests/test_torch_topology.py
+tests/test_torch_bench.py
 "
 
 _check_partition() {

@@ -45,9 +45,52 @@ from pilosa_tpu_torch.utils.deadline import (  # noqa: E402
     DeadlineExceeded, QueryContext, activate)
 from pilosa_tpu_torch.utils.faults import FAULTS, FaultInjected  # noqa: E402
 
-from test_differential import gen_query  # noqa: E402
-
 MB = 1 << 20
+
+
+# The query generator of tests/test_differential.py (``gen_bitmap`` and
+# ``gen_query``), copied so that this file imports no JAX test module:
+# the same rng calls in the same order, so a seed gives the same queries.
+def gen_bitmap(rng, depth=0):
+    choice = rng.integers(0, 8 if depth < 2 else 4)
+    if choice == 0:
+        return f"Row(a={rng.integers(0, 12)})"   # sometimes empty rows
+    if choice == 1:
+        return f"Row(b={rng.integers(0, 8)})"
+    if choice == 2:
+        op = rng.choice([">", "<", ">=", "<=", "==", "!="])
+        return f"Row(v {op} {rng.integers(-600, 600)})"
+    if choice == 3:
+        lo = int(rng.integers(-550, 400))
+        return f"Row({lo} < v < {lo + int(rng.integers(1, 400))})"
+    kids = ", ".join(gen_bitmap(rng, depth + 1)
+                     for _ in range(rng.integers(2, 4)))
+    if choice == 4:
+        return f"Intersect({kids})"
+    if choice == 5:
+        return f"Union({kids})"
+    if choice == 6:
+        return f"Difference({kids})"
+    return f"Not({gen_bitmap(rng, depth + 1)})"
+
+
+def gen_query(rng):
+    kind = rng.integers(0, 8)
+    bm = gen_bitmap(rng)
+    if kind == 0:
+        return bm
+    if kind == 1:
+        return f"Count({bm})"
+    if kind == 2:
+        return f"Sum({bm}, field=v)"
+    if kind in (3, 4):
+        which = "Min" if kind == 3 else "Max"
+        return f"{which}({bm}, field=v)"
+    if kind == 5:
+        return f"TopN(a, {bm}, n={rng.integers(0, 6)})"
+    if kind == 6:
+        return f"Rows(a, limit={rng.integers(1, 12)})"
+    return "GroupBy(Rows(b), Rows(a), " + bm + ")"
 
 
 def _norm(r):
