@@ -1138,6 +1138,10 @@ class Cluster:
         # another lock) guards every access instead of leaning on GIL
         # atomicity of single set ops.
         self._remote_shards: dict[str, set[int]] = {}
+        # index -> ids of the peers whose available-shards poll for it
+        # has answered at least once: only their part of the remembered
+        # map can serve a query whose poll outlasts the straggler grace
+        self._polled: dict[str, set[str]] = {}
         self._shards_lock = make_lock("cluster-shards")
         # Per-(index, peer) data-version registry for the coordinator-
         # scope result cache (cache/results.py): bumped whenever this
@@ -1217,6 +1221,16 @@ class Cluster:
         self._probe_pool = ThreadPoolExecutor(
             max_workers=max(2, len(self.nodes)),
             thread_name_prefix="ptpu-probe")
+        # DEDICATED hedge pool, for the same reason: a straggler's
+        # abandoned RPCs (hedge losers, availability polls past their
+        # grace) each hold a fan-out worker for the whole delay, and a
+        # hedge queued behind them fires only when one drains — under a
+        # 1 s straggler sequential Count(Row) reads waited out the full
+        # delay with hedging on.  A deviation from the JAX package,
+        # which shares the fan-out pool.
+        self._hedge_pool = ThreadPoolExecutor(
+            max_workers=max(2, len(self.nodes)),
+            thread_name_prefix="ptpu-hedge")
         # One probe pass at a time: the health thread and an explicit
         # probe_peers() call must not interleave, or a pass that gathered
         # its results while a peer was still dead could apply a stale
@@ -1250,6 +1264,7 @@ class Cluster:
         self._closing.set()
         self._pool.shutdown(wait=False)
         self._probe_pool.shutdown(wait=False)
+        self._hedge_pool.shutdown(wait=False)
         self.client.close()
 
     @property
@@ -1689,6 +1704,7 @@ class Cluster:
         at a phantom overlay owner."""
         with self._shards_lock:
             self._remote_shards.pop(index, None)
+            self._polled.pop(index, None)
         with self._overlay_lock:
             dropped = [k for k in self._overlay if k[0] == index]
             for key in dropped:
@@ -1758,10 +1774,20 @@ class Cluster:
             # map for the next query.  Writes this coordinator acked
             # are never at risk: forwarding already recorded their
             # shards in the per-field remote sets at ack time.  With
-            # hedging off (or a cold EWMA), polls stay fully patient.
+            # hedging off (or a cold EWMA), polls stay fully patient,
+            # and so do they while any peer has never answered a poll
+            # for this index: there is no remembered map of its shards
+            # yet, and the query would silently miss them (a cold
+            # coordinator on a loaded host answered 48 of 189).  A
+            # deviation from the JAX package, which grants the grace
+            # from the first query on.
+            with self._shards_lock:
+                heard = self._polled.get(index, set())
+                cold = any(n.id not in heard for n, _fut in futs)
             grace = self.router.hedge_delay(
                 max(self.hedge_delay_ms, 0.0) / 1e3) \
-                if not patient and self.hedge_reads and futs else None
+                if not patient and self.hedge_reads and futs \
+                and not cold else None
             pending = {fut: n for n, fut in futs}
             if pending:
                 done, _slow = futures_wait(set(pending), timeout=grace)
@@ -1798,6 +1824,7 @@ class Cluster:
             n.probe_fails = 0
         with self._shards_lock:
             self._remote_shards.setdefault(index, set()).update(got)
+            self._polled.setdefault(index, set()).add(n.id)
 
     def _poll_finalizer(self, index: str, n: Node, mark_down: bool,
                         on_error):
@@ -2086,7 +2113,7 @@ class Cluster:
             # context and runs the RPC under a per-peer client span —
             # the injected header then carries that span's id, so the
             # remote's spans parent under it (docs/observability.md)
-            fut = self._pool.submit(
+            fut = (self._hedge_pool if hedge else self._pool).submit(
                 GLOBAL_TRACER.task(timed_rpc,
                                    name=f"cluster.rpc {nid}",
                                    **span_tags),

@@ -1370,7 +1370,13 @@ class TrackingHTTPServer(ThreadingHTTPServer):
     internal-client connection would then write into the dead holder —
     the write reports success and vanishes.
     ``close_connections()`` severs every tracked socket so those threads
-    exit and clients reconnect to the live server."""
+    exit and clients reconnect to the live server.
+
+    The listen backlog holds a burst of clients that connect together:
+    at socketserver's default of 5, 16 client processes connecting at
+    once had connections reset."""
+
+    request_queue_size = 128
 
     def server_bind(self):
         self._conns: set = set()

@@ -67,6 +67,7 @@ tests/test_torch_explain.py
 tests/test_torch_pql.py
 tests/test_torch_cli.py
 tests/test_torch_observability.py
+tests/test_torch_bench_cluster.py
 "
 
 # Leg 2: cluster plane (fan-out, chaos, routing, resize, wire) + server

@@ -10,9 +10,9 @@ the counterpart of tests/test_bench_smoke.py.
 - Configs 1-3 and the ``grid4`` GroupBy through the port's
   ``Executor(device="cpu")``, the JAX ``Executor(use_mesh=True)`` and
   ``baseline.Oracle``: exact answers.
-- ``python -m pilosa_tpu_torch.bench --smoke --device cpu`` as a
-  subprocess: exit 0, every ported ``configs`` key in the last line and
-  each leg's answer gate passed.
+- ``python -m pilosa_tpu_torch.bench --smoke --device cpu`` over the
+  engine and single-node serving legs as a subprocess: exit 0, their
+  ``configs`` keys in the last line and each leg's answer gate passed.
 - A leg whose oracle is made wrong ends the run with an error naming the
   leg: no failure is swallowed.
 
@@ -199,6 +199,13 @@ def test_latency_record_tail():
     assert bench.latency_record([0.001] * 20)["tail_ms"] is None
 
 
+# the legs of the engine path and the serving layers over one node; the
+# cluster and robustness legs have their own cases in
+# tests/test_torch_bench_cluster.py
+ENGINE_LEGS = ("config1", "config2", "config3", "config4", "wholequery",
+               "http", "ingest", "config5", "config7", "ssb")
+
+
 def test_smoke_subprocess():
     """Two intra-op threads: the smoke's client threads each run torch
     ops, and beside other test workers on the same cores a full pool of
@@ -206,9 +213,10 @@ def test_smoke_subprocess():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "2"
+    legs = [a for leg in ENGINE_LEGS for a in ("--leg", leg)]
     proc = subprocess.run(
         [sys.executable, "-m", "pilosa_tpu_torch.bench", "--smoke",
-         "--device", "cpu"], cwd=ROOT, env=env, capture_output=True,
+         "--device", "cpu", *legs], cwd=ROOT, env=env, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -216,7 +224,7 @@ def test_smoke_subprocess():
     assert out["unit"] == "queries/sec" and out["value"] > 0
     assert out["corpus"]["gate"] == "pass"
     configs = out["configs"]
-    keys = [k for ks in bench.LEGS.values() for k in ks]
+    keys = [k for leg in ENGINE_LEGS for k in bench.LEGS[leg]]
     assert sorted(configs) == sorted(keys)
     for key in ("1_count_row_1shard", "2_intersect8_1M_cols",
                 "3_topn_filtered_10M_cols", "4_bsi_sum_gt_64shards",

@@ -282,6 +282,25 @@ def test_admission_overflow_returns_503_under_burst(tmp_path):
         srv.close()
 
 
+def test_connection_burst_is_served(tmp_path):
+    """32 client processes that connect at once are all answered: the
+    listen backlog holds the burst (at socketserver's default of 5 the
+    server reset connections).  No JAX counterpart: the JAX server keeps
+    the default."""
+    from pilosa_tpu_torch import bench
+    srv = make_server(tmp_path)
+    try:
+        index = _setup(srv.port)
+        want = _req(srv.port, "POST", f"/index/{index}/query",
+                    "Count(Row(f=1))")
+        _wall, lat, bodies = bench.process_load(
+            "burst", srv.port, index, [["Count(Row(f=1))"] * 2] * 32)
+        assert len(lat) == len(bodies) == 64
+        assert all(json.loads(b) == want for b in bodies)
+    finally:
+        srv.close()
+
+
 # -- graceful drain ---------------------------------------------------------
 
 def test_drain_completes_inflight_then_rejects(tmp_path):
