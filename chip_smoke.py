@@ -1,6 +1,14 @@
-"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch / CUDA port on an NVIDIA GPU host.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --only mesh,multiprocess
+
+The first form needs one card and runs every phase; where the machine
+has several cards, phase ``mesh`` spans them all and phase
+``multiprocess`` gives each rank a card of its own.  The second form
+runs only the named phases of ``PHASES`` (after the card, build and
+corpus phases, and the one-device answers that phases mesh and
+multiprocess compare with), as for a call on several cards.
 
 Drives the port's main paths — PQL read requests over the SSB
 star-schema corpus at its full 256 shards, BASELINE config 4 (BSI
@@ -55,12 +63,31 @@ its own lines and its seconds:
    launch both kernels.  Printed: qps, request p50, launches and batch
    chunks per request, prepared hits, the GroupBy time, resident MB and
    the whole-query counters.
+6a. mesh — the stacked executor over a device list
+   (parallel/stacked.py, the JAX executor's mesh): every visible card,
+   or on a one-card machine the two-slot list ``[cuda:0, cuda:0]``
+   (``cards=1 slots=2``: it checks the split into blocks, the per-slot
+   CUDA graphs and the reduction onto the primary, but no copy between
+   cards).  The SSB mix at 256 shards dense and compressed, whole-query
+   and grouped, and config 4's 64-Sum request and GroupBy dense and
+   compressed; every answer equal to the oracle and to the one-device
+   executor's (phases 5 and 6); whole-query runs replay without
+   fallback; every slot holds stack bytes; in each compressed run both
+   kernels launch in every slot and on every card (counts by slot and
+   card, reset just before the run, read just after).  Then both
+   kernels on each slot's block of the SSB TopN stacks, against their
+   plain versions and timed on that card, and the milliseconds of the
+   whole-query runner's reduction of one request's per-slot outputs
+   onto the primary.  Printed: cards, slots, per-slot stack MB and
+   launches, calls/s and p50s beside phase 5's.
 6b. multiprocess — the multi-process engine
    (pilosa_tpu_torch/parallel/multihost.py): two rank processes, fresh
    interpreters running this script with ``--rank``, join one process
-   group over gloo on ``cuda:0`` (they share the one card, where NCCL
-   refuses two ranks; gloo stages each collective through the host, so
-   the path runs eagerly, with no CUDA graph).  Each builds its half of
+   group: over NCCL with one card a rank (``cuda:<rank>``) where the
+   machine has two cards, else over gloo on ``cuda:0`` (the ranks share
+   the one card, where NCCL refuses two ranks; gloo stages each
+   collective through the host).  Collectives run eagerly, with no CUDA
+   graph.  Each builds its half of
    the SSB corpus (128 of 256 shards) and of config 4's (32 of 64) from
    the seeds and, compressed-resident, runs the SSB mix, config 4's
    requests and the multihost worker's query set (Row, TopN, Rows,
@@ -215,7 +242,7 @@ its own lines and its seconds:
    and pass the cluster and robustness legs' gates (run_bench).
    Printed: its seconds a leg and those gates.
 14. the ``kernels`` JSON line, a JSON line of the phases' records, the
-   ``served`` and ``warm_start`` JSON lines, the ``cfg5_budget`` /
+   ``mesh``, ``served`` and ``warm_start`` JSON lines, the ``cfg5_budget`` /
    ``cluster`` / ``replicas`` JSON line, the ``multiprocess`` JSON line,
    the ``parity`` JSON line, the ``bench`` JSON line, the nvidia-smi
    line, and last the result line ``{"ok": true, "device": {...}}``.
@@ -467,7 +494,7 @@ def wq_record(ex, log: FallbackLog, requests: int) -> dict:
 
 
 def run_ssb(holder, hist, device, label: str, profile: bool = False,
-            whole_query: bool = True):
+            whole_query: bool = True, passes: int = 3):
     """Warm, then time N_BATCHES requests of BATCH mixed SSB calls over
     all shards, then the same N_BATCHES twice more: on the default path a
     whole-query signature runs eagerly on its first sighting, is captured
@@ -476,7 +503,8 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False,
     the default path (whole-query programs through the dispatch batcher)
     or the grouped path.  Each timed request also records the
     milliseconds the Python garbage collector held the host inside it
-    (``batch_gc_ms``).  Returns (answers, record)."""
+    (``batch_gc_ms``).  ``passes=1``: the first pass only (no capture or
+    replay pass; their figures are None).  Returns (answers, record)."""
     from pilosa_tpu_torch import ssb
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import kernels
@@ -515,7 +543,7 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False,
                 lat.append(dt)
                 gc_ms.append(round(gc_s[1] * 1e3, 3))
             answers.append(got)
-        for lat_pass in (lat_capture, lat_replay):
+        for lat_pass in (lat_capture, lat_replay)[:passes - 1]:
             for calls in batches[1:]:
                 lat_pass.append(one(calls)[1])
     finally:
@@ -524,21 +552,27 @@ def run_ssb(holder, hist, device, label: str, profile: bool = False,
         profile_request(lambda: ex.execute(
             ssb.SSB_INDEX, ssb.ssb_batch(batches[-1])), label)
     launches = dict(kernels.LAUNCHES)
-    requests = len(batches) + 2 * len(lat_replay) + int(profile)
+    requests = len(batches) + len(lat_capture) + len(lat_replay) + \
+        int(profile)
     stats = DEFAULT_BUDGET.stats()
     chunks = ex.stacked.batch_chunks
     wq = wq_record(ex, log, requests)
+    slot_mb = [b / 2**20 for b in ex.stacked.slot_bytes()]
     ex.close()
-    rec = {"whole_query": whole_query,
+    rec = {"whole_query": whole_query, "slots": len(slot_mb),
+           "slot_stack_mb": slot_mb,
            "qps": BATCH * len(lat) / sum(lat),
            "batch_chunks_per_request": chunks / requests,
            "resident_mb": stats["residentBytes"] / 2**20,
            "compressed_mb": stats["compressedBytes"] / 2**20,
            "batch_p50_ms": statistics.median(lat) * 1e3,
            "batch_ms": [round(x * 1e3, 3) for x in lat],
-           "capture_pass_p50_ms": statistics.median(lat_capture) * 1e3,
-           "replay_qps": BATCH * len(lat_replay) / sum(lat_replay),
-           "replay_p50_ms": statistics.median(lat_replay) * 1e3,
+           "capture_pass_p50_ms": statistics.median(lat_capture) * 1e3
+           if lat_capture else None,
+           "replay_qps": BATCH * len(lat_replay) / sum(lat_replay)
+           if lat_replay else None,
+           "replay_p50_ms": statistics.median(lat_replay) * 1e3
+           if lat_replay else None,
            "replay_ms": [round(x * 1e3, 3) for x in lat_replay],
            "batch_gc_ms": gc_ms,
            "launches": launches, "requests": requests, **wq}
@@ -624,15 +658,16 @@ def cfg4_oracle_topn(vals, segs, x: int, n: int) -> list:
     return [(int(i), int(counts[i])) for i in order[:n] if counts[i] > 0]
 
 
-def cfg4_predicted_chunks(n_shards: int) -> int:
+def cfg4_predicted_chunks(n_shards: int, n_slots: int = 1) -> int:
     """Dispatch chunks of one 64-Sum request by the JAX package's
-    ``batch_chunk_size`` rule (the port's copy): each Sum's filter
-    ``Row(v > X)`` takes bsi.MAG_BITS params slots.  More than one chunk
-    is the whole-query program's ``batch-chunks`` fallback."""
+    ``batch_chunk_size`` rule (the port's copy) over one device's block
+    of ``n_shards`` on ``n_slots`` devices: each Sum's filter ``Row(v >
+    X)`` takes bsi.MAG_BITS params slots.  More than one chunk is the
+    whole-query program's ``batch-chunks`` fallback."""
     from pilosa_tpu_torch import bsi64
     from pilosa_tpu_torch.executor.executor import batch_chunk_size
     from pilosa_tpu_torch.ops import bsi
-    chunk = batch_chunk_size(bsi.MAG_BITS, n_shards)
+    chunk = batch_chunk_size(bsi.MAG_BITS, -(-n_shards // n_slots))
     return -(-bsi64.SUMS_PER_REQUEST // chunk)
 
 
@@ -682,7 +717,7 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
     n_req = len(xs_all)
     sum_launches = dict(kernels.LAUNCHES)
     chunks = (ex.stacked.batch_chunks - chunks0) / n_req
-    predicted = cfg4_predicted_chunks(n_shards)
+    predicted = cfg4_predicted_chunks(n_shards, ex.stacked.n_devices)
     # one chunk runs inside the whole-query program, several fall back to
     # the grouped path's chunks
     want = predicted if predicted > 1 or not whole_query else 0
@@ -724,8 +759,10 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
     stats = DEFAULT_BUDGET.stats()
     hits = ex.prepared.hits
     wq = wq_record(ex, log, n_req + 3 + int(profile))
+    slot_mb = [b / 2**20 for b in ex.stacked.slot_bytes()]
     ex.close()
-    rec = {"whole_query": whole_query,
+    rec = {"whole_query": whole_query, "slots": len(slot_mb),
+           "slot_stack_mb": slot_mb,
            "predicted_chunks_per_sum_request": predicted,
            "qps": bsi64.SUMS_PER_REQUEST * len(lat) / sum(lat),
            "requests_per_s": len(lat) / sum(lat),
@@ -747,10 +784,203 @@ def run_cfg4(holder, oracle, device, label: str, n_shards: int,
     return answers, rec
 
 
+# -- phase 6a: the device mesh -------------------------------------------------
+
+def mesh_devices() -> tuple[list, int]:
+    """(the mesh's device list, cards): every visible card in order, or
+    the two-slot list ``[cuda:0, cuda:0]`` on a one-card machine."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", k) for k in range(n)], n
+    return [torch.device("cuda", 0)] * 2, 1
+
+
+def slot_launches(n_slots: int) -> dict:
+    """The kernels' launches by mesh slot and by card since the last
+    reset: {"slot": {kernel: [per slot]}, "card": {kernel: {card: n}}}."""
+    from pilosa_tpu_torch.ops import kernels
+    by_slot = {name: [kernels.LAUNCHES_BY_SLOT.get((name, k), 0)
+                      for k in range(n_slots)] for name in kernels.LAUNCHES}
+    by_card: dict = {name: {} for name in kernels.LAUNCHES}
+    for (name, card), n in kernels.LAUNCHES_BY_DEVICE.items():
+        by_card[name][card] = n
+    return {"slot": by_slot, "card": by_card}
+
+
+def check_mesh_shapes(holder, devices, rg: int = 1, c: int = 3) -> list:
+    """Each kernel on each slot's block of the stacks the mesh places for
+    the SSB TopN key list (compressed-resident; one block a slot, as the
+    key list forms one signature group), with that slot's card current:
+    held bit-exact against its plain version and timed with CUDA events
+    on that card.  Returns (decode rec, fused rec, block shards) a
+    slot."""
+    from pilosa_tpu_torch import ssb
+    from pilosa_tpu_torch.parallel.stacked import StackedExecutor
+    st = StackedExecutor(devices)
+    keys = [("rev", "standard"), ("region", "standard"),
+            ("category", "standard")]
+    blocks = st._placed_groups(keys, holder, ssb.SSB_INDEX,
+                               list(range(N_SHARDS)))
+    if [b.slot for b in blocks] != list(range(len(devices))):
+        raise AssertionError(f"the SSB TopN key list's blocks sit on "
+                             f"slots {[b.slot for b in blocks]}")
+    out = []
+    for b in blocks:
+        dec, fus = _new_rec(), _new_rec()
+        with torch.cuda.device(b.device):
+            measure_group(b[1], b[2], len(b[0]), dec, fus, rg, c)
+        out.append((dec, fus, len(b[0])))
+    st.close()
+    return out
+
+
+def mesh_reduce_ms(holder, devices) -> float:
+    """Milliseconds (CUDA events on the primary) of the whole-query
+    runner's reduction of one SSB request's per-slot outputs onto the
+    primary (``WholeQueryRunner._merge``), over the outputs of a real
+    request caught on its way through."""
+    from pilosa_tpu_torch import ssb
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.parallel import wholequery as wqm
+    rng = np.random.default_rng(SEED + 1)
+    calls = ssb.ssb_calls(rng, BATCH)
+    merge = wqm.WholeQueryRunner._merge
+    caught: list = []
+
+    def spy(self, *args):
+        caught.append(args)
+        return merge(self, *args)
+
+    ex = Executor(holder, device=devices)
+    wqm.WholeQueryRunner._merge = spy
+    try:
+        ex.execute(ssb.SSB_INDEX, ssb.ssb_batch(calls))
+    finally:
+        wqm.WholeQueryRunner._merge = merge
+    with torch.cuda.device(devices[0]):
+        ms = time_ms(lambda: merge(ex.wholequery, *caught[0]), iters=20)
+    ex.close()
+    return ms
+
+
+def run_mesh(holder, hist, ssb_answers, cfg4, oracle, c4_answers,
+             card: str) -> dict:
+    """Phase ``mesh``: the stacked executor over a device list
+    (parallel/stacked.py), every visible card — or, on a one-card
+    machine, the two-slot list ``[cuda:0, cuda:0]`` (``cards=1
+    slots=2``), which checks the split into blocks, the per-slot graphs
+    and the reduction onto the primary, but no copy between cards.  The
+    SSB mix at 256 shards (``run_ssb``) dense- and compressed-resident,
+    whole-query and grouped, and config 4's 64-Sum request and GroupBy
+    (``run_cfg4``, one timed 64-Sum request) dense and compressed: every
+    answer equal to the oracle and to the one-device executor's answers
+    (phases ssb and bsi64), every whole-query run without fallback and
+    with replays, every slot's resident stack bytes above zero, both
+    kernels launched in every slot and on every card in each compressed
+    run (counts reset just before the run, read just after); then both
+    kernels on each slot's block, held against their plain versions and
+    timed on its card, and the reduction's milliseconds.  Returns the
+    phase's record with the per-slot kernel records."""
+    from pilosa_tpu_torch import bsi64
+    from pilosa_tpu_torch.storage.membudget import DEFAULT_BUDGET
+    devices, cards = mesh_devices()
+    slots = len(devices)
+    say("mesh", cards=cards, slots=slots,
+        devices=[str(d) for d in devices], card=repr(card))
+    rec = {"cards": cards, "slots": slots,
+           "devices": [str(d) for d in devices], "card": card}
+
+    def gate(label, r, compressed, names):
+        if any(mb <= 0 for mb in r["slot_stack_mb"]):
+            raise AssertionError(f"mesh {label}: a slot holds no stack: "
+                                 f"{r['slot_stack_mb']} MB")
+        if not compressed:
+            return
+        for name in names:
+            if min(r["launches_by"]["slot"][name]) <= 0:
+                raise AssertionError(f"mesh {label}: a slot never "
+                                     f"launched {name}: "
+                                     f"{r['launches_by']['slot'][name]}")
+            cards_seen = r["launches_by"]["card"][name]
+            if any(cards_seen.get(d.index, 0) <= 0 for d in devices):
+                raise AssertionError(f"mesh {label}: a card never "
+                                     f"launched {name}: {cards_seen}")
+
+    both = ("decode_block", "fused_row_counts")
+    for form in ("dense", "compressed"):
+        DEFAULT_BUDGET.limit_bytes = None if form == "dense" \
+            else BUDGET_MB << 20
+        DEFAULT_BUDGET.shrink_to_limit()
+        for whole_query in (True, False):
+            label = f"ssb_{form}" + ("" if whole_query else "_grouped")
+            # the grouped path captures nothing: one pass
+            ans, r = run_ssb(holder, hist, devices, f"mesh_{form}",
+                             whole_query=whole_query,
+                             passes=3 if whole_query else 1)
+            r["launches_by"] = slot_launches(slots)
+            if ans != ssb_answers:
+                raise AssertionError(f"mesh {label}: the answers differ "
+                                     f"from the one-device executor's")
+            if whole_query and (r["wq_fallbacks"] or not r["replays"]):
+                raise AssertionError(f"mesh {label}: fallbacks "
+                                     f"{r['wq_fallbacks']}, replays "
+                                     f"{r['replays']}")
+            gate(label, r, form == "compressed", both)
+            say("mesh", run=label, slot_stack_mb=r["slot_stack_mb"],
+                launches_by=json.dumps(r["launches_by"]))
+            rec[label] = r
+        if form == "compressed":
+            rec["reduce_ms"] = mesh_reduce_ms(holder, devices)
+            shapes = check_mesh_shapes(holder, devices)
+    for form in ("dense", "compressed"):
+        DEFAULT_BUDGET.limit_bytes = None if form == "dense" \
+            else BUDGET_MB << 20
+        DEFAULT_BUDGET.shrink_to_limit()
+        ans, r = run_cfg4(cfg4, oracle, devices, f"mesh_{form}",
+                          bsi64.N_SHARDS, n_requests=1)
+        r["launches_by"] = slot_launches(slots)
+        # the same seeded requests: the first two 64-Sum requests and the
+        # GroupBy (the Min / Max / Count / TopN request's literal comes
+        # from the last 64-Sum request: only its oracle holds it)
+        if ans[:2] != c4_answers[:2] or ans[-2] != c4_answers[-2]:
+            raise AssertionError(f"mesh bsi64_{form}: the answers differ "
+                                 f"from the one-device executor's")
+        gate(f"bsi64_{form}", r, form == "compressed", both)
+        rec[f"bsi64_{form}"] = r
+    recs = []
+    for k, (dec, fus, n) in enumerate(shapes):
+        for name, kr in (("decode_block", dec), ("fused_row_counts", fus)):
+            if kr["err"]:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version on slot {k}: {kr['err']}")
+        recs.append({"slot": k, "card": devices[k].index,
+                     "block_shards": n, "decode_block": dec,
+                     "fused_row_counts": fus})
+        say("mesh", slot=k, card_index=devices[k].index, block_shards=n,
+            decode_ms=dec["ms"], fused_ms=fus["ms"],
+            decode_plain_ms=dec["plain_ms"], fused_plain_ms=fus["plain_ms"],
+            exact=True)
+    rec["kernel_recs"] = recs
+    say("mesh", cards=cards, slots=slots, reduce_ms=rec["reduce_ms"],
+        ssb_qps={k: rec[k]["qps"] for k in rec if k.startswith("ssb_")},
+        ssb_replay_p50_ms={k: rec[k]["replay_p50_ms"] for k in rec
+                           if k.startswith("ssb_")})
+    return rec
+
+
 # -- phase 6b: the multi-process engine ---------------------------------------
 
-MP_WORLD = 2                   # rank processes on the one card
+MP_WORLD = 2                   # rank processes
 MP_RANK_TIMEOUT_S = 240        # each rank's own limit
+
+
+def mp_route(world: int = MP_WORLD) -> tuple[str, list]:
+    """(backend, each rank's device): one card a rank over NCCL where the
+    machine has a card for every rank, else every rank on ``cuda:0`` over
+    gloo (NCCL refuses two ranks on one card)."""
+    if torch.cuda.device_count() >= world:
+        return "nccl", [f"cuda:{r}" for r in range(world)]
+    return "gloo", ["cuda:0"] * world
 
 
 def mp_worker_queries() -> list:
@@ -802,8 +1032,9 @@ def mp_oracle(oracle) -> list:
 
 def rank_main(argv) -> int:
     """One rank of phase ``multiprocess``: joins the process group over
-    gloo on ``cuda:0`` (both ranks share the one card, where NCCL refuses
-    two ranks), builds its slice of the SSB corpus (256 shards) and of
+    ``--backend`` on ``--device`` (``mp_route``: NCCL with a card of its
+    own, or gloo on the card every rank shares), builds its slice of the
+    SSB corpus (256 shards) and of
     config 4's (64 shards) from the seeds, and runs the SSB mix, config
     4's requests and the multihost worker's set compressed-resident
     through ``Executor(..., group=...)``, counting kernel launches per
@@ -820,14 +1051,14 @@ def rank_main(argv) -> int:
     port = int(argv[argv.index("--port") + 1])
     device = argv[argv.index("--device") + 1]
     n_cfg4 = int(argv[argv.index("--cfg4-shards") + 1])
+    backend = argv[argv.index("--backend") + 1]
     t_rank = time.perf_counter()
     # the ranks share the host: split its cores, or their intra-op
     # threads spin against each other while one waits in a collective
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    # gloo: the ranks share one card
     group, device = multihost.init_distributed(
-        f"localhost:{port}", world, rank, backend="gloo", device=device)
-    rec = {"rank": rank, "world": world, "backend": "gloo",
+        f"localhost:{port}", world, rank, backend=backend, device=device)
+    rec = {"rank": rank, "world": world, "backend": backend,
            "device": str(device)}
     t0 = time.perf_counter()
     lo, hi = multihost.shard_range(N_SHARDS, rank, world)
@@ -917,7 +1148,9 @@ def rank_main(argv) -> int:
 def run_multiprocess(device, card: str, hist, ssb_answers, cfg4, oracle,
                      c4_answers, n_cfg4: int) -> dict:
     """Phase ``multiprocess``: MP_WORLD rank processes (fresh
-    interpreters running ``rank_main``) on the one card.  Every rank's
+    interpreters running ``rank_main``), over NCCL with a card each where
+    the machine has them, else over gloo on the one card
+    (``mp_route``).  Every rank's
     answers must equal the oracle and the single-process port's answers
     on the same data (the ``ssb`` and ``bsi64`` phases, and the worker
     set run here on the single-process config-4 holder); both kernels
@@ -939,12 +1172,14 @@ def run_multiprocess(device, card: str, hist, ssb_answers, cfg4, oracle,
     torch.cuda.empty_cache()
     from pilosa_tpu_torch.bench import free_ports
     (port,) = free_ports(1)
+    backend, rank_devices = mp_route()
+    say("multiprocess", backend=backend, devices=rank_devices)
     logs = [tempfile.TemporaryFile(mode="w+") for _ in range(MP_WORLD)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, __file__, "--rank", str(r), "--world",
-         str(MP_WORLD), "--port", str(port), "--device", str(device),
-         "--cfg4-shards", str(n_cfg4)],
+         str(MP_WORLD), "--port", str(port), "--device", rank_devices[r],
+         "--backend", backend, "--cfg4-shards", str(n_cfg4)],
         stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(MP_WORLD)]
     try:
@@ -1002,7 +1237,8 @@ def run_multiprocess(device, card: str, hist, ssb_answers, cfg4, oracle,
                 if rec[corpus]["launches"].get(name, 0) <= 0:
                     raise AssertionError(f"rank {r} never launched {name} "
                                          f"on the {corpus} corpus")
-        say("multiprocess", rank=r, card=repr(card),
+        say("multiprocess", rank=r, backend=rec["backend"],
+            device=rec["device"], card=repr(card),
             seconds=rec["seconds"], build_s=rec["build_s"],
             ssb_shards=rec["ssb_shards"],
             ssb_batch_p50_ms=rec["ssb"]["batch_p50_ms"],
@@ -1016,8 +1252,9 @@ def run_multiprocess(device, card: str, hist, ssb_answers, cfg4, oracle,
         if k["err"]:
             raise AssertionError(f"{name} differs from its plain version "
                                  f"on rank 0's stacks: {k['err']}")
-    return {"world": MP_WORLD, "backend": "gloo", "card": card,
-            "wall_s": wall, "ranks": recs, "kernel_recs": kr}
+    return {"world": MP_WORLD, "backend": backend,
+            "devices": rank_devices, "card": card, "wall_s": wall,
+            "ranks": recs, "kernel_recs": kr}
 
 
 # -- phase 7: the served path -------------------------------------------------
@@ -1601,7 +1838,7 @@ def observe_server(srv) -> dict:
         raise AssertionError(f"retraces in this process: {by_sig}")
     if not rec["captures"] or not rec["timeseries_samples"] or rc != 0 \
             or "pilosa-tpu top @" not in top or "kernels: backend cuda" \
-            not in top and torch.device(srv.device).type == "cuda":
+            not in top and srv.devices[0].type == "cuda":
         raise AssertionError(f"device-runtime surfaces: {rec}\n{top}")
     return rec
 
@@ -3196,7 +3433,17 @@ def run_bench(device) -> dict:
     return rec
 
 
+PHASES = ("kernels", "ssb", "bsi64", "mesh", "multiprocess", "served",
+          "cfg5_budget", "cluster", "replicas", "parity", "bench")
+
+
 def main(argv) -> int:
+    """Every phase, or with ``--only a,b`` the named ones (after the
+    card, build and corpus phases).  Phases mesh and multiprocess hold
+    their answers to the one-device answers of phases ssb and bsi64;
+    where those are not named, one dense default-path run of the SSB
+    mix and of config 4 on ``cuda:0``, each against the oracle, gives
+    them."""
     profile = "--profile" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
@@ -3204,7 +3451,16 @@ def main(argv) -> int:
         return 2
     if "--rank" in argv:          # one rank of phase multiprocess
         return rank_main(argv)
-    from pilosa_tpu_torch import ssb
+    phases = PHASES
+    if "--only" in argv:
+        phases = tuple(argv[argv.index("--only") + 1].split(","))
+        bad = [p for p in phases if p not in PHASES]
+        if bad:
+            print(f"chip_smoke: --only takes {','.join(PHASES)}, got "
+                  f"{bad}", file=sys.stderr)
+            return 2
+    ref = bool({"mesh", "multiprocess"} & set(phases))
+    from pilosa_tpu_torch import bsi64, ssb
     from pilosa_tpu_torch.ops import kernels
     from pilosa_tpu_torch.storage import Holder
     from pilosa_tpu_torch.storage import fragment as port_fragment
@@ -3213,7 +3469,8 @@ def main(argv) -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     say("card", name=torch.cuda.get_device_name(0), nvidia_smi=repr(card),
-        torch=torch.__version__, cuda=torch.version.cuda)
+        cards=torch.cuda.device_count(), torch=torch.__version__,
+        cuda=torch.version.cuda, phases=",".join(phases))
 
     t0 = time.perf_counter()
     lib = kernels.build()
@@ -3239,169 +3496,223 @@ def main(argv) -> int:
     say("corpus", shards=N_SHARDS, columns=N_SHARDS << 20,
         fields=dict(ssb.SSB_FIELDS), seconds=time.perf_counter() - t0)
 
+    recs: dict = {}
     t0 = time.perf_counter()
-    check_boundary_packs(device)
+    if "kernels" in phases:
+        check_boundary_packs(device)
     port_fragment.COMPRESSED_RESIDENT = True
-    DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
-    dec, fus = check_ssb_shapes(holder, device)
-    for name, rec in (("decode_block", dec), ("fused_row_counts", fus)):
-        if rec["err"]:
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"at the SSB shapes: {rec['err']}")
-    say("kernels", seconds=time.perf_counter() - t0)
+    if "kernels" in phases:
+        DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
+        dec, fus = check_ssb_shapes(holder, device)
+        for name, rec in (("decode_block", dec),
+                          ("fused_row_counts", fus)):
+            if rec["err"]:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version at the SSB shapes: "
+                                     f"{rec['err']}")
+        say("kernels", seconds=time.perf_counter() - t0)
 
     # dense-resident: no budget, so every fragment stays dense; each
     # residency through the default path (whole-query programs through
     # the batcher) and the grouped path
     t0 = time.perf_counter()
     DEFAULT_BUDGET.limit_bytes = None
-    dense_ans, dense_rec = run_ssb(holder, hist, device, "dense", profile)
-    dense_g_ans, dense_g_rec = run_ssb(holder, hist, device, "dense",
-                                       whole_query=False)
-    # compressed-resident: the 96 MB budget packs the sparse fragments
-    DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
-    DEFAULT_BUDGET.shrink_to_limit()
-    comp_ans, comp_rec = run_ssb(holder, hist, device, "compressed",
-                                 profile)
-    comp_g_ans, comp_g_rec = run_ssb(holder, hist, device, "compressed",
-                                     whole_query=False)
-    if not comp_ans == dense_ans == dense_g_ans == comp_g_ans:
-        raise AssertionError("the SSB answers differ between residencies "
-                             "or paths")
-    for rec in (dense_rec, comp_rec):
-        if rec["wq_fallbacks"] or not rec["replays"]:
-            raise AssertionError(f"SSB whole-query: fallbacks "
-                                 f"{rec['wq_fallbacks']}, replays "
-                                 f"{rec['replays']}")
-    for rec in (comp_rec, comp_g_rec):
-        for name, n in rec["launches"].items():
+    if "ssb" in phases:
+        dense_ans, dense_rec = run_ssb(holder, hist, device, "dense",
+                                       profile)
+        dense_g_ans, dense_g_rec = run_ssb(holder, hist, device, "dense",
+                                           whole_query=False)
+        # compressed-resident: the 96 MB budget packs the sparse
+        # fragments
+        DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
+        DEFAULT_BUDGET.shrink_to_limit()
+        comp_ans, comp_rec = run_ssb(holder, hist, device, "compressed",
+                                     profile)
+        comp_g_ans, comp_g_rec = run_ssb(holder, hist, device,
+                                         "compressed", whole_query=False)
+        if not comp_ans == dense_ans == dense_g_ans == comp_g_ans:
+            raise AssertionError("the SSB answers differ between "
+                                 "residencies or paths")
+        for rec in (dense_rec, comp_rec):
+            if rec["wq_fallbacks"] or not rec["replays"]:
+                raise AssertionError(f"SSB whole-query: fallbacks "
+                                     f"{rec['wq_fallbacks']}, replays "
+                                     f"{rec['replays']}")
+        for rec in (comp_rec, comp_g_rec):
+            for name, n in rec["launches"].items():
+                if n <= 0:
+                    raise AssertionError(f"the compressed SSB run never "
+                                         f"launched {name}")
+        for name, n in comp_rec["launches_replayed"].items():
             if n <= 0:
-                raise AssertionError(f"the compressed SSB run never "
-                                     f"launched {name}")
-    for name, n in comp_rec["launches_replayed"].items():
-        if n <= 0:
-            raise AssertionError(f"no replayed whole-query graph of the "
-                                 f"compressed SSB run launched {name}")
-    say("ssb", seconds=time.perf_counter() - t0)
+                raise AssertionError(f"no replayed whole-query graph of "
+                                     f"the compressed SSB run launched "
+                                     f"{name}")
+        recs["ssb"] = {"dense": dense_rec, "compressed": comp_rec,
+                       "dense_grouped": dense_g_rec,
+                       "compressed_grouped": comp_g_rec,
+                       "budget_mb": BUDGET_MB}
+        say("ssb", seconds=time.perf_counter() - t0)
+    elif ref:
+        dense_ans, _ = run_ssb(holder, hist, device, "dense")
+        say("reference", corpus="ssb", seconds=time.perf_counter() - t0)
 
     # config 4: the BSI Sum / range / GroupBy path over 64 shards
-    from pilosa_tpu_torch import bsi64
+    cfg4 = oracle = None
+    if "bsi64" in phases or ref:
+        t0 = time.perf_counter()
+        DEFAULT_BUDGET.limit_bytes = None
+        cfg4, oracle = cfg4_corpus(bsi64.N_SHARDS)
+        say("bsi64", corpus_values=oracle[0].size, shards=bsi64.N_SHARDS,
+            seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    DEFAULT_BUDGET.limit_bytes = None
-    cfg4, oracle = cfg4_corpus(bsi64.N_SHARDS)
-    say("bsi64", corpus_values=oracle[0].size, shards=bsi64.N_SHARDS,
-        seconds=time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    c4_dense_ans, c4_dense = run_cfg4(cfg4, oracle, device, "dense",
-                                      bsi64.N_SHARDS, profile)
-    # the grouped path over fewer 64-Sum requests: on the default path
-    # they fall back to it anyway
-    c4_dense_g_ans, c4_dense_g = run_cfg4(
-        cfg4, oracle, device, "dense", bsi64.N_SHARDS, whole_query=False,
-        n_requests=CFG4_REQUESTS_GROUPED)
-    DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
-    DEFAULT_BUDGET.shrink_to_limit()
-    bsi_dec = check_bsi_stack(cfg4, device, bsi64.N_SHARDS)
-    if bsi_dec["err"]:
-        raise AssertionError(f"decode_block differs from its plain "
-                             f"version on bsig_v: {bsi_dec['err']}")
-    c4_comp_ans, c4_comp = run_cfg4(cfg4, oracle, device, "compressed",
-                                    bsi64.N_SHARDS, profile)
-    c4_comp_g_ans, c4_comp_g = run_cfg4(
-        cfg4, oracle, device, "compressed", bsi64.N_SHARDS,
-        whole_query=False, n_requests=CFG4_REQUESTS_GROUPED)
-    if c4_comp_ans != c4_dense_ans:
-        raise AssertionError("config 4: dense and compressed answers "
-                             "differ")
-    k = CFG4_REQUESTS_GROUPED + 1      # the 64-Sum requests both ran
-    for g_ans in (c4_dense_g_ans, c4_comp_g_ans):
-        if g_ans[:k] != c4_dense_ans[:k] or g_ans[k] != c4_dense_ans[-2]:
-            raise AssertionError("config 4: the default and grouped "
-                                 "paths' answers differ")
-    for rec in (c4_comp, c4_comp_g):
-        for name, n in rec["launches_phase"].items():
-            if n <= 0:
-                raise AssertionError(f"the compressed config-4 run never "
-                                     f"launched {name}")
-    say("bsi64", seconds=time.perf_counter() - t0)
+    if "bsi64" in phases:
+        c4_dense_ans, c4_dense = run_cfg4(cfg4, oracle, device, "dense",
+                                          bsi64.N_SHARDS, profile)
+        # the grouped path over fewer 64-Sum requests: on the default
+        # path they fall back to it anyway
+        c4_dense_g_ans, c4_dense_g = run_cfg4(
+            cfg4, oracle, device, "dense", bsi64.N_SHARDS,
+            whole_query=False, n_requests=CFG4_REQUESTS_GROUPED)
+        DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
+        DEFAULT_BUDGET.shrink_to_limit()
+        bsi_dec = check_bsi_stack(cfg4, device, bsi64.N_SHARDS)
+        if bsi_dec["err"]:
+            raise AssertionError(f"decode_block differs from its plain "
+                                 f"version on bsig_v: {bsi_dec['err']}")
+        c4_comp_ans, c4_comp = run_cfg4(cfg4, oracle, device,
+                                        "compressed", bsi64.N_SHARDS,
+                                        profile)
+        c4_comp_g_ans, c4_comp_g = run_cfg4(
+            cfg4, oracle, device, "compressed", bsi64.N_SHARDS,
+            whole_query=False, n_requests=CFG4_REQUESTS_GROUPED)
+        if c4_comp_ans != c4_dense_ans:
+            raise AssertionError("config 4: dense and compressed answers "
+                                 "differ")
+        k = CFG4_REQUESTS_GROUPED + 1      # the 64-Sum requests both ran
+        for g_ans in (c4_dense_g_ans, c4_comp_g_ans):
+            if g_ans[:k] != c4_dense_ans[:k] or \
+                    g_ans[k] != c4_dense_ans[-2]:
+                raise AssertionError("config 4: the default and grouped "
+                                     "paths' answers differ")
+        for rec in (c4_comp, c4_comp_g):
+            for name, n in rec["launches_phase"].items():
+                if n <= 0:
+                    raise AssertionError(f"the compressed config-4 run "
+                                         f"never launched {name}")
+        recs["bsi64"] = {"dense": c4_dense, "compressed": c4_comp,
+                         "dense_grouped": c4_dense_g,
+                         "compressed_grouped": c4_comp_g,
+                         "budget_mb": BUDGET_MB}
+        say("bsi64", seconds=time.perf_counter() - t0)
+    elif ref:
+        c4_dense_ans, _ = run_cfg4(cfg4, oracle, device, "dense",
+                                   bsi64.N_SHARDS)
+        say("reference", corpus="bsi64", seconds=time.perf_counter() - t0)
 
-    # the multi-process engine: two ranks on the card, each with half of
-    # the SSB and config-4 corpora
-    t0 = time.perf_counter()
-    DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
-    mp = run_multiprocess(device, card, hist, dense_ans, cfg4, oracle,
-                          c4_dense_ans, bsi64.N_SHARDS)
-    say("multiprocess", seconds=time.perf_counter() - t0, card=repr(card))
+    # the device mesh: every card, or two slots of the one card
+    if "mesh" in phases:
+        t0 = time.perf_counter()
+        recs["mesh"] = run_mesh(holder, hist, dense_ans, cfg4, oracle,
+                                c4_dense_ans, card)
+        say("mesh", seconds=time.perf_counter() - t0)
+
+    # the multi-process engine: two ranks, each with half of the SSB and
+    # config-4 corpora
+    if "multiprocess" in phases:
+        t0 = time.perf_counter()
+        DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20
+        recs["multiprocess"] = run_multiprocess(
+            device, card, hist, dense_ans, cfg4, oracle, c4_dense_ans,
+            bsi64.N_SHARDS)
+        say("multiprocess", seconds=time.perf_counter() - t0,
+            card=repr(card))
 
     # the served path: HTTP API, load, concurrent clients, ingest, CLI
-    t0 = time.perf_counter()
-    served, warm = run_served(holder, hist, device, profile=profile)
-    say("served", seconds=time.perf_counter() - t0 - warm["seconds"])
-    say("warm_start", seconds=warm["seconds"])
+    if "served" in phases:
+        t0 = time.perf_counter()
+        served, warm = run_served(holder, hist, device, profile=profile)
+        say("served", seconds=time.perf_counter() - t0 - warm["seconds"])
+        say("warm_start", seconds=warm["seconds"])
+        recs["served"], recs["warm_start"] = served, warm
     del cfg4, holder
     gc.collect()
 
     # config 5 over 954 shards under the 768 MiB budget
-    from pilosa_tpu_torch import cfg5
-    t0 = time.perf_counter()
-    c5, c5_dec, c5_fus = run_cfg5_budget(device, cfg5.N_SHARDS5)
-    say("cfg5_budget", seconds=time.perf_counter() - t0)
+    if "cfg5_budget" in phases:
+        from pilosa_tpu_torch import cfg5
+        t0 = time.perf_counter()
+        recs["cfg5_budget"], c5_dec, c5_fus = run_cfg5_budget(
+            device, cfg5.N_SHARDS5)
+        say("cfg5_budget", seconds=time.perf_counter() - t0)
 
     # config 5's cluster half: four port nodes on the one card
-    t0 = time.perf_counter()
-    clus = run_cluster(device, CLUSTER_SHARDS)
-    say("cluster", seconds=time.perf_counter() - t0)
+    if "cluster" in phases:
+        t0 = time.perf_counter()
+        recs["cluster"] = run_cluster(device, CLUSTER_SHARDS)
+        say("cluster", seconds=time.perf_counter() - t0)
 
     # replicas: anti-entropy with repair over compressed fragments
-    t0 = time.perf_counter()
-    repl = run_replicas(device)
-    say("replicas", seconds=time.perf_counter() - t0)
-    repl_recs = repl.pop("kernel_recs")
+    if "replicas" in phases:
+        t0 = time.perf_counter()
+        recs["replicas"] = run_replicas(device)
+        say("replicas", seconds=time.perf_counter() - t0)
+        repl_recs = recs["replicas"].pop("kernel_recs")
 
     # parity: crash recovery on the card, the deadline gate, cache clear
-    t0 = time.perf_counter()
-    par = run_parity(device, card)
-    say("parity", seconds=time.perf_counter() - t0)
-    par_recs = par.pop("kernel_recs")
+    if "parity" in phases:
+        t0 = time.perf_counter()
+        recs["parity"] = run_parity(device, card)
+        say("parity", seconds=time.perf_counter() - t0)
+        par_recs = recs["parity"].pop("kernel_recs")
 
     # the port's bench at its smoke size: every leg, every gate
-    bench_rec = run_bench(device)
+    if "bench" in phases:
+        recs["bench"] = run_bench(device)
 
+    # the kernels line's rows of the phases that ran: (name, record,
+    # TPU kernel, shape, run, launches of the grouped run, launches per
+    # served request)
+    dec_at, fus_at = f"{JAX_KERNELS}:245", f"{JAX_KERNELS}:326"
+    rows = []
+    if "kernels" in phases and "ssb" in phases:
+        # launches: the compressed default-path run (whole-query; a
+        # replay counts the launches its graph recorded, of which
+        # "replayed"), and the grouped run of the same requests
+        per_served = recs["served"]["compressed"]["launches_per_request"] \
+            if "served" in recs else {}
+        rows += [("decode_block", dec, dec_at, "ssb_topn_filter",
+                  comp_rec, comp_g_rec["launches"],
+                  per_served.get("decode_block")),
+                 ("fused_row_counts", fus, fus_at, "ssb_topn_filter",
+                  comp_rec, comp_g_rec["launches"],
+                  per_served.get("fused_row_counts"))]
+    if "bsi64" in phases:
+        rows.append(("decode_block", bsi_dec, dec_at, "bsi64_bsig_v",
+                     c4_comp, c4_comp_g["launches_phase"], None))
+    if "cfg5_budget" in phases:
+        c5 = recs["cfg5_budget"]["compressed"]
+        rows += [("decode_block", c5_dec, dec_at, "cfg5_compressed_slice",
+                  c5, None, None),
+                 ("fused_row_counts", c5_fus, fus_at,
+                  "cfg5_compressed_slice", c5, None, None)]
+    if "replicas" in phases:
+        run = {"launches": recs["replicas"]["launches_after_repair"]}
+        rows += [(name, repl_recs[name], at, "replicas_repaired", run,
+                  None, None) for name, at in (("decode_block", dec_at),
+                                               ("fused_row_counts", fus_at))]
+    if "parity" in phases:
+        # the compressed restart after the last kill cycle
+        run = {"launches": recs["parity"]["cycles"][-1]["compressed"]
+               ["launches"]}
+        rows += [(name, par_recs[name], at, "parity_restart", run,
+                  None, None) for name, at in (("decode_block", dec_at),
+                                               ("fused_row_counts", fus_at))]
+    warm_launches = recs["warm_start"]["compressed"]["warm"][
+        "launches_replayed"] if "warm_start" in recs else {}
     src = "pilosa_tpu_torch/csrc/container_kernels.cu"
     lines = []
-    served_launches = served["compressed"]["launches_per_request"]
-    warm_launches = warm["compressed"]["warm"]["launches_replayed"]
-    # launches: the compressed default-path run (whole-query; a replay
-    # counts the launches its graph recorded, of which "replayed"), and
-    # the grouped run of the same requests
-    for name, rec, replaces, shape, run, grouped, per_served in (
-            ("decode_block", dec, f"{JAX_KERNELS}:245", "ssb_topn_filter",
-             comp_rec, comp_g_rec["launches"],
-             served_launches["decode_block"]),
-            ("fused_row_counts", fus, f"{JAX_KERNELS}:326",
-             "ssb_topn_filter", comp_rec, comp_g_rec["launches"],
-             served_launches["fused_row_counts"]),
-            ("decode_block", bsi_dec, f"{JAX_KERNELS}:245", "bsi64_bsig_v",
-             c4_comp, c4_comp_g["launches_phase"], None),
-            ("decode_block", c5_dec, f"{JAX_KERNELS}:245",
-             "cfg5_compressed_slice", c5["compressed"], None, None),
-            ("fused_row_counts", c5_fus, f"{JAX_KERNELS}:326",
-             "cfg5_compressed_slice", c5["compressed"], None, None),
-            ("decode_block", repl_recs["decode_block"],
-             f"{JAX_KERNELS}:245", "replicas_repaired",
-             {"launches": repl["launches_after_repair"]}, None, None),
-            ("fused_row_counts", repl_recs["fused_row_counts"],
-             f"{JAX_KERNELS}:326", "replicas_repaired",
-             {"launches": repl["launches_after_repair"]}, None, None),
-            # the compressed restart after the last kill cycle
-            ("decode_block", par_recs["decode_block"],
-             f"{JAX_KERNELS}:245", "parity_restart",
-             {"launches": par["cycles"][-1]["compressed"]["launches"]},
-             None, None),
-            ("fused_row_counts", par_recs["fused_row_counts"],
-             f"{JAX_KERNELS}:326", "parity_restart",
-             {"launches": par["cycles"][-1]["compressed"]["launches"]},
-             None, None)):
+    for name, rec, replaces, shape, run, grouped, per_served in rows:
         b_ms, b_by = bound(rec)
         launches = run["launches" if "launches" in run
                        else "launches_phase"][name]
@@ -3422,8 +3733,56 @@ def main(argv) -> int:
                       "max_abs_err": rec["err"], "ms": rec["ms"],
                       "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
-    # phase multiprocess: each kernel at rank 0's half shapes; launches
-    # are rank 0's main-path run, with every rank's beside them
+    if "mesh" in recs:
+        lines.extend(mesh_lines(recs["mesh"], src))
+    if "multiprocess" in recs:
+        lines.extend(mp_lines(recs["multiprocess"], src))
+    print(json.dumps({"kernels": lines}))
+    for group in (("ssb", "bsi64"), ("mesh",), ("served",),
+                  ("warm_start",), ("cfg5_budget", "cluster", "replicas"),
+                  ("multiprocess",), ("parity",), ("bench",)):
+        out = {k: recs[k] for k in group if k in recs}
+        if out:
+            print(json.dumps(out))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def mesh_lines(mesh: dict, src: str) -> list:
+    """Phase mesh's rows of the ``kernels`` line: each kernel on each
+    slot's block of the SSB TopN stacks, timed on its card; launches are
+    that slot's in the compressed whole-query mesh run, the grouped
+    run's beside them."""
+    lines = []
+    runs = mesh["ssb_compressed"]["launches_by"]["slot"]
+    grouped = mesh["ssb_compressed_grouped"]["launches_by"]["slot"]
+    for kr in mesh.pop("kernel_recs"):
+        for name in ("decode_block", "fused_row_counts"):
+            rec = kr[name]
+            b_ms, b_by = bound(rec)
+            lines.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": f"{JAX_KERNELS}:"
+                            f"{245 if name == 'decode_block' else 326}",
+                "shape": f"mesh_slot{kr['slot']}_ssb_topn_filter",
+                "card_index": kr["card"], "block_shards": kr["block_shards"],
+                "cards": mesh["cards"], "slots": mesh["slots"],
+                "launches": runs[name][kr["slot"]],
+                "launches_grouped_run": grouped[name][kr["slot"]],
+                "max_abs_err": rec["err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None})
+    return lines
+
+
+def mp_lines(mp: dict, src: str) -> list:
+    """Phase multiprocess's rows of the ``kernels`` line: each kernel at
+    rank 0's half shapes; launches are rank 0's main-path run, with
+    every rank's beside them."""
+    lines = []
     for name, key, corpus, shape in (
             ("decode_block", "decode_block", "ssb",
              "multiprocess_rank_ssb_topn_filter"),
@@ -3443,27 +3802,7 @@ def main(argv) -> int:
                       "max_abs_err": rec["err"], "ms": rec["ms"],
                       "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
-    print(json.dumps({"kernels": lines}))
-    print(json.dumps({"ssb": {"dense": dense_rec, "compressed": comp_rec,
-                              "dense_grouped": dense_g_rec,
-                              "compressed_grouped": comp_g_rec,
-                              "budget_mb": BUDGET_MB},
-                      "bsi64": {"dense": c4_dense, "compressed": c4_comp,
-                                "dense_grouped": c4_dense_g,
-                                "compressed_grouped": c4_comp_g,
-                                "budget_mb": BUDGET_MB}}))
-    print(json.dumps({"served": served}))
-    print(json.dumps({"warm_start": warm}))
-    print(json.dumps({"cfg5_budget": c5, "cluster": clus,
-                      "replicas": repl}))
-    print(json.dumps({"multiprocess": mp}))
-    print(json.dumps({"parity": par}))
-    print(json.dumps({"bench": bench_rec}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return lines
 
 
 if __name__ == "__main__":

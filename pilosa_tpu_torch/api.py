@@ -88,8 +88,9 @@ class API:
         executes served queries over stacked shard groups
         (parallel/stacked.py) — the production equivalent of the
         reference's worker pool + mapReduce (executor.go:80-110, 2455).
-        ``device``: the torch device queries run on; None means ``cuda``
-        and raises without a card (executor.resolve_device).  The
+        ``device``: the device spec queries run on; None or ``cuda``
+        means every card and raises without one, ``cuda:k`` one card
+        (executor.resolve_devices).  The
         ``dispatch_batch*`` and ``whole_query*`` arguments go to the
         Executor."""
         self.holder = holder

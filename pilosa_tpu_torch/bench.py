@@ -1,5 +1,6 @@
-"""The port's benchmark: the engine path of the BASELINE configs on one
-NVIDIA GPU — the counterpart of the JAX package's ``bench.py``.
+"""The port's benchmark: the engine path of the BASELINE configs on
+NVIDIA GPUs (one card, or every card with ``--device cuda``) — the
+counterpart of the JAX package's ``bench.py``.
 
     python -m pilosa_tpu_torch.bench [--device cuda] [--seed 7] [--smoke]
         [--leg NAME ...] [--profile]
@@ -79,7 +80,8 @@ H100's 3.35 TB/s, and ``vs_cpu`` against the single-thread numpy
 oracle on this host.  Every answer of every request is checked against
 an exact oracle; a leg that raises or answers wrong ends the run with
 a non-zero exit and the leg's name on stderr.  Nothing falls back to
-the CPU: ``--device cuda`` (the default) needs a card.
+the CPU: ``--device cuda`` (the default) needs a card and spans every
+visible card (executor.resolve_devices); ``cuda:0`` holds one.
 
 Progress lines come first; the last line is one JSON object shaped like
 bench.py's: ``{"metric": "engine_intersect8_count_qps_1M_cols",
@@ -313,14 +315,16 @@ def device_snapshot() -> dict:
            "launches": led.launches_total,
            "rows": led.rows_actual_total, "padded": led.rows_padded_total,
            "decode_bytes": led.decode_bytes_total,
-           "kernel_launches": dict(kernels.LAUNCHES)}
+           "kernel_launches": dict(kernels.LAUNCHES),
+           "kernel_launches_by_card": dict(kernels.LAUNCHES_BY_DEVICE)}
     led.reset_decode_peak()
     return out
 
 
 def device_delta(before: dict, requests: int) -> dict:
     """bench.py ``_device_delta`` (:97-121) over the port's counters,
-    plus each container kernel's launches a request."""
+    plus each container kernel's launches, a request and by card index
+    (``{name: {card: n}}``)."""
     from .utils import devobs
     peak = devobs.LEDGER.decode_peak_bytes
     after = device_snapshot()
@@ -328,6 +332,11 @@ def device_delta(before: dict, requests: int) -> dict:
     padded = after["padded"] - before["padded"]
     kl = {k: n - before["kernel_launches"][k]
           for k, n in after["kernel_launches"].items()}
+    by_card: dict = {}
+    for (name, card), n in sorted(after["kernel_launches_by_card"].items()):
+        d = n - before["kernel_launches_by_card"].get((name, card), 0)
+        if d:
+            by_card.setdefault(name, {})[card] = d
     return {"compiles": after["compiles"] - before["compiles"],
             "retraces": after["retraces"] - before["retraces"],
             "compile_s": after["compile_s"] - before["compile_s"],
@@ -338,6 +347,7 @@ def device_delta(before: dict, requests: int) -> dict:
                           - before["decode_bytes"]) / 2**20,
             "decode_peak_mb": peak / 2**20,
             "kernel_launches": kl,
+            "kernel_launches_by_card": by_card,
             "kernel_launches_per_request": {
                 k: n / requests for k, n in kl.items()} if requests
             else None}
@@ -471,9 +481,12 @@ class Bench:
         from .ops import kernel_timing as kt
         groups = ex.stacked._placed_groups(keys, holder, index, shards)
         dec, fus = kt.new_rec(), kt.new_rec()
-        for shard_list, placed, sig in groups:
-            kt.measure_filtered(placed, sig, len(shard_list), dec, fus,
-                                filters, iters=10, plain_iters=2)
+        for b in groups:
+            shard_list, placed, sig = b
+            # each device block timed on its own card
+            with torch.cuda.device(b.device):
+                kt.measure_filtered(placed, sig, len(shard_list), dec, fus,
+                                    filters, iters=10, plain_iters=2)
         out = {}
         for name, rec in (("decode_block", dec), ("fused_row_counts", fus)):
             require(rec["err"] == 0, leg, f"{name} differs from its plain "
@@ -3111,8 +3124,9 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(prog="python -m pilosa_tpu_torch.bench",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; cpu runs the plain "
-                         "PyTorch versions and measures nothing of a card)")
+                    help="device (default cuda: every visible card; cuda:k "
+                         "one card; cpu runs the plain PyTorch versions and "
+                         "measures nothing of a card)")
     ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--smoke", action="store_true",
                     help="every leg at a few shards and small requests")
@@ -3131,8 +3145,9 @@ def run(argv) -> dict:
     raises ends the run: its name goes to stderr and the error
     propagates."""
     args = parse_args(argv)
-    from .executor.executor import resolve_device
-    device = resolve_device(args.device)
+    from .executor.executor import resolve_devices
+    resolve_devices(args.device)        # a card the machine lacks raises
+    device = torch.device(args.device)
     legs = [name for name in LEGS if args.leg is None or name in args.leg]
     card = None
     t_all = time.perf_counter()

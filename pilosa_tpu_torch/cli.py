@@ -3,8 +3,8 @@ bundle|generate-config|config (reference cmd/root.go + ctl/) — the port
 of the JAX package's ``cli.py``.
 
 Run as ``python -m pilosa_tpu_torch <command>``.  ``server`` takes
-``--device`` (default ``cuda``, which raises without a card; ``cpu``
-runs the plain PyTorch paths).  The client commands speak HTTP and are
+``--device`` (default ``cuda``: every visible card, raising without
+one; ``cuda:k`` one card; ``cpu`` runs the plain PyTorch paths).  The client commands speak HTTP and are
 the JAX package's, including the observability clients ``top`` (the
 kernel backend line reads ``cuda`` or ``torch``), ``alerts`` and
 ``bundle``.  ``analyze`` runs the port's invariant analyzer
@@ -780,7 +780,7 @@ def cmd_config(args) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="pilosa-tpu-torch",
-        description="bitmap index on one NVIDIA GPU (PyTorch / CUDA port)")
+        description="bitmap index on NVIDIA GPUs (PyTorch / CUDA port)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sp = sub.add_parser("server", help="run a server node")
@@ -792,8 +792,9 @@ def main(argv=None) -> int:
     sp.add_argument("--node-id", default=None)
     sp.add_argument("--replicas", type=int, default=None)
     sp.add_argument("--device", default=None,
-                    help="torch device to serve on (default cuda, which "
-                         "needs a card; cpu runs the plain paths)")
+                    help="device to serve on (default cuda: every visible "
+                         "card, needs one; cuda:k one card; cpu runs the "
+                         "plain paths)")
     sp.set_defaults(fn=cmd_server)
 
     sp = sub.add_parser("import", help="bulk-import CSV")

@@ -69,6 +69,7 @@
 // interface, loaded with ctypes by ops/kernels.py.  Each entry point
 // launches on the given stream and returns the first CUDA error, or 0.
 
+#include <atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -345,14 +346,16 @@ fused_row_counts_kernel(Stack st, const uint4* __restrict__ filt,
 }
 
 // Blocks of a persistent grid for `kernel`: as many as fit on the device's
-// SMs (asked once per device), and no more than `work` items.
+// SMs (asked once per device), and no more than `work` items.  Request
+// threads launch on several cards at once, so the per-device cache is
+// atomic: two threads that both miss compute and store the same value.
 template <typename K>
 int persistent_grid(K kernel, long long work, int* grid) {
-  static long long cap_of[64];
+  static std::atomic<long long> cap_of[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  long long cap = dev < 64 ? cap_of[dev] : 0;
+  long long cap = dev < 64 ? cap_of[dev].load(std::memory_order_relaxed) : 0;
   if (cap == 0) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -362,7 +365,7 @@ int persistent_grid(K kernel, long long work, int* grid) {
     }
     if (err != cudaSuccess) return (int)err;
     cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    if (dev < 64) cap_of[dev] = cap;
+    if (dev < 64) cap_of[dev].store(cap, std::memory_order_relaxed);
   }
   *grid = (int)(work < cap ? work : cap);
   return 0;

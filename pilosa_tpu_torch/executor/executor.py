@@ -1,14 +1,17 @@
 """Executor: recursive PQL call dispatch over shards (executor.go:44-339) —
-the port of the JAX package's ``executor/executor.py`` for one device.
+the port of the JAX package's ``executor/executor.py``.
 
-``Executor(holder, device=None, stacked=True)``: ``device`` None means
-``cuda`` and raises when no card is present (pass ``device="cpu"`` to run
-the plain PyTorch paths on the CPU — nothing switches to the CPU by
-itself).  ``stacked=True`` (the JAX package's ``use_mesh=True``, which the
-server and the SSB bench build) runs every aggregation over stacked shard
-groups through parallel/stacked.py; ``stacked=False`` is the per-shard
-branch (the JAX package's ``mesh is None``), evaluating each shard's
-device mirrors in turn.
+``Executor(holder, device=None, stacked=True)``: ``device`` None or
+``cuda`` means every visible card (the JAX package's mesh over all local
+devices) and raises when no card is present; ``cuda:k`` one card, a list
+of devices exactly that list (``resolve_devices``; pass ``device="cpu"``
+to run the plain PyTorch paths on the CPU — nothing switches to the CPU
+by itself).  ``stacked=True`` (the JAX package's ``use_mesh=True``, which
+the server and the SSB bench build) runs every aggregation over stacked
+shard groups through parallel/stacked.py, each group's shard axis split
+over the device list; ``stacked=False`` is the per-shard branch (the JAX
+package's ``mesh is None``), evaluating each shard's device mirrors in
+turn on the first device of the list, the primary.
 
 A read request goes through the JAX package's request stages
 (``_execute_stages``): the result cache (cache/results.py; off while
@@ -42,9 +45,10 @@ SetColumnAttrs.
 
 Deviations from the JAX module:
 
-* On one GPU a batched launch covers every shard of its shard slice
-  (the JAX module's ``stacked_per_device(n)`` is ``n``).  A working set
-  over the device budget runs slice-major over the shard schedule
+* A batched launch on each device covers that device's block of its
+  shard slice (``stacked_per_device(n)`` is ``ceil(n / n_devices)``,
+  without the JAX module's pow2 bucket).  A working set over the device
+  budget runs slice-major over the shard schedule
   (``_run_batched_groups``, parallel/stacked.py ``shard_schedule``).
 * Chunks of a batched group are not padded to a power of two: the
   padding only lets XLA reuse executables, and answers do not depend on
@@ -473,15 +477,49 @@ def _resolve_pendings(results):
     return out
 
 
-def resolve_device(device) -> torch.device:
-    """The executor's device: ``None`` means ``cuda``; a CUDA device must
-    exist."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+def _n_cards() -> int:
+    if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is present; pass device='cpu' to run the "
             "plain PyTorch paths on the CPU")
-    return device
+    return torch.cuda.device_count()
+
+
+def _one_device(device) -> torch.device:
+    """One device of a list: a card must be named by an index the
+    machine has."""
+    d = torch.device(device)
+    if d.type == "cuda":
+        n = _n_cards()
+        if d.index is None:
+            raise ValueError("a device list names each card by its index "
+                             "(cuda:k)")
+        if d.index >= n:
+            raise RuntimeError(f"{d}: this machine has {n} CUDA "
+                               f"device(s)")
+    return d
+
+
+def resolve_devices(device) -> list[torch.device]:
+    """The executor's device list (the JAX executor's mesh), its first
+    device the primary: ``None`` or ``cuda`` — every visible card in
+    order, ``cuda:0 … cuda:n-1`` (``use_mesh=True`` over
+    ``jax.devices()``); ``cuda:k`` — that card alone; ``cpu`` — the CPU;
+    a list or tuple — exactly those devices, repeats kept (``["cpu"] *
+    8`` is a mesh of 8).  A card the machine lacks raises, and so does a
+    list that mixes device types; nothing falls back."""
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device list")
+        devs = [_one_device(d) for d in device]
+        if len({d.type for d in devs}) > 1:
+            raise ValueError(f"a device list of one type, got "
+                             f"{[str(d) for d in devs]}")
+        return devs
+    d = torch.device("cuda" if device is None else device)
+    if d.type == "cuda" and d.index is None:
+        return [torch.device("cuda", k) for k in range(_n_cards())]
+    return [_one_device(d)]
 
 
 class Executor:
@@ -510,7 +548,10 @@ class Executor:
         if group is not None and not stacked:
             raise ValueError("a process group needs stacked=True")
         self.holder = holder
-        self.device = resolve_device(device)
+        # the device list (``resolve_devices``); the per-shard path, the
+        # reductions and the host fetch use its first, the primary
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
         self.compiler = PlanCompiler(self.device)
         from ..utils.stats import NopStatsClient
         self.stats = stats if stats is not None else NopStatsClient()
@@ -542,7 +583,7 @@ class Executor:
             from ..parallel.stacked import StackedExecutor
             from ..parallel.wholequery import WholeQueryRunner
             from .prepared import PreparedCache
-            self.stacked = StackedExecutor(self.device, group=group)
+            self.stacked = StackedExecutor(self.devices, group=group)
             self.batcher = DispatchBatcher(
                 self.stacked, enabled=dispatch_batch,
                 max_batch=dispatch_batch_max,

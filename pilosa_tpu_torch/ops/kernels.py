@@ -17,7 +17,8 @@ offsets, payload``, is a stack of S = 1, built on the host.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment,
 allocates its output, launches on the current stream, raises if the
-launch reports an error, and counts its launches in ``LAUNCHES``.  On a
+launch reports an error, and counts its launches in ``LAUNCHES`` (and by
+card and mesh slot, ``LAUNCHES_BY_DEVICE`` / ``LAUNCHES_BY_SLOT``).  On a
 tensor that lies on the CPU it calls its plain PyTorch version
 (``decode_block_plain``, ``fused_row_counts_plain``) instead; on a CUDA
 tensor it launches the kernel or raises — there is no fallback.
@@ -69,6 +70,13 @@ from . import bitset, containers
 # (``count_replay``).
 LAUNCHES = {"decode_block": 0, "fused_row_counts": 0}
 REPLAYED = {"decode_block": 0, "fused_row_counts": 0}
+# The same launches by (kernel, card index) and by (kernel, mesh slot):
+# the stacked executor runs block k of its device list under
+# ``on_slot(k)`` (parallel/stacked.py), so two slots of one card count
+# apart.  A launch outside any slot (a kernel check, the per-shard path)
+# counts by card only.
+LAUNCHES_BY_DEVICE: dict = {}
+LAUNCHES_BY_SLOT: dict = {}
 _launches_lock = threading.Lock()
 _capture = threading.local()
 
@@ -88,6 +96,34 @@ def reset_launches():
         for k in LAUNCHES:
             LAUNCHES[k] = 0
             REPLAYED[k] = 0
+        LAUNCHES_BY_DEVICE.clear()
+        LAUNCHES_BY_SLOT.clear()
+
+
+class on_slot:
+    """Context manager: the wrappers' launches on this thread inside it
+    also count under mesh slot ``slot`` (``LAUNCHES_BY_SLOT``)."""
+
+    def __init__(self, slot: int):
+        self.slot = slot
+
+    def __enter__(self):
+        self.prev = getattr(_capture, "slot", None)
+        _capture.slot = self.slot
+
+    def __exit__(self, *exc):
+        _capture.slot = self.prev
+
+
+def _count(name: str, n: int, card, slot):
+    """Add ``n`` launches of ``name`` on card index ``card`` (and mesh
+    slot ``slot`` unless None) to the per-card and per-slot tables;
+    the caller holds ``_launches_lock``."""
+    key = (name, card)
+    LAUNCHES_BY_DEVICE[key] = LAUNCHES_BY_DEVICE.get(key, 0) + n
+    if slot is not None:
+        key = (name, slot)
+        LAUNCHES_BY_SLOT[key] = LAUNCHES_BY_SLOT.get(key, 0) + n
 
 
 class recording_launches:
@@ -121,12 +157,15 @@ class tallying_launches:
         _capture.tally = self.prev
 
 
-def count_replay(rec: dict):
-    """Count one replay of a graph whose capture recorded ``rec``."""
+def count_replay(rec: dict, card: int = 0, slot: int | None = None):
+    """Count one replay of a graph whose capture recorded ``rec``, on
+    card index ``card`` and mesh slot ``slot``."""
     with _launches_lock:
         for k, n in rec.items():
             LAUNCHES[k] += n
             REPLAYED[k] += n
+            if n:
+                _count(k, n, card, slot)
 
 
 def resolve(device) -> str:
@@ -248,6 +287,7 @@ def _launch(name: str, st: containers.PackedStack, *args):
         return
     with _launches_lock:
         LAUNCHES[name] += 1
+        _count(name, 1, dev.index, getattr(_capture, "slot", None))
     tally = getattr(_capture, "tally", None)
     if tally is not None:
         tally[name] += 1

@@ -1,1 +1,1 @@
-"""Stacked shard execution of the PyTorch port on one device."""
+"""Stacked shard execution of the PyTorch port over a list of devices."""

@@ -1,5 +1,5 @@
 """Cross-query dynamic batching of device dispatch — the port of the JAX
-package's ``parallel/batcher.py`` for one GPU.
+package's ``parallel/batcher.py``.
 
 Every stacked reducer call and every whole-query program the executor
 makes goes through ``DispatchBatcher``.  With batching on, a call
@@ -20,7 +20,9 @@ executor directly.
 
 Device launches are serialised by ``launch_lock`` — the dispatcher
 takes it per launch, a direct (un-ticketed) call around its call — so
-one launch's temporaries are live at a time, while request threads wait
+one launch's temporaries are live at a time, and one launch issues its
+work on every device of the executor's list under the one lock (the JAX
+batcher's collective-launch lock), while request threads wait
 on their tickets without it and can keep submitting: that is what lets
 concurrent requests fuse.  (Eight unserialised dense SSB requests
 exhausted the 80 GB card.)

@@ -26,6 +26,13 @@ This module wires mode 2: ``init_distributed`` brings up the process
 group (the rendezvous the reference's gossip played for membership).
 The JAX package's ``global_mesh()`` has no counterpart: the group passed
 to the executor takes its role.
+
+Routes: with a card for every rank, each rank takes ``cuda:<local
+rank>`` and the group runs over NCCL (``chip_smoke.py`` phase
+``multiprocess`` on a host with two or more cards: two ranks on
+``cuda:0`` and ``cuda:1``); ranks that share one card run over gloo
+(the same phase on a one-card host).  A rank holds one device: a
+device mesh inside each rank (parallel/stacked.py) is not wired.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""One-device stacked shard execution — the port of the JAX package's
-``parallel/mesh_exec.py`` for a single GPU.
+"""Stacked shard execution over a list of devices — the port of the JAX
+package's ``parallel/mesh_exec.py``, whose mesh becomes a list of GPUs.
 
 The reference fans per-shard jobs to a goroutine pool and a star reduce
 (executor.go:2455 mapReduce).  Here shards whose input fragments share a
@@ -40,6 +40,26 @@ module's decode + masked popcount, without a ``[B, S, rows, W]``
 temporary.  A filter-less batched group computes once and broadcasts
 over B.
 
+The device mesh (the JAX module's ``Mesh`` over ``jax.devices()`` and its
+``NamedSharding(mesh, P(SHARD_AXIS))`` placement): ``StackedExecutor``
+takes a list of devices, the first of them the *primary*.  Each
+signature group's S members are cut along the shard axis into
+``n_devices`` contiguous blocks, sizes differing by at most one (a block
+is empty, and left out, when S < ``n_devices``), and block k is staged
+on ``devices[k]`` (``Block``: the group's ``(shard_list, placed, sig)``
+for that block, plus its ``slot`` k and ``device``).  Per-block state is
+kept by slot, never keyed by ``torch.device``: ``["cpu"] * 8`` and
+``[cuda:0, cuda:0]`` are meshes of 8 and 2 slots.  Every reducer
+evaluates each block on its own device, under ``on_device`` (that card
+current, the slot on the kernels' launch counts), issuing every block's
+launches before it fetches anything, so the cards overlap.  The JAX
+module's ``psum`` becomes ``_psum``: the blocks' partials copied to the
+primary and added per signature group in slot order, exactly (int64);
+its ``all_gather`` becomes ``_gather``: the blocks' per-shard outputs
+copied to the primary and concatenated in slot order, which is shard
+order.  A one-device list is the single-device path.  Under a process
+group (multi-process mode below) a rank holds one device.
+
 Deviations from the JAX module, by design:
 
 * No pow2 shard bucketing (``_bucket`` / ``_pad_and_place``), and no
@@ -52,11 +72,12 @@ Deviations from the JAX module, by design:
   empty.
 * Every compressed entry takes the fused kernel: the TPU's ``fits_vmem``
   rule does not apply on the card (ops/kernels.py).
-* One device: ``stacked_per_device(n)`` is ``n``, and the shard
-  schedule's "never below ``n_devices`` shards a slice" rule keeps its
-  JAX form with ``n_devices`` = 1, so a slice may be cut at one shard.
-  The executor reaches the reducers through the cross-query dispatch
-  batcher (parallel/batcher.py), which serialises their launches.
+* ``stacked_per_device(n)`` is ``ceil(n / n_devices)``, the JAX
+  module's ``_bucket(n) // n_devices`` without the pow2 padding, and the
+  shard schedule keeps the JAX rule that no slice is cut below
+  ``n_devices`` shards.  The executor reaches the reducers through the
+  cross-query dispatch batcher (parallel/batcher.py), which serialises
+  their launches, every device's of one call under one lock.
 * The decode-workspace ceiling sums, as the JAX module does, the dense
   bytes of every compressed key a dispatch decodes — a program's
   ``_Frags`` holds them together — but leaves out a row-count primary
@@ -67,13 +88,15 @@ Deviations from the JAX module, by design:
   workspace — the JAX module slices it, the port keeps one slice.
 * The over-budget shard schedule (``shard_schedule``, ``_ShardSchedule``)
   stages slice k+1 on one background uploader thread while slice k
-  computes, as the JAX module does.  The uploader issues its copies on
-  the same (default) CUDA stream as the compute thread, so every stack
-  it makes is stream-ordered before any kernel that reads it, and a
-  stack the budget evicts after its slice's pins are released returns
-  its memory to the caching allocator on that same stream, after the
-  queued kernels that read it: no event fence or ``record_stream`` is
-  needed.  The price is that the host-to-device copy does not overlap
+  computes, as the JAX module does.  The uploader issues each block's
+  copies on its own device's default CUDA stream, the stream the compute
+  thread launches that block's kernels on, so every stack it makes is
+  stream-ordered before any kernel that reads it, and a stack the budget
+  evicts after its slice's pins are released returns each block's
+  memory to that device's caching allocator on that same stream, after
+  the queued kernels that read it: no event fence or ``record_stream``
+  is needed.  (A partial's copy to the primary runs on its source
+  device's stream, and the primary's stream waits for it.)  The price is that the host-to-device copy does not overlap
   device compute; the host densify and the pageable-memory transfer
   overlap the consumer's host work.  Each yielded slice sets the
   launch ledger's slice position (``devobs.set_slice``), as the JAX
@@ -123,6 +146,7 @@ import time
 import weakref
 from collections import OrderedDict
 from concurrent import futures
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -217,6 +241,45 @@ def _unpack_frags(layout, arrays):
     return out
 
 
+class Block(tuple):
+    """One device block of a signature group, as ``_placed_groups``
+    returns it: the tuple ``(shard_list, placed, sig)`` — the block's
+    shards, its stacked input per key, the group's signature — with
+    ``slot``, its index in the executor's device list, ``device``
+    (``devices[slot]``) and ``gid``, the first shard of its signature
+    group, under which the mesh reductions join the group's blocks."""
+
+    def __new__(cls, shard_list, placed, sig, slot, device, gid):
+        b = super().__new__(cls, (shard_list, placed, sig))
+        b.slot, b.device, b.gid = slot, device, gid
+        return b
+
+
+@contextmanager
+def on_device(device, slot: int):
+    """Run a block's work with ``device`` current (a CUDA card; nothing
+    to switch on the CPU) and its launches counted under mesh ``slot``."""
+    with kernels.on_slot(slot):
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                yield
+        else:
+            yield
+
+
+def split_blocks(n: int, n_devices: int):
+    """(slot, lo, hi) of the contiguous blocks ``n`` members are cut
+    into over ``n_devices`` slots: sizes differ by at most one, the
+    larger first; a slot whose block would be empty is left out."""
+    q, r = divmod(n, n_devices)
+    lo = 0
+    for k in range(n_devices):
+        hi = lo + q + (k < r)
+        if hi > lo:
+            yield k, lo, hi
+        lo = hi
+
+
 # Monotonic executor ids for program-cache keys: a collected executor's
 # id() can be reused by the next one.
 _EXEC_SEQ = itertools.count()
@@ -236,19 +299,29 @@ def field_rows(holder, index: str, field: str, view: str) -> int:
 
 
 class StackedExecutor:
-    """Executes resolved plans over stacked shard groups on one device."""
+    """Executes resolved plans over stacked shard groups on a list of
+    devices (module docstring)."""
 
     # Max combos per GroupBy dispatch (mesh_exec.GROUP_CHUNK).
     GROUP_CHUNK = 256
-    # One device: the shard schedule's minimum slice length.
-    n_devices = 1
     # Slice target as a fraction of the budget: half, so the next slice
     # can stage (double-buffered) while the current one computes without
     # the pair exceeding the limit.
     STREAM_SLICE_FRACTION = 0.5
 
     def __init__(self, device, budget=None, group=None):
-        self.device = torch.device(device)
+        """``device``: one device or a list of them (the mesh; the first
+        is the primary)."""
+        devices = device if isinstance(device, (list, tuple)) \
+            else [device]
+        self.devices = tuple(torch.device(d) for d in devices)
+        # the primary: reductions land here and the host fetches here
+        self.device = self.devices[0]
+        # the mesh width: blocks a group is cut into, and the shard
+        # schedule's minimum slice length
+        self.n_devices = len(self.devices)
+        if group is not None and self.n_devices > 1:
+            raise ValueError("a rank of a process group holds one device")
         # multi-process mode (module docstring): this rank's place in
         # the process group; one rank is the single-process path
         self.group = group
@@ -299,8 +372,25 @@ class StackedExecutor:
         graphs.clear()
 
     def stacked_per_device(self, n_shards: int) -> int:
-        """Stacked shards a launch covers: every shard, on one device."""
-        return max(1, n_shards)
+        """Stacked shards one device's launch covers for ``n_shards``:
+        its block of the shard axis, ``ceil(n / n_devices)``."""
+        return max(1, -(-n_shards // self.n_devices))
+
+    def slot_bytes(self) -> list[int]:
+        """Bytes of the cached stacks' blocks on each slot of the device
+        list, dense and packed."""
+        with self._sc_lock:
+            groups = [v[1] for v in self._stack_cache.values()]
+        out = [0] * self.n_devices
+        for blocks in groups:
+            for b in blocks:
+                for p in b[1]:
+                    if isinstance(p, torch.Tensor):
+                        out[b.slot] += p.numel() * p.element_size()
+                    elif p is not None:
+                        out[b.slot] += sum(a.numel() * a.element_size()
+                                           for a in p)
+        return out
 
     def stacked_bytes(self, index: str) -> dict:
         """(field, view) -> {"bytes", "rows", "packed_bytes"} of the
@@ -356,6 +446,40 @@ class StackedExecutor:
                 self._uploader = futures.ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="ptpu-prefetch")
             return self._uploader
+
+    # -- the device mesh's reductions ----------------------------------------
+
+    def _psum(self, parts) -> list:
+        """The mesh's ``psum``: ``[(block, partial)]`` of one slice ->
+        one partial per signature group on the primary, the group's
+        blocks copied there and added in slot order (the blocks of a
+        group share its shapes)."""
+        out: dict = {}
+        for b, p in parts:
+            p = p.to(self.device, non_blocking=True)
+            out[b.gid] = p if b.gid not in out else out[b.gid] + p
+        return list(out.values())
+
+    def _gather(self, parts, dim: int = 0) -> list:
+        """The mesh's ``all_gather``: ``[(block, output)]`` of one slice,
+        an output a tensor or a tuple of tensors with the block's shards
+        along ``dim`` -> ``(shard_list, output)`` per signature group on
+        the primary, its blocks' outputs concatenated in slot order,
+        which is shard order."""
+        groups: dict = {}
+        for b, t in parts:
+            shards, outs = groups.setdefault(b.gid, ([], []))
+            shards.extend(b[0])
+            outs.append(tuple(x.to(self.device, non_blocking=True)
+                              for x in (t if isinstance(t, tuple)
+                                        else (t,))))
+        res = []
+        for shards, outs in groups.values():
+            cat = tuple(c[0] if len(c) == 1 else torch.cat(c, dim)
+                        for c in zip(*outs))
+            res.append((shards, cat if isinstance(parts[0][1], tuple)
+                        else cat[0]))
+        return res
 
     # -- multi-process ownership and collectives ----------------------------
 
@@ -587,18 +711,21 @@ class StackedExecutor:
         skey = ("stack", id(self), (index, tuple(keys), tuple(shard_slice)))
         return skey if self._budget.pin(skey) else None
 
-    def _stream_groups(self, keys, holder, index, shards, fused_only=()):
-        """``_placed_groups`` over the shard schedule: the iteration
-        surface of every un-batched reducer.  A single-slice schedule
-        (the fits-in-budget case) is exactly one ``_placed_groups``."""
+    def _stream_slices(self, keys, holder, index, shards, fused_only=()):
+        """``_placed_groups`` over the shard schedule, one block list a
+        slice: the iteration surface of every un-batched reducer.  A
+        single-slice schedule (the fits-in-budget case) is exactly one
+        ``_placed_groups``."""
         for sl in self.shard_schedule(holder, index, [keys], shards,
                                       [fused_only]):
-            yield from self._placed_groups(keys, holder, index, sl)
+            yield self._placed_groups(keys, holder, index, sl)
 
     def _placed_groups(self, keys, holder, index, shards):
         """Group shards by input-shape signature over fragment keys
-        [(field, view), ...] and stack each group's fragments on the
-        device.  Returns [(shard_list, placed_per_key, sig)];
+        [(field, view), ...], cut each group into one contiguous block a
+        device (module docstring) and stack each block's fragments on
+        its device.  Returns ``Block`` s ``(shard_list, placed_per_key,
+        sig)``, group by group and, within a group, in slot order;
         ``placed_per_key[i]`` is None when key i's fragment is absent in
         the whole group, a ``PackedStack`` for a compressed entry, else
         the dense ``[S, rows, W]`` stack.  In multi-process mode only
@@ -639,41 +766,44 @@ class StackedExecutor:
         out = []
         nbytes = 0
         comp_bytes = 0
-        for sig, members in groups.items():
-            shard_list = [m[0] for m in members]
-            placed = []
-            for i, shape in enumerate(sig):
-                if shape is None:
-                    placed.append(None)
-                    continue
-                frs = [m[1][i] for m in members]
-                if shape[0] == "z":
-                    pk = self._place_packed_block(frs, shape)
-                    pb = sum(a.numel() * a.element_size() for a in pk)
-                    nbytes += pb
-                    comp_bytes += pb
-                    placed.append(pk)
-                    continue
-                # Warm (mirrors already resident on the device): stack
-                # there, no host transfer.  Cold: one host block, one
-                # transfer.
-                resident = sum(
-                    1 for fr in frs
-                    if not fr._device_dirty
-                    and fr._mirrors.get(self.device) is not None)
-                if 5 * resident >= 4 * len(frs):
-                    arrs = [fr.device(self.device) for fr in frs]
-                    if all(tuple(a.shape) == shape for a in arrs):
-                        p = torch.stack(arrs)
+        for sig, group in groups.items():
+            for slot, lo, hi in split_blocks(len(group), self.n_devices):
+                dev = self.devices[slot]
+                members = group[lo:hi]
+                placed = []
+                for i, shape in enumerate(sig):
+                    if shape is None:
+                        placed.append(None)
+                        continue
+                    frs = [m[1][i] for m in members]
+                    if shape[0] == "z":
+                        pk = self._place_packed_block(frs, shape, dev)
+                        pb = sum(a.numel() * a.element_size() for a in pk)
+                        nbytes += pb
+                        comp_bytes += pb
+                        placed.append(pk)
+                        continue
+                    # Warm (mirrors already resident on the device):
+                    # stack there, no host transfer.  Cold: one host
+                    # block, one transfer.
+                    resident = sum(
+                        1 for fr in frs
+                        if not fr._device_dirty
+                        and fr._mirrors.get(dev) is not None)
+                    if 5 * resident >= 4 * len(frs):
+                        arrs = [fr.device(dev) for fr in frs]
+                        if all(tuple(a.shape) == shape for a in arrs):
+                            p = torch.stack(arrs)
+                        else:
+                            # a concurrent write grew a fragment's
+                            # capacity after the signature was read
+                            p = self._place_host_block(frs, shape, dev)
                     else:
-                        # a concurrent write grew a fragment's capacity
-                        # after the signature was read
-                        p = self._place_host_block(frs, shape)
-                else:
-                    p = self._place_host_block(frs, shape)
-                nbytes += p.numel() * p.element_size()
-                placed.append(p)
-            out.append((shard_list, placed, sig))
+                        p = self._place_host_block(frs, shape, dev)
+                    nbytes += p.numel() * p.element_size()
+                    placed.append(p)
+                out.append(Block([m[0] for m in members], placed, sig,
+                                 slot, dev, group[0][0]))
 
         wself = weakref.ref(self)  # entries must not pin the executor
 
@@ -728,7 +858,8 @@ class StackedExecutor:
                 return cur[1]
             groups, old_epochs = cur[1], cur[2]
             out = []
-            for shard_list, placed, sig in groups:
+            for b in groups:
+                shard_list, placed, sig = b
                 placed = list(placed)
                 for ki in range(nk):
                     s_k = sig[ki]
@@ -755,7 +886,8 @@ class StackedExecutor:
                         np.concatenate(idxs), np.concatenate(vals),
                         SHARD_WORDS)
                     self.overlays += 1
-                out.append((shard_list, placed, sig))
+                out.append(Block(shard_list, placed, sig, b.slot, b.device,
+                                 b.gid))
             with self._sc_lock:
                 cur2 = self._stack_cache.get(ckey)
                 if cur2 is not None and cur2[0] == token:
@@ -765,25 +897,27 @@ class StackedExecutor:
             self._budget.touch(("stack", id(self), ckey))
             return out
 
-    def _place_host_block(self, frs, shape) -> torch.Tensor:
-        """Cold staging: densify the group's fragments into one host block
-        and ship it in a single transfer."""
+    def _place_host_block(self, frs, shape, device) -> torch.Tensor:
+        """Cold staging: densify a block's fragments into one host block
+        and ship it to ``device`` in a single transfer."""
         block = np.zeros((len(frs),) + tuple(shape), np.uint32)
         for i, fr in enumerate(frs):
             dense = fr.staged_dense()
             r = min(dense.shape[0], shape[0])  # cap may race a grow
             block[i, :r] = dense[:r]
-        return bitset.from_numpy(block, self.device)
+        return bitset.from_numpy(block, device)
 
-    def _place_packed_block(self, frs, sig) -> containers.PackedStack:
+    def _place_packed_block(self, frs, sig,
+                            device) -> containers.PackedStack:
         """Compressed staging: lay the members' packed streams end to end
         (one ``packed_host()`` read each, sized from that read) with the
-        slot map built on the host, and ship the stack.  Keys beyond the
-        signature's row capacity, which a write that raced the signature
-        can leave, are dropped, as the dense path slices to shape."""
+        slot map built on the host, and ship the stack to ``device``.
+        Keys beyond the signature's row capacity, which a write that
+        raced the signature can leave, are dropped, as the dense path
+        slices to shape."""
         return containers.stack_packed(
             [fr.packed_host() for fr in frs],
-            containers.tiles_of(sig[1], SHARD_WORDS), self.device)
+            containers.tiles_of(sig[1], SHARD_WORDS), device)
 
     @staticmethod
     def _present(keys, placed, sig):
@@ -807,6 +941,9 @@ class StackedExecutor:
         return parametrize(filter_plan)
 
     # -- reducers ------------------------------------------------------------
+    # Each evaluates every block of a slice on its own device (``on_device``)
+    # before it reduces the slice onto the primary (``_psum`` /
+    # ``_gather``), so a mesh's cards run together.
 
     def count_async(self, plan, holder, index, shards) -> list:
         """Count: one popcount-sum per shape group; returns unfetched
@@ -814,14 +951,19 @@ class StackedExecutor:
         keys = plan_inputs(plan)
         slotted, params = parametrize(plan)
         parts = []
-        for shard_list, placed, sig in self._stream_groups(
-                keys, holder, index, shards):
-            if all(s is None for s in sig):
-                continue  # no fragments -> plan evaluates to empty
-            frags = _Frags(self._present(keys, placed, sig))
-            seg = eval_plan(slotted, frags, params, lead=(len(shard_list),),
-                            device=self.device)
-            parts.append(bitset.count(seg))
+        for blocks in self._stream_slices(keys, holder, index, shards):
+            sl = []
+            for b in blocks:
+                shard_list, placed, sig = b
+                if all(s is None for s in sig):
+                    continue  # no fragments -> plan evaluates to empty
+                with on_device(b.device, b.slot):
+                    frags = _Frags(self._present(keys, placed, sig))
+                    seg = eval_plan(slotted, frags, params,
+                                    lead=(len(shard_list),),
+                                    device=b.device)
+                    sl.append((b, bitset.count(seg)))
+            parts.extend(self._psum(sl))
         if self.multiprocess:
             return self._all_sum(parts, (), ragged=False)
         return parts
@@ -830,24 +972,37 @@ class StackedExecutor:
         return sum(int(x) for x in self.count_async(
             plan, holder, index, shards))
 
+    def _segments_slice(self, slotted, params, keys, blocks, zero,
+                        out: dict):
+        """Per-shard plan results of one slice's blocks into ``out``:
+        host uint32 words, ``zero`` for a fragment-less group's shards.
+        With a ``[B, P]`` params matrix the shard axis is axis 1."""
+        segs = []
+        for b in blocks:
+            shard_list, placed, sig = b
+            if all(s is None for s in sig):
+                for shard in shard_list:
+                    out[shard] = zero
+                continue
+            with on_device(b.device, b.slot):
+                frags = _Frags(self._present(keys, placed, sig))
+                segs.append((b, eval_plan(slotted, frags, params,
+                                          lead=(len(shard_list),),
+                                          device=b.device)))
+        axis = 1 if params.ndim == 2 else 0
+        for shard_list, seg in self._gather(segs, axis):
+            host = bitset.to_numpy(seg)
+            for i, shard in enumerate(shard_list):
+                out[shard] = host[:, i] if axis else host[i]
+
     def segments(self, plan, holder, index, shards) -> dict[int, np.ndarray]:
         """Per-shard plan results as host uint32 words."""
         keys = plan_inputs(plan)
         slotted, params = parametrize(plan)
         out: dict[int, np.ndarray] = {}
-        for shard_list, placed, sig in self._stream_groups(
-                keys, holder, index, shards):
-            if all(s is None for s in sig):
-                zero = np.zeros(SHARD_WORDS, dtype=np.uint32)
-                for shard in shard_list:
-                    out[shard] = zero
-                continue
-            frags = _Frags(self._present(keys, placed, sig))
-            segs = eval_plan(slotted, frags, params,
-                             lead=(len(shard_list),), device=self.device)
-            host = bitset.to_numpy(segs)
-            for i, shard in enumerate(shard_list):
-                out[shard] = host[i]
+        zero = np.zeros(SHARD_WORDS, dtype=np.uint32)
+        for blocks in self._stream_slices(keys, holder, index, shards):
+            self._segments_slice(slotted, params, keys, blocks, zero, out)
         if self.multiprocess:
             return self._gather_shards(out, holder, index, shards,
                                        (SHARD_WORDS,))
@@ -861,19 +1016,10 @@ class StackedExecutor:
         keys = plan_inputs(slotted)
         B = params_mat.shape[0]
         out: dict[int, np.ndarray] = {}
-        for shard_list, placed, sig in self._placed_groups(
-                keys, holder, index, shards):
-            if all(s is None for s in sig):
-                zero = np.zeros((B, SHARD_WORDS), dtype=np.uint32)
-                for shard in shard_list:
-                    out[shard] = zero
-                continue
-            frags = _Frags(self._present(keys, placed, sig))
-            segs = eval_plan(slotted, frags, params_mat,
-                             lead=(len(shard_list),), device=self.device)
-            host = bitset.to_numpy(segs)                     # [B, S, W]
-            for i, shard in enumerate(shard_list):
-                out[shard] = host[:, i]
+        self._segments_slice(
+            slotted, params_mat, keys,
+            self._placed_groups(keys, holder, index, shards),
+            np.zeros((B, SHARD_WORDS), dtype=np.uint32), out)
         if self.multiprocess:
             return self._gather_shards(out, holder, index, shards,
                                        (B, SHARD_WORDS))
@@ -897,34 +1043,46 @@ class StackedExecutor:
         keys = self.batch_keys((field, view), filter_plan)
         fplan, params = self._slotted(filter_plan)
         parts = []
-        for shard_list, placed, sig in self._stream_groups(
+        for blocks in self._stream_slices(
                 keys, holder, index, shards,
                 self.fused_only((field, view), filter_plan)):
-            if sig[0] is None:
-                continue  # field fragment absent everywhere in this group
-            present = self._present(keys, placed, sig)
-            frags = _Frags(present)
-            filt = None
-            if fplan is not None:
-                filt = eval_plan(fplan, frags, params,
-                                 lead=(len(shard_list),), device=self.device)
-            fused = _fused_entry(present, keys[0])
-            if fused is not None:
-                # decode + filter-AND + per-row popcount in ONE launch;
-                # the field's dense words never reach device memory
-                packed, fs = fused
-                self.fused_calls += 1
-                counts = kernels.fused_row_counts(
-                    *packed, None if filt is None else filt.contiguous(),
-                    rows=fs[1], words=SHARD_WORDS)           # [S, rows]
-            else:
-                frag = frags.get(keys[0])                    # [S, rows, W]
-                masked = frag if filt is None else frag & filt[:, None, :]
-                counts = bitset.row_counts(masked)           # [S, rows]
-            parts.append(counts.sum(dim=0, dtype=torch.int64))
+            sl = []
+            for b in blocks:
+                shard_list, placed, sig = b
+                if sig[0] is None:
+                    continue  # field fragment absent in this group
+                with on_device(b.device, b.slot):
+                    sl.append((b, self._block_row_counts(
+                        b, keys, fplan, params)))
+            parts.extend(self._psum(sl))
         if self.multiprocess:
             return self._all_sum(parts, ())
         return parts
+
+    def _block_row_counts(self, b, keys, fplan, params):
+        """One block's per-row popcounts of ``keys[0]`` under the
+        filter plan (int64 ``[rows]``)."""
+        shard_list, placed, sig = b
+        present = self._present(keys, placed, sig)
+        frags = _Frags(present)
+        filt = None
+        if fplan is not None:
+            filt = eval_plan(fplan, frags, params, lead=(len(shard_list),),
+                             device=b.device)
+        fused = _fused_entry(present, keys[0])
+        if fused is not None:
+            # decode + filter-AND + per-row popcount in ONE launch; the
+            # field's dense words never reach device memory
+            packed, fs = fused
+            self.fused_calls += 1
+            counts = kernels.fused_row_counts(
+                *packed, None if filt is None else filt.contiguous(),
+                rows=fs[1], words=SHARD_WORDS)               # [S, rows]
+        else:
+            frag = frags.get(keys[0])                        # [S, rows, W]
+            masked = frag if filt is None else frag & filt[:, None, :]
+            counts = bitset.row_counts(masked)               # [S, rows]
+        return counts.sum(dim=0, dtype=torch.int64)
 
     def row_counts(self, field: str, view: str, filter_plan, holder,
                    index, shards) -> np.ndarray:
@@ -962,59 +1120,79 @@ class StackedExecutor:
                 keys.append(k)
         fplan, params = self._slotted(filter_plan)
         parts = []
-        for shard_list, placed, sig in self._stream_groups(
-                keys, holder, index, shards):
-            if sig[0] is None:
-                continue
-            key_to_sig = dict(zip(keys, sig))
-            if any(key_to_sig[k] is None for k in prefix_keys):
-                continue
-            frags = _Frags(self._present(keys, placed, sig))
-            frag = frags.get(last_key)                       # [S, rows, W]
-            fseg = None
-            if fplan is not None:
-                fseg = eval_plan(fplan, frags, params,
-                                 lead=(len(shard_list),), device=self.device)
-            counts = torch.empty((combos.shape[0], frag.shape[1]),
-                                 dtype=torch.int64, device=self.device)
-            for ci, rids in enumerate(combos):
-                mask = fseg
-                for pk, rid in zip(prefix_keys, rids):
-                    pfrag = frags.get(pk)
-                    if rid < pfrag.shape[1]:
-                        seg = pfrag[:, int(rid), :]
-                    else:
-                        seg = torch.zeros(
-                            (pfrag.shape[0], SHARD_WORDS),
-                            dtype=torch.int32, device=self.device)
-                    mask = seg if mask is None else mask & seg
-                masked = frag if mask is None else frag & mask[:, None, :]
-                counts[ci] = bitset.row_counts(masked).sum(
-                    dim=0, dtype=torch.int64)
-            parts.append(counts)
+        for blocks in self._stream_slices(keys, holder, index, shards):
+            sl = []
+            for b in blocks:
+                shard_list, placed, sig = b
+                if sig[0] is None:
+                    continue
+                key_to_sig = dict(zip(keys, sig))
+                if any(key_to_sig[k] is None for k in prefix_keys):
+                    continue
+                with on_device(b.device, b.slot):
+                    sl.append((b, self._block_group_counts(
+                        b, keys, last_key, prefix_keys, combos, fplan,
+                        params)))
+            parts.extend(self._psum(sl))
         return parts
+
+    def _block_group_counts(self, b, keys, last_key, prefix_keys, combos,
+                            fplan, params):
+        """One block's GroupBy counts ``[C, rows]`` (int64)."""
+        shard_list, placed, sig = b
+        dev = b.device
+        frags = _Frags(self._present(keys, placed, sig))
+        frag = frags.get(last_key)                           # [S, rows, W]
+        fseg = None
+        if fplan is not None:
+            fseg = eval_plan(fplan, frags, params, lead=(len(shard_list),),
+                             device=dev)
+        counts = torch.empty((combos.shape[0], frag.shape[1]),
+                             dtype=torch.int64, device=dev)
+        for ci, rids in enumerate(combos):
+            mask = fseg
+            for pk, rid in zip(prefix_keys, rids):
+                pfrag = frags.get(pk)
+                if rid < pfrag.shape[1]:
+                    seg = pfrag[:, int(rid), :]
+                else:
+                    seg = torch.zeros((pfrag.shape[0], SHARD_WORDS),
+                                      dtype=torch.int32, device=dev)
+                mask = seg if mask is None else mask & seg
+            masked = frag if mask is None else frag & mask[:, None, :]
+            counts[ci] = bitset.row_counts(masked).sum(
+                dim=0, dtype=torch.int64)
+        return counts
 
     # -- BSI aggregations (fragment.go:1111 sum, :1147 min/max) ------------
 
-    def _bsi_groups(self, field: str, view: str, filter_plan, params,
-                    holder, index, shards, stream: bool = True):
-        """Yield (n_shards, bsi stack [S, rows, W], filter) per signature
-        group holding the BSI fragment at full BSI depth; the filter is
-        the plan's result (``[S, W]``, or ``[B, S, W]`` for a ``[B, P]``
-        params matrix) or None.  ``stream=False``: the caller passes a
-        pre-scheduled shard slice (the batched reducers)."""
+    def _bsi_slices(self, field: str, view: str, filter_plan, params,
+                    holder, index, shards, fn, stream: bool = True):
+        """Per slice, ``[(block, fn(bsi stack [S, rows, W], filter))]``
+        over the blocks holding the BSI fragment at full BSI depth, each
+        evaluated on its own device; the filter is the plan's result
+        (``[S, W]``, or ``[B, S, W]`` for a ``[B, P]`` params matrix) or
+        None.  ``stream=False``: the caller passes a pre-scheduled shard
+        slice (the batched reducers)."""
         keys = self.batch_keys((field, view), filter_plan)
-        groups = self._stream_groups if stream else self._placed_groups
-        for shard_list, placed, sig in groups(
-                keys, holder, index, shards):
-            if sig[0] is None or _sig_rows(sig[0]) < bsi.OFFSET_ROW + 1:
-                continue
-            frags = _Frags(self._present(keys, placed, sig))
-            filt = None
-            if filter_plan is not None:
-                filt = eval_plan(filter_plan, frags, params,
-                                 lead=(len(shard_list),), device=self.device)
-            yield len(shard_list), frags.get(keys[0]), filt
+        slices = self._stream_slices(keys, holder, index, shards) \
+            if stream else [self._placed_groups(keys, holder, index, shards)]
+        for blocks in slices:
+            sl = []
+            for b in blocks:
+                shard_list, placed, sig = b
+                if sig[0] is None or \
+                        _sig_rows(sig[0]) < bsi.OFFSET_ROW + 1:
+                    continue
+                with on_device(b.device, b.slot):
+                    frags = _Frags(self._present(keys, placed, sig))
+                    filt = None
+                    if filter_plan is not None:
+                        filt = eval_plan(filter_plan, frags, params,
+                                         lead=(len(shard_list),),
+                                         device=b.device)
+                    sl.append((b, fn(frags.get(keys[0]), filt)))
+            yield sl
 
     def bsi_sum_async(self, field: str, view: str, filter_plan, holder,
                       index, shards) -> list:
@@ -1022,9 +1200,12 @@ class StackedExecutor:
         device matrices, one per signature group; combine with
         ``bsi.weighted_sum`` per part and add."""
         fplan, params = self._slotted(filter_plan)
-        parts = [bsi.sum_counts(frag, filt).sum(dim=0, dtype=torch.int64)
-                 for _, frag, filt in self._bsi_groups(
-                     field, view, fplan, params, holder, index, shards)]
+        parts = []
+        for sl in self._bsi_slices(
+                field, view, fplan, params, holder, index, shards,
+                lambda frag, filt: bsi.sum_counts(frag, filt).sum(
+                    dim=0, dtype=torch.int64)):
+            parts.extend(self._psum(sl))
         if self.multiprocess:
             return self._all_sum(parts, (2,), keep_last=True)
         return parts
@@ -1035,13 +1216,15 @@ class StackedExecutor:
         the host: a list of (value, count) per shard."""
         fplan, params = self._slotted(filter_plan)
         out = []
-        for n, frag, filt in self._bsi_groups(field, view, fplan, params,
-                                              holder, index, shards):
-            bits, neg, cnt = (x.cpu().numpy() for x in bsi.min_max_bits(
-                frag, filt, want_max=want_max))
-            out.extend(bsi.reconstruct_min_max(bits[i], int(neg[i]),
-                                               int(cnt[i]))
-                       for i in range(n))
+        for sl in self._bsi_slices(
+                field, view, fplan, params, holder, index, shards,
+                lambda frag, filt: bsi.min_max_bits(frag, filt,
+                                                    want_max=want_max)):
+            for shard_list, got in self._gather(sl):
+                bits, neg, cnt = (x.cpu().numpy() for x in got)
+                out.extend(bsi.reconstruct_min_max(bits[i], int(neg[i]),
+                                                   int(cnt[i]))
+                           for i in range(len(shard_list)))
         if self.multiprocess:
             return [x for part in self.gather_objects(out) for x in part]
         return out
@@ -1054,19 +1237,21 @@ class StackedExecutor:
                           shards) -> list:
         """B counts that share one plan shape; parts are int64 [B]."""
         keys = plan_inputs(slotted)
-        parts = []
-        # no _stream_groups in the batched reducers: their callers
+        sl = []
+        # no _stream_slices in the batched reducers: their callers
         # (_run_batched_groups and the dispatch batcher) own the slice
         # schedule and pass pre-scheduled shard slices
-        for shard_list, placed, sig in self._placed_groups(
-                keys, holder, index, shards):
+        for b in self._placed_groups(keys, holder, index, shards):
+            shard_list, placed, sig = b
             if all(s is None for s in sig):
                 continue
-            frags = _Frags(self._present(keys, placed, sig))
-            segs = eval_plan(slotted, frags, params_mat,
-                             lead=(len(shard_list),), device=self.device)
-            parts.append(bitset.popcount_words(segs).sum(
-                dim=(-2, -1), dtype=torch.int64))           # [B]
+            with on_device(b.device, b.slot):
+                frags = _Frags(self._present(keys, placed, sig))
+                segs = eval_plan(slotted, frags, params_mat,
+                                 lead=(len(shard_list),), device=b.device)
+                sl.append((b, bitset.popcount_words(segs).sum(
+                    dim=(-2, -1), dtype=torch.int64)))         # [B]
+        parts = self._psum(sl)
         if self.multiprocess:
             return self._all_sum(parts, (params_mat.shape[0],),
                                  ragged=False)
@@ -1078,35 +1263,37 @@ class StackedExecutor:
         [B, rows]."""
         keys = self.batch_keys((field, view), slotted_filter)
         B = params_mat.shape[0]
-        parts = []
-        for shard_list, placed, sig in self._placed_groups(
-                keys, holder, index, shards):
+        sl = []
+        for b in self._placed_groups(keys, holder, index, shards):
+            shard_list, placed, sig = b
             if sig[0] is None:
                 continue
-            present = self._present(keys, placed, sig)
-            frags = _Frags(present)
-            fused = _fused_entry(present, keys[0])
-            masks = None
-            if slotted_filter is not None:
-                masks = eval_plan(slotted_filter, frags, params_mat,
-                                  lead=(len(shard_list),),
-                                  device=self.device)        # [B, S, W]
-            if fused is not None:
-                packed, fs = fused
-                self.fused_calls += 1
-                filts = [None] if masks is None else \
-                    [masks[b].contiguous() for b in range(B)]
-                counts = torch.stack([kernels.fused_row_counts(
-                    *packed, f, rows=fs[1], words=SHARD_WORDS).sum(
-                        dim=0, dtype=torch.int64) for f in filts])
-            else:
-                frag = frags.get(keys[0])                    # [S, rows, W]
-                masked = frag[None] if masks is None \
-                    else frag[None] & masks[:, :, None, :]
-                counts = bitset.row_counts(masked).sum(
-                    dim=1, dtype=torch.int64)                # [B|1, rows]
-            # a filter-less group computes once and broadcasts over B
-            parts.append(counts.expand(B, -1))
+            with on_device(b.device, b.slot):
+                present = self._present(keys, placed, sig)
+                frags = _Frags(present)
+                fused = _fused_entry(present, keys[0])
+                masks = None
+                if slotted_filter is not None:
+                    masks = eval_plan(slotted_filter, frags, params_mat,
+                                      lead=(len(shard_list),),
+                                      device=b.device)       # [B, S, W]
+                if fused is not None:
+                    packed, fs = fused
+                    self.fused_calls += 1
+                    filts = [None] if masks is None else \
+                        [masks[i].contiguous() for i in range(B)]
+                    counts = torch.stack([kernels.fused_row_counts(
+                        *packed, f, rows=fs[1], words=SHARD_WORDS).sum(
+                            dim=0, dtype=torch.int64) for f in filts])
+                else:
+                    frag = frags.get(keys[0])                # [S, rows, W]
+                    masked = frag[None] if masks is None \
+                        else frag[None] & masks[:, :, None, :]
+                    counts = bitset.row_counts(masked).sum(
+                        dim=1, dtype=torch.int64)            # [B|1, rows]
+                # a filter-less group computes once and broadcasts over B
+                sl.append((b, counts.expand(B, -1)))
+        parts = self._psum(sl)
         if self.multiprocess:
             return self._all_sum(parts, (B,))
         return parts
@@ -1116,16 +1303,17 @@ class StackedExecutor:
         """B BSI sums sharing one filter shape; parts are int64
         [B, 2, depth+1]."""
         B = params_mat.shape[0]
-        parts = []
-        for _, frag, filt in self._bsi_groups(
-                field, view, slotted_filter, params_mat, holder, index,
-                shards, stream=False):
+
+        def fn(frag, filt):
             counts = bsi.sum_counts(frag, filt)      # [B|-, S, 2, depth+1]
             if filt is None:
-                parts.append(counts.sum(dim=0, dtype=torch.int64)
-                             .expand((B,) + tuple(counts.shape[1:])))
-            else:
-                parts.append(counts.sum(dim=1, dtype=torch.int64))
+                return counts.sum(dim=0, dtype=torch.int64).expand(
+                    (B,) + tuple(counts.shape[1:]))
+            return counts.sum(dim=1, dtype=torch.int64)
+
+        (sl,) = self._bsi_slices(field, view, slotted_filter, params_mat,
+                                 holder, index, shards, fn, stream=False)
+        parts = self._psum(sl)
         if self.multiprocess:
             return self._all_sum(parts, (B, 2), keep_last=True)
         return parts

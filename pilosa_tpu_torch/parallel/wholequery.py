@@ -1,5 +1,5 @@
 """Whole-query programs: ONE device program per PQL read request — the
-port of the JAX package's ``parallel/wholequery.py`` for one GPU.
+port of the JAX package's ``parallel/wholequery.py``.
 
 The executor lowers a read request to a tuple of ``plan.ReduceNode``s
 (Count popcount-sums, TopN/Rows row-count accumulations, BSI slice
@@ -16,10 +16,19 @@ program — int32 sums over S and over groups, row-count vectors padded to
 the widest group, BSI magnitude columns and totals added apart — where
 the JAX module sums locally and ``psum``s over its mesh axis.
 
+Over a device list (parallel/stacked.py: each group cut into one block a
+device) the program is one body per device slot over that slot's blocks
+(the JAX module's ``shard_map`` body over each device's local block),
+run with that device current; the slots' outputs are then reduced onto
+the primary outside the bodies (``_merge``): reducing kinds added as the
+body adds its groups, ``segments`` and ``bsi_minmax`` outputs gathered in
+group order.  One device is one body and no merge.
+
 The body reads its params only as device tensors (``plan.eval_plan``'s
 device form), so on a CUDA device it is captured ONCE per program key
 into a CUDA graph (the JAX module's one XLA executable per signature)
-and replayed after.  The first sighting of a key runs the body eagerly:
+and replayed after, one graph per device slot.  The first sighting of a
+key runs the body eagerly:
 a signature seen once (a one-off mix of calls) never pays a capture.
 The second sighting captures it; that and every later sighting copies
 its params into the graph's static ``[B_pad, P]`` buffers
@@ -37,12 +46,23 @@ Graph bookkeeping:
   tensors, so no address a graph baked in is freed under it; an entry
   dies with its stack (``StackedExecutor._drop_graphs``), and at most
   ``graphs_max`` entries are kept (LRU).
-* All graphs capture into ONE memory pool: replays are serialised by the
-  dispatch batcher's launch lock and outputs are copied out, so the
-  graphs' temporaries may share memory.
-* Kernel launches recorded at capture are added to ``kernels.LAUNCHES``
-  on every replay (``kernels.count_replay``), so launches per request
-  stay true.
+* All graphs of one device slot capture into ONE memory pool, made on
+  that slot's device with its own side stream (``_open_pool``): replays
+  are serialised by the dispatch batcher's launch lock and outputs are
+  copied out, so the graphs' temporaries may share memory.  Each slot's
+  capture runs with its device current, after
+  ``torch.cuda.empty_cache()`` there.  A replay replays every slot's
+  graph, then merges onto the primary: a graph cannot copy between
+  cards.
+* Captures run one at a time in the process (``_CAPTURE_LOCK``): the
+  allocator aborts the process when a pool is torn down or its cache
+  emptied while any thread captures.  So a dropped runner's pools wait
+  in ``_RETIRED`` and are released under the lock before a capture;
+  the garbage collector may drop a runner in the middle of another's
+  capture.
+* Kernel launches recorded at each slot's capture are added to
+  ``kernels.LAUNCHES`` (and to that card's and slot's counts) on every
+  replay (``kernels.count_replay``), so launches per request stay true.
 
 Shapes the program cannot express raise ``WholeQueryUnsupported`` and
 the executor reroutes to the grouped per-stage path (executor.py, the
@@ -52,9 +72,11 @@ node's params along the batch axis.
 
 Deviations from the JAX module:
 
-* One device: ``precheck`` never raises ``multiprocess-mesh``.  It
-  raises ``streamed-working-set`` when the program's working set takes
-  more than one slice of the shard schedule (parallel/stacked.py), before
+* ``precheck`` raises ``multiprocess-mesh`` only for a hand-built
+  runner under a process group (the executor builds none there); a mesh
+  of devices in one process runs its programs.  It raises
+  ``streamed-working-set`` when the program's working set takes more
+  than one slice of the shard schedule (parallel/stacked.py), before
   anything is staged or captured, so a streamed request is never
   captured into a CUDA graph.
 * ``program_keys`` is sorted, so programs over one key set share one
@@ -79,6 +101,7 @@ Deviations from the JAX module:
 from __future__ import annotations
 
 import time
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -92,7 +115,26 @@ from ..utils import devobs
 from ..utils import profile as qprof
 from ..utils.deadline import check_current
 from ..utils.faults import FAULTS
-from .stacked import _Frags, _flatten_present, _sig_rows, _unpack_frags
+from ..utils.locks import make_rlock
+from .stacked import _Frags, _flatten_present, _sig_rows, _unpack_frags, \
+    on_device
+
+
+# Every graph capture of the process, and the release of retired pools
+# (module docstring).
+_CAPTURE_LOCK = make_rlock("graph-capture")
+# The pools of runners that were dropped: {slot: [pool, stream, graph]}
+_RETIRED: list = []
+
+
+def _release_retired():
+    """Tear down the retired runners' pools (anchor graph first); the
+    caller holds ``_CAPTURE_LOCK``."""
+    while _RETIRED:
+        pools = _RETIRED.pop()
+        for entry in pools.values():
+            entry[2] = None
+        pools.clear()
 
 
 class WholeQueryUnsupported(Exception):
@@ -285,24 +327,111 @@ def _node_group(node, mat, frags, fused, S: int, device):
     return torch.stack(out)                                  # [C, rows]
 
 
-class _GraphEntry:
-    """One captured whole-query program: the graph, its static params
-    buffers and outputs, the stacked tensors it reads (held so their
-    memory stays put), the stack cache key it was captured over, and
-    the kernel launches one replay makes."""
+def _reduce_node(node, parts, info: dict, device, flat_outs: list):
+    """Append one node's outputs, from the parts of its contributing
+    groups (or device slots) in order, to ``flat_outs``: ``segments``
+    and ``bsi_minmax`` parts pass through, the reducing kinds add in
+    int32 — count vectors, BSI magnitude columns and totals apart, row
+    counts padded to the widest (``info``, ``_combine_info``)."""
+    if node.kind == "segments":
+        flat_outs.extend(parts)                    # [S, B, W] per group
+    elif node.kind == "bsi_minmax":
+        for p in parts:                            # (bits, neg, cnt)
+            flat_outs.extend(p)
+    elif not parts:
+        pass                                       # no contributing group
+    elif node.kind == "count":
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        flat_outs.append(total)                    # [B]
+    elif node.kind == "bsi_sum":
+        D = info["depth"]
+        acc = torch.zeros((parts[0].shape[0], 2, D + 1), dtype=torch.int32,
+                          device=device)
+        for s in parts:                            # [B, 2, d+1]
+            d = s.shape[-1] - 1
+            # magnitude counts and the trailing TOTAL column land
+            # separately: groups of different bit depth must not add a
+            # total into a magnitude slot
+            acc[:, :, :d] += s[:, :, :d]
+            acc[:, :, D] += s[:, :, d]
+        flat_outs.append(acc)
+    else:  # row_counts / group_counts
+        acc = torch.zeros((parts[0].shape[0], info["rows"]),
+                          dtype=torch.int32, device=device)
+        for s in parts:                            # [B, rows_g]
+            acc[:, :s.shape[1]] += s
+        flat_outs.append(acc)
 
-    __slots__ = ("graph", "params", "outputs", "inputs", "ckey",
-                 "launches", "sig")
 
-    def __init__(self, graph, params, outputs, inputs, ckey, launches,
-                 sig):
+def _combine_info(program, sched, sig_maps) -> tuple:
+    """Per node, the widths its contributing groups reduce to: the
+    widest row count, or the deepest BSI depth."""
+    def info(ni, node):
+        if node.kind in ("row_counts", "group_counts"):
+            return {"rows": max(
+                (_sig_rows(sig_maps[gi][node.primary])
+                 for gi in sched[ni]), default=0)}
+        if node.kind == "bsi_sum":
+            return {"depth": max(
+                (_sig_rows(sig_maps[gi][node.primary]) - bsi.OFFSET_ROW
+                 for gi in sched[ni]), default=0)}
+        return {}
+    return tuple(info(ni, node) for ni, node in enumerate(program))
+
+
+class _SlotRun:
+    """The part of one launch on one device slot: the slot, the indices
+    of its live groups, the schedule over them (``sched`` restricted
+    to them, renumbered) and the body over them."""
+
+    __slots__ = ("slot", "gis", "sched", "body")
+
+    def __init__(self, slot, gis, sched, body):
+        self.slot = slot
+        self.gis = gis
+        self.sched = sched
+        self.body = body
+
+
+class _SlotGraph:
+    """One device slot's captured graph of a program: the graph, its
+    static params buffers and outputs, and the kernel launches one
+    replay makes."""
+
+    __slots__ = ("slot", "graph", "params", "outputs", "launches")
+
+    def __init__(self, slot, graph, params, outputs, launches):
+        self.slot = slot
         self.graph = graph
         self.params = params
         self.outputs = outputs
+        self.launches = launches
+
+
+class _GraphEntry:
+    """One captured whole-query program: its graphs, one a device slot
+    (``_SlotGraph``), the stacked tensors they read (held so their
+    memory stays put), the stack cache key they were captured over, and
+    the program's signature."""
+
+    __slots__ = ("graphs", "inputs", "ckey", "sig")
+
+    def __init__(self, graphs, inputs, ckey, sig):
+        self.graphs = graphs
         self.inputs = inputs
         self.ckey = ckey
-        self.launches = launches
         self.sig = sig
+
+    @property
+    def launches(self) -> dict:
+        """Kernel launches one replay of every slot's graph makes."""
+        out: dict = {}
+        for g in self.graphs:
+            for k, n in g.launches.items():
+                out[k] = out.get(k, 0) + n
+        return out
 
 
 def _mats_to(pad_mats, device):
@@ -322,9 +451,10 @@ class WholeQueryRunner:
 
     def __init__(self, stacked):
         self.stacked = stacked
-        self._pool = None
-        self._side = None
-        self._anchor = None
+        # device slot -> [memory pool, side stream, anchor graph]; when
+        # the runner is dropped they are retired, not torn down
+        self._pools: dict = {}
+        weakref.finalize(self, _RETIRED.append, self._pools)
         self._seen: OrderedDict = OrderedDict()
         # graph keys the LRU evicted (the retrace rule, utils/devobs.py)
         self._evicted: OrderedDict = OrderedDict()
@@ -396,9 +526,11 @@ class WholeQueryRunner:
         groups = st._placed_groups(keys, holder, index, shards) \
             if keys and shards else []
 
-        live = []           # (shard_list, sig_map, flat, layout, pk, ps)
+        # (shard_list, sig_map, flat, layout, pk, ps, slot) per block
+        live = []
         empty_shards: list[int] = []
-        for shard_list, placed, sig in groups:
+        for b in groups:
+            shard_list, placed, sig = b
             if all(s is None for s in sig):
                 empty_shards.extend(shard_list)
                 continue
@@ -406,7 +538,7 @@ class WholeQueryRunner:
             flat_g, layout_g = _flatten_present(present)
             live.append((shard_list, dict(zip(keys, sig)), flat_g,
                          layout_g, tuple(k for k, _, _ in present),
-                         tuple(s for _, _, s in present)))
+                         tuple(s for _, _, s in present), b.slot))
 
         exact_mats, pad_mats = [], []
         actual_b = []
@@ -441,7 +573,7 @@ class WholeQueryRunner:
                      else m.shape for m in pad_mats),
                st._exec_seq)
         sig = devobs.sig_of(key[:-1])
-        body = self._body(program, live, sched)
+        runs = self._slot_runs(program, live, sched)
         flats = [g[2] for g in live]
         self.runs += 1
         # row-count groups answered through the fused_row_counts entry
@@ -453,14 +585,15 @@ class WholeQueryRunner:
         t0 = time.perf_counter()
         if not self._use_graphs():
             with kernels.tallying_launches() as tally:
-                outs = body(_mats_to(exact_mats, st.device), flats)
+                outs = self._eager(runs, exact_mats, flats)
             compiled, launches, padded = False, sum(tally.values()), False
         else:
             outs, compiled, launches, padded = self._run_graph(
                 key + (tuple(id(t) for f in flats for t in f),),
-                (index, tuple(keys), tuple(shards)), body, exact_mats,
+                (index, tuple(keys), tuple(shards)), runs, exact_mats,
                 pad_mats, flats, sig, lambda: self._fingerprint(
                     pad_mats, live))
+        outs = self._merge(program, live, sched, runs, outs)
         dt = time.perf_counter() - t0
         self._record(program, sig, live, actual_b,
                      pad_mats if padded else exact_mats, dt, compiled,
@@ -490,7 +623,7 @@ class WholeQueryRunner:
         st = self.stacked
         fused = program_fused_only(program, st)
         decode_bytes = tiles = 0
-        for shard_list, _sig_map, flat, layout, _pk, _ps in live:
+        for shard_list, _sig_map, flat, layout, _pk, _ps, _slot in live:
             i = 0
             for k, n, s in layout:
                 if n > 1:
@@ -551,28 +684,69 @@ class WholeQueryRunner:
 
     # -- the program body --------------------------------------------------
 
-    def _body(self, program, live, sched):
+    def _slot_runs(self, program, live, sched) -> list:
+        """One ``_SlotRun`` a device slot holding live groups, in slot
+        order (one for a single device, over every group)."""
+        runs = []
+        for slot in sorted({g[6] for g in live}):
+            gis = [gi for gi, g in enumerate(live) if g[6] == slot]
+            pos = {gi: j for j, gi in enumerate(gis)}
+            sub = tuple(tuple(pos[gi] for gi in s if gi in pos)
+                        for s in sched)
+            runs.append(_SlotRun(slot, gis, sub, self._body(
+                program, [live[gi] for gi in gis], sub,
+                self.stacked.devices[slot])))
+        return runs
+
+    def _eager(self, runs, mats, flats) -> list:
+        """Every slot's body run eagerly over ``mats``, each with its
+        device current; their outputs, one list a slot."""
+        outs = []
+        for r in runs:
+            dev = self.stacked.devices[r.slot]
+            with on_device(dev, r.slot):
+                outs.append(r.body(_mats_to(mats, dev),
+                                   [flats[gi] for gi in r.gis]))
+        return outs
+
+    def _merge(self, program, live, sched, runs, slot_outs) -> list:
+        """The slots' outputs reduced onto the primary as one body over
+        every live group would have returned them (the JAX module's
+        ``psum`` and ``all_gather`` over its mesh axis)."""
+        if len(runs) == 1 and runs[0].slot == 0:
+            return slot_outs[0]
+        dev = self.stacked.device
+        combine = _combine_info(program, sched, [g[1] for g in live])
+        slot_of = {gi: k for k, r in enumerate(runs) for gi in r.gis}
+        per_slot = [[[slot_outs[k][j] for j in idxs]
+                     for idxs in self._out_index(program, r.sched)]
+                    for k, r in enumerate(runs)]
+        flat_outs: list = []
+        for ni, node in enumerate(program):
+            if node.kind in ("segments", "bsi_minmax"):
+                n = 3 if node.kind == "bsi_minmax" else 1
+                taken = [0] * len(runs)
+                parts = []
+                for gi in sched[ni]:
+                    k = slot_of[gi]
+                    got = per_slot[k][ni][taken[k]:taken[k] + n]
+                    taken[k] += n
+                    got = [t.to(dev, non_blocking=True) for t in got]
+                    parts.append(tuple(got) if n == 3 else got[0])
+            else:
+                parts = [t.to(dev, non_blocking=True)
+                         for k in range(len(runs)) for t in per_slot[k][ni]]
+            _reduce_node(node, parts, combine[ni], dev, flat_outs)
+        return flat_outs
+
+    def _body(self, program, live, sched, device):
         """The program body over (device params, per-group flat stacked
-        tensors).  Everything it consults besides those two arguments is
-        frozen static structure (nodes, layouts, schedule, combine
-        shapes), so a captured graph replays it exactly."""
-        device = self.stacked.device
+        tensors) on ``device``.  Everything it consults besides those
+        two arguments is frozen static structure (nodes, layouts,
+        schedule, combine shapes), so a captured graph replays it
+        exactly."""
         groups_static = tuple((g[3], len(g[0])) for g in live)
-        sig_maps = tuple(g[1] for g in live)
-
-        def _combine_info(ni, node):
-            if node.kind in ("row_counts", "group_counts"):
-                return {"rows": max(
-                    (_sig_rows(sig_maps[gi][node.primary])
-                     for gi in sched[ni]), default=0)}
-            if node.kind == "bsi_sum":
-                return {"depth": max(
-                    (_sig_rows(sig_maps[gi][node.primary])
-                     - bsi.OFFSET_ROW for gi in sched[ni]), default=0)}
-            return {}
-
-        combine = tuple(_combine_info(ni, node)
-                        for ni, node in enumerate(program))
+        combine = _combine_info(program, sched, tuple(g[1] for g in live))
 
         def body(mats, flats):
             per_group: list[dict] = [dict() for _ in groups_static]
@@ -591,38 +765,8 @@ class WholeQueryRunner:
 
             flat_outs: list = []
             for ni, node in enumerate(program):
-                parts = [per_group[gi][ni] for gi in sched[ni]]
-                if node.kind == "segments":
-                    flat_outs.extend(parts)        # [S, B, W] per group
-                elif node.kind == "bsi_minmax":
-                    for p in parts:                # (bits, neg, cnt)
-                        flat_outs.extend(p)
-                elif not parts:
-                    pass                           # no contributing group
-                elif node.kind == "count":
-                    total = parts[0]
-                    for p in parts[1:]:
-                        total = total + p
-                    flat_outs.append(total)                  # [B]
-                elif node.kind == "bsi_sum":
-                    D = combine[ni]["depth"]
-                    acc = torch.zeros((_mat_rows(mats[ni]), 2, D + 1),
-                                      dtype=torch.int32, device=device)
-                    for s in parts:                # [B, 2, d+1]
-                        d = s.shape[-1] - 1
-                        # magnitude counts and the trailing TOTAL column
-                        # land separately: groups of different bit depth
-                        # must not add a total into a magnitude slot
-                        acc[:, :, :d] += s[:, :, :d]
-                        acc[:, :, D] += s[:, :, d]
-                    flat_outs.append(acc)
-                else:  # row_counts / group_counts
-                    acc = torch.zeros((_mat_rows(mats[ni]),
-                                       combine[ni]["rows"]),
-                                      dtype=torch.int32, device=device)
-                    for s in parts:                # [B, rows_g]
-                        acc[:, :s.shape[1]] += s
-                    flat_outs.append(acc)
+                _reduce_node(node, [per_group[gi][ni] for gi in sched[ni]],
+                             combine[ni], device, flat_outs)
             return flat_outs
 
         return body
@@ -633,13 +777,14 @@ class WholeQueryRunner:
         """CUDA graphs on a CUDA device; the body runs eagerly elsewhere."""
         return self.stacked.device.type == "cuda"
 
-    def _run_graph(self, gkey, ckey, body, exact_mats, pad_mats, flats,
+    def _run_graph(self, gkey, ckey, runs, exact_mats, pad_mats, flats,
                    sig, fp_fn):
         """Run the program for ``gkey``: eagerly on its first sighting
-        (over the request's own rows, ``exact_mats``), else replay its
-        graph over the padded ``pad_mats``, captured now if this is its
-        second.  Returns (outputs outside graph memory, captured now,
-        kernel launches, whether the run was padded)."""
+        (over the request's own rows, ``exact_mats``), else replay every
+        slot's graph over the padded ``pad_mats``, captured now if this
+        is its second.  Returns (outputs outside graph memory, one list
+        a slot; captured now; kernel launches; whether the run was
+        padded)."""
         st = self.stacked
         with st._sc_lock:
             entry = st._graphs.get(gkey)
@@ -655,22 +800,28 @@ class WholeQueryRunner:
         if first:
             self.eager_runs += 1
             with kernels.tallying_launches() as tally:
-                outs = body(_mats_to(exact_mats, st.device), flats)
+                outs = self._eager(runs, exact_mats, flats)
             return outs, False, sum(tally.values()), False
         captured = entry is None
         if captured:
-            entry = self._capture(gkey, ckey, body, pad_mats, flats, sig,
+            entry = self._capture(gkey, ckey, runs, pad_mats, flats, sig,
                                   fp_fn, evicted)
-        self._load_params(entry, pad_mats)
-        entry.graph.replay()
-        kernels.count_replay(entry.launches)
+        # every slot's replay is queued before any output is read
+        outs = []
+        for g in entry.graphs:
+            dev = st.devices[g.slot]
+            with on_device(dev, g.slot):
+                self._load_params(g, pad_mats)
+                g.graph.replay()
+                outs.append([o.clone() for o in g.outputs])
+            kernels.count_replay(g.launches, dev.index, g.slot)
         self.replays += 1
-        return ([o.clone() for o in entry.outputs], captured,
-                sum(entry.launches.values()), True)
+        return outs, captured, sum(entry.launches.values()), True
 
     @staticmethod
     def _load_params(entry, pad_mats):
-        """Copy this launch's padded params into the graph's buffers."""
+        """Copy this launch's padded params into one slot's graph
+        buffers (``entry``: its ``_SlotGraph``)."""
         for buf, m in zip(entry.params, pad_mats):
             for b, a in (zip(buf, m) if isinstance(m, tuple)
                          else ((buf, m),)):
@@ -678,17 +829,19 @@ class WholeQueryRunner:
                     b.copy_(torch.from_numpy(a).pin_memory(),
                             non_blocking=True)
 
-    def _graph(self, fn):
-        """Capture ``fn()`` into a CUDA graph in the shared pool on the
-        side stream; returns (graph, fn's outputs, the kernel launches
-        it recorded).  Raises if the capture fails."""
-        dev = self.stacked.device
+    def _graph(self, fn, slot: int):
+        """Capture ``fn()`` into a CUDA graph in slot ``slot``'s pool on
+        its side stream, with its device current; returns (graph, fn's
+        outputs, the kernel launches it recorded).  Raises if the
+        capture fails."""
+        dev = self.stacked.devices[slot]
+        pool, side = self._pools[slot][:2]
         graph = torch.cuda.CUDAGraph()
         cur = torch.cuda.current_stream(dev)
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side), \
+        side.wait_stream(cur)
+        with torch.cuda.device(dev), torch.cuda.stream(side), \
                 kernels.recording_launches() as rec:
-            graph.capture_begin(pool=self._pool.id,
+            graph.capture_begin(pool=pool.id,
                                 capture_error_mode="thread_local")
             try:
                 outputs = fn()
@@ -701,48 +854,60 @@ class WholeQueryRunner:
                     pass
                 raise
             graph.capture_end()
-        cur.wait_stream(self._side)
+        cur.wait_stream(side)
         return graph, outputs, rec
 
-    def _open_pool(self):
-        """The graphs' shared memory pool and side stream, made at the
-        first capture."""
-        if self._pool is not None:
+    def _open_pool(self, slot: int):
+        """Slot ``slot``'s graph memory pool and side stream, made on
+        its device at the slot's first capture."""
+        if slot in self._pools:
             return
-        dev = self.stacked.device
-        self._pool = torch.cuda.MemPool()
-        self._side = torch.cuda.Stream(dev)
+        dev = self.stacked.devices[slot]
+        with torch.cuda.device(dev):
+            self._pools[slot] = [torch.cuda.MemPool(),
+                                 torch.cuda.Stream(dev), None]
         # The allocators count the graphs over a pool and free it when
         # the count drops to 0, which happens whenever every program is
         # dropped with its stacks (an ingest overlay); capturing into it
         # again then fails.  A one-op graph held for the runner's
         # lifetime keeps the pool open.
-        self._anchor = self._graph(
-            lambda: torch.zeros(1, dtype=torch.int32, device=dev))
+        self._pools[slot][2] = self._graph(
+            lambda: torch.zeros(1, dtype=torch.int32, device=dev), slot)
 
-    def _capture(self, gkey, ckey, body, pad_mats, flats, sig, fp_fn,
+    def _capture(self, gkey, ckey, runs, pad_mats, flats, sig, fp_fn,
                  evicted):
-        """Capture ``body`` into a CUDA graph over static params buffers,
-        note it in the capture registry and cache the entry, which it
-        returns.  Raises if the capture fails."""
+        """Capture every slot's body into a CUDA graph over static
+        params buffers on its device, note the program in the capture
+        registry and cache the entry, which it returns.  Raises if a
+        capture fails."""
         st = self.stacked
-        self._open_pool()
-        # A capture cannot release the caching allocator's free cached
-        # blocks (the allocator frees them on an out-of-memory only when
-        # no capture is underway), so blocks that earlier work left
-        # cached can leave the capture no room: release them first.
-        # A capture happens once per program.
-        torch.cuda.empty_cache()
-        params = _mats_to(pad_mats, st.device)
+        graphs = []
         t0 = time.perf_counter()
-        graph, outputs, rec = self._graph(lambda: body(params, flats))
+        for r in runs:
+            dev = st.devices[r.slot]
+            with on_device(dev, r.slot), _CAPTURE_LOCK:
+                _release_retired()
+                self._open_pool(r.slot)
+                # A capture cannot release the caching allocator's free
+                # cached blocks (the allocator frees them on an
+                # out-of-memory only when no capture is underway), so
+                # blocks that earlier work left cached can leave the
+                # capture no room: release them first.  A capture
+                # happens once per program and slot.
+                torch.cuda.empty_cache()
+                params = _mats_to(pad_mats, dev)
+                fl = [flats[gi] for gi in r.gis]
+                graph, outputs, rec = self._graph(
+                    lambda body=r.body, params=params, fl=fl:
+                    body(params, fl), r.slot)
+            graphs.append(_SlotGraph(r.slot, graph, params, outputs, rec))
         dt = time.perf_counter() - t0
         self.capture_s += dt
         self.captures += 1
         devobs.COMPILES.note_call(sig, "wholequery", dt, fp_fn(),
                                   evicted=evicted)
-        entry = _GraphEntry(graph, params, outputs,
-                            [t for f in flats for t in f], ckey, rec, sig)
+        entry = _GraphEntry(graphs, [t for f in flats for t in f], ckey,
+                            sig)
         with st._sc_lock:
             st._graphs[gkey] = entry
             while len(st._graphs) > st.graphs_max:
@@ -755,11 +920,12 @@ class WholeQueryRunner:
         return entry
 
     def pool_reserved_bytes(self) -> int | None:
-        """Bytes the allocator holds for the graphs' shared pool (None
-        before the first capture)."""
-        if self._pool is None:
+        """Bytes the allocator holds for the graphs' pools, every slot's
+        (None before the first capture)."""
+        if not self._pools:
             return None
-        return sum(s["total_size"] for s in self._pool.snapshot())
+        return sum(s["total_size"] for p in self._pools.values()
+                   for s in p[0].snapshot())
 
     def held_sigs(self) -> set:
         """Signatures of the programs held as captured graphs now."""

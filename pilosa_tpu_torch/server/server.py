@@ -16,7 +16,7 @@ import threading
 import torch
 
 from ..api import API
-from ..executor.executor import resolve_device
+from ..executor.executor import resolve_devices
 from ..storage import Holder
 from ..utils.logger import Logger
 from .handler import make_http_server
@@ -333,10 +333,10 @@ class Config:
     # may make READY later, never absent.
     warmup_budget_s: float = 30.0
     verbose: bool = False
-    # The torch device queries run on (TOML ``device``, CLI
-    # ``--device``): "cuda" raises at construction without a card;
-    # "cpu" runs the plain PyTorch paths.  Nothing moves to the CPU by
-    # itself.
+    # The device queries run on (TOML ``device``, CLI ``--device``):
+    # "cuda" is every visible card (executor.resolve_devices) and raises
+    # at construction without one; "cuda:k" is one card; "cpu" runs the
+    # plain PyTorch paths.  Nothing moves to the CPU by itself.
     device: str = "cuda"
 
     @classmethod
@@ -617,8 +617,8 @@ class Server:
                 f"only 'auto' is supported (the CUDA kernels on a CUDA "
                 f"device, their plain versions on the CPU)")
         # resolve before any process-wide knob changes: a refusal
-        # leaves the process as it was
-        self.device = resolve_device(self.config.device)
+        # leaves the process as it was; the first device is the primary
+        self.devices = resolve_devices(self.config.device)
         self.logger = Logger(verbose=self.config.verbose)
         from ..utils.stats import make_stats_client
         self.stats = make_stats_client(self.config.metric_service,
@@ -697,7 +697,7 @@ class Server:
                     self.cluster.remote_translate_factory
         self.api = API(
             self.holder, cluster=self.cluster, stats=self.stats,
-            use_mesh=self.config.use_mesh, device=self.device,
+            use_mesh=self.config.use_mesh, device=self.devices,
             dispatch_batch=self.config.dispatch_batch,
             dispatch_batch_max=self.config.dispatch_batch_max,
             dispatch_batch_window_us=self.config.dispatch_batch_window_us,
@@ -876,7 +876,7 @@ class Server:
         self._threads.append(t)
         self.logger.info(
             f"pilosa-tpu listening on http://{self.config.bind} "
-            f"(device {self.device})")
+            f"(device {', '.join(map(str, self.api.executor.devices))})")
         if self.cluster is not None and self.config.anti_entropy_interval > 0:
             t = threading.Thread(target=self._monitor_anti_entropy,
                                  daemon=True)
@@ -1164,7 +1164,8 @@ class Server:
                   for k, v in counters.items()}
         p99 = self.stats.percentile("http.query", 0.99)
         batcher = self.api.executor.batcher
-        dev = self.api.executor.device
+        # every card of the executor's device list, each card once
+        cards = {d for d in self.api.executor.devices if d.type == "cuda"}
         values.update({
             "hbmResidentBytes": b["residentBytes"],
             "hbmCompressedBytes": b["compressedBytes"],
@@ -1180,10 +1181,10 @@ class Server:
             "httpQueryP99Ms": round(p99 * 1e3, 3) if p99 else 0.0,
             "quarantinedFragments": len(
                 self.holder.quarantined_fragments()),
-            # the caching allocator's reserved bytes: stacks, decode
-            # temporaries and the graph pool together
-            "deviceReservedBytes": torch.cuda.memory_reserved(dev)
-            if dev.type == "cuda" else 0,
+            # the caching allocators' reserved bytes over the cards:
+            # stacks, decode temporaries and the graph pools together
+            "deviceReservedBytes": sum(torch.cuda.memory_reserved(d)
+                                       for d in cards),
         })
         accepted = self.timeseries.sample(values, force=force)
         if accepted:

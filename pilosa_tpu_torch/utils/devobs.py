@@ -362,8 +362,11 @@ def profile_request(run) -> dict:
     """One request (``run()``) under torch.profiler on the card: its
     wall ms, the card's busy ms (the sum of its kernel and copy
     durations), the idle share, the kernel count and the eight kernels
-    that took most of it as ``[name, ms, calls]``.  CUPTI records every
-    kernel of the process, a server thread's too."""
+    that took most of it as ``[name, ms, calls]``; on several cards the
+    busy ms is their sum and the idle share the mean of theirs, and
+    ``device_busy_ms_by_card`` / ``device_idle_share_by_card`` give each
+    card's.  CUPTI records every kernel of the process, a server
+    thread's too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -373,16 +376,31 @@ def profile_request(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    def device_us(e):
+        # the older name only where the newer is missing (reading it
+        # warns on current versions)
+        us = getattr(e, "self_device_time_total", None)
+        return us if us is not None else \
+            getattr(e, "self_cuda_time_total", 0.0)
+
     kern = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        kern.append((us, e.count, e.key))
+        kern.append((device_us(e), e.count, e.key))
     busy_ms = sum(k[0] for k in kern) / 1e3
+    by_card: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_card[e.device_index] = \
+                by_card.get(e.device_index, 0.0) + device_us(e) / 1e3
+    idle = {k: 1 - by_card[k] / (wall * 1e3) for k in sorted(by_card)}
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-            "device_idle_share": 1 - busy_ms / (wall * 1e3),
+            "device_idle_share": sum(idle.values()) / len(idle) if idle
+            else 1 - busy_ms / (wall * 1e3),
+            "device_busy_ms_by_card": {k: by_card[k] for k in
+                                       sorted(by_card)},
+            "device_idle_share_by_card": idle,
             "kernels": sum(k[1] for k in kern),
             "top": [[name[:48], round(us / 1e3, 3), n]
                     for us, n, name in sorted(kern, reverse=True)[:8]]}

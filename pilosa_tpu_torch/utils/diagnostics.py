@@ -8,8 +8,8 @@ mirrors the reference's anonymized shape: version, platform, uptime,
 schema scale, and runtime gauges.
 
 Port copy of the JAX package's ``utils/diagnostics.py``.  Deviation: the
-payload also names the server's torch device and, on a CUDA device, the
-card (``torch.cuda.get_device_name``).
+payload also names the server's primary device (the first of its device
+list) and, on a CUDA device, its card (``torch.cuda.get_device_name``).
 """
 
 from __future__ import annotations
@@ -56,8 +56,9 @@ class DiagnosticsCollector:
             "numFields": n_fields,
             "numFragments": n_frags,
         }
-        device = getattr(self.server, "device", None)
-        if device is not None:
+        devices = getattr(self.server, "devices", None)
+        if devices:
+            device = devices[0]         # the primary
             out["device"] = str(device)
             if device.type == "cuda":
                 import torch

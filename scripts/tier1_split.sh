@@ -53,6 +53,7 @@ tests/test_torch_native.py
 tests/test_torch_server.py
 tests/test_torch_storage.py
 tests/test_torch_wholequery.py
+tests/test_torch_mesh.py
 tests/test_translate.py
 tests/test_wholequery.py
 tests/test_torch_devobs.py

@@ -77,7 +77,7 @@ class _CpuGraph:
             out.copy_(new)
 
 
-def _cpu_graph(self, fn):
+def _cpu_graph(self, fn, slot):
     with kernels.recording_launches() as rec:
         outputs = [o.clone() for o in fn()]
     return _CpuGraph(fn, outputs), outputs, rec
@@ -96,7 +96,7 @@ def cpu_graphs(monkeypatch):
     monkeypatch.setattr(wq.WholeQueryRunner, "_use_graphs",
                         lambda self: True)
     monkeypatch.setattr(wq.WholeQueryRunner, "_open_pool",
-                        lambda self: None)
+                        lambda self, slot: None)
     monkeypatch.setattr(wq.WholeQueryRunner, "_graph", _cpu_graph)
     monkeypatch.setattr(wq.WholeQueryRunner, "_load_params",
                         staticmethod(_cpu_load_params))

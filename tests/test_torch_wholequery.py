@@ -344,3 +344,28 @@ def test_stack_drop_drops_programs(corpus):
         assert list(st._graphs) == ["other"]
     finally:
         st.close()
+
+
+def test_dropped_runner_pools_are_retired_until_a_capture():
+    """A dropped runner's graph pools are not torn down where the
+    collector drops it, which may be in the middle of another thread's
+    capture; the next capture releases them under the capture lock."""
+    import gc
+    import weakref
+
+    from pilosa_tpu_torch.parallel import wholequery as wq
+
+    class Pool:                  # stands in for a torch.cuda.MemPool
+        pass
+
+    pool, graph = Pool(), Pool()
+    runner = wq.WholeQueryRunner(None)
+    runner._pools[0] = [pool, None, (graph, [], {})]
+    pool_ref, graph_ref = weakref.ref(pool), weakref.ref(graph)
+    del pool, graph, runner
+    gc.collect()
+    assert pool_ref() is not None and graph_ref() is not None
+    with wq._CAPTURE_LOCK:
+        wq._release_retired()
+    assert pool_ref() is None and graph_ref() is None
+    assert not wq._RETIRED
