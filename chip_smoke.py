@@ -83,23 +83,30 @@ its own lines and its seconds:
 6b. multiprocess — the multi-process engine
    (pilosa_tpu_torch/parallel/multihost.py): two rank processes, fresh
    interpreters running this script with ``--rank``, join one process
-   group: over NCCL with one card a rank (``cuda:<rank>``) where the
-   machine has two cards, else over gloo on ``cuda:0`` (the ranks share
-   the one card, where NCCL refuses two ranks; gloo stages each
-   collective through the host).  Collectives run eagerly, with no CUDA
-   graph.  Each builds its half of
+   group, each with a two-slot device list (``mp_route``): over NCCL on
+   ``[cuda:2r, cuda:2r+1]`` where the machine has four cards, on
+   ``[cuda:r, cuda:r]`` where it has two or three, else over gloo on
+   ``[cuda:0, cuda:0]`` (the ranks share the one card, where NCCL
+   refuses two ranks; gloo stages each collective through the host).
+   Collectives run eagerly, with no CUDA graph.  Each builds its half of
    the SSB corpus (128 of 256 shards) and of config 4's (32 of 64) from
    the seeds and, compressed-resident, runs the SSB mix, config 4's
    requests and the multihost worker's query set (Row, TopN, Rows,
-   GroupBy, Sum / Min / Max on ``v``) through ``Executor(...,
-   group=...)``.  Every answer of every rank must equal the oracle and
-   the single-process port's answers (phases 5 and 6, and the worker set
-   run here in one process); both kernels must launch in both ranks
-   (counts reset just before each corpus's run, read just after), and
-   rank 0 holds both kernels on its own half stacks against their plain
-   versions.  A rank that fails or outlives its timeout fails the run.
-   Printed per rank: seconds, request p50s and launches, beside the
-   card's name and power limit.
+   GroupBy, Sum / Min / Max on ``v``) twice in the same group: through
+   ``Executor(..., group=...)`` on its primary card alone (the
+   one-device leg), then over its slot list (the slotted leg: each rank
+   cuts its shards into one block a slot, reduces them onto its primary
+   and then runs the collective).  Every answer of every rank in both
+   legs must equal the oracle and the single-process port's answers
+   (phases 5 and 6, and the worker set run here in one process), and
+   the slotted leg's the one-device leg's; both kernels must launch in
+   both ranks, and in the slotted leg in every slot of both ranks
+   (counts by slot reset just before each corpus's run, read just
+   after); rank 0 holds both kernels on its own half stacks, and on
+   slot 0's block of them, against their plain versions.  A rank that
+   fails or outlives its timeout fails the run.  Printed per rank and
+   leg: seconds, request p50s and launches (by slot in the slotted
+   leg), beside the card's name and power limit.
 7. served — the port's server (``pilosa_tpu_torch.server``) on the card
    in a fresh data dir: ``ssb`` and its four fields created over HTTP,
    the 256-shard corpus loaded through ``import-roaring`` (one POST per
@@ -410,8 +417,9 @@ def check_ssb_shapes(holder, device, rg: int = 1, c: int = 3, group=None,
     ``TopN(rev, Intersect(Row(region=rg), Row(category=c)))`` over every
     shard, on the stacks the stacked executor itself places:
     decode_block over the region and category stacks (the filter's
-    operands), fused_row_counts over the rev stack under that filter, for
-    every signature group — one for the SSB key list, which is asserted.
+    operands), fused_row_counts over the rev stack under that filter, on
+    the key list's one signature group (asserted).  ``device``: a device,
+    or a device list, whose slot 0 block is held, on its card.
     ``group``: one rank of a process group, which stacks its own shards
     only."""
     from pilosa_tpu_torch.parallel.stacked import StackedExecutor
@@ -420,16 +428,18 @@ def check_ssb_shapes(holder, device, rg: int = 1, c: int = 3, group=None,
     keys = [("rev", "standard"), ("region", "standard"),
             ("category", "standard")]
     shards = list(range(N_SHARDS))
-    groups = st._placed_groups(keys, holder, ssb.SSB_INDEX, shards)
-    say(label, ssb_groups=len(groups),
-        group_shards=[len(g[0]) for g in groups],
-        sigs=[g[2] for g in groups])
-    if len(groups) != 1:
-        raise AssertionError(f"the SSB TopN key list forms {len(groups)} "
+    blocks = st._placed_groups(keys, holder, ssb.SSB_INDEX, shards)
+    gids = {b.gid for b in blocks}
+    say(label, ssb_groups=len(gids), slots=st.n_devices,
+        block_shards=[len(b[0]) for b in blocks],
+        sigs=[blocks[0][2]])
+    if len(gids) != 1 or blocks[0].slot != 0:
+        raise AssertionError(f"the SSB TopN key list forms {len(gids)} "
                              f"signature groups, not 1")
     dec, fus = _new_rec(), _new_rec()
-    for shard_list, placed, sig in groups:
-        measure_group(placed, sig, len(shard_list), dec, fus, rg, c)
+    b = blocks[0]
+    with torch.cuda.device(b.device):
+        measure_group(b[1], b[2], len(b[0]), dec, fus, rg, c)
     st.close()
     return dec, fus
 
@@ -613,20 +623,22 @@ def check_bsi_stack(holder, device, n_shards: int, group=None,
     """``decode_block`` at the shape every compressed Sum / Min / Max /
     range predicate gives it: the packed ``bsig_v`` stack the stacked
     executor places over all shards (one signature group, asserted),
-    bit-exact against its plain version; timed.  ``group``: one rank of
-    a process group, which stacks its own shards only."""
+    bit-exact against its plain version; timed.  ``device``: a device,
+    or a device list, whose slot 0 block is held, on its card.
+    ``group``: one rank of a process group, which stacks its own shards
+    only."""
     from pilosa_tpu_torch import bsi64
     from pilosa_tpu_torch.core import SHARD_WORDS
     from pilosa_tpu_torch.ops import containers, kernels
     from pilosa_tpu_torch.parallel.stacked import StackedExecutor
     st = StackedExecutor(device, group=group)
-    groups = st._placed_groups([("v", "bsig_v")], holder, bsi64.INDEX,
+    blocks = st._placed_groups([("v", "bsig_v")], holder, bsi64.INDEX,
                                list(range(n_shards)))
-    if len(groups) != 1 or not isinstance(groups[0][1][0],
-                                          containers.PackedStack):
+    if len({b.gid for b in blocks}) != 1 or blocks[0].slot != 0 or \
+            not isinstance(blocks[0][1][0], containers.PackedStack):
         raise AssertionError(f"bsig_v does not stack into one packed "
-                             f"group: {[g[2] for g in groups]}")
-    shard_list, (pk,), (sig,) = groups[0]
+                             f"group: {[b[2] for b in blocks]}")
+    shard_list, (pk,), (sig,) = blocks[0]
     rows = sig[1]
     n_stacked = len(shard_list)
 
@@ -637,13 +649,14 @@ def check_bsi_stack(holder, device, n_shards: int, group=None,
         return kernels.decode_block_plain(*pk, rows=rows, words=SHARD_WORDS)
 
     rec = _new_rec()
-    got, want = run(), plain()
-    torch.cuda.synchronize()
-    rec["err"] = max_abs_err(got, want)
-    rec["ms"] = time_ms(run, iters=20)
-    rec["plain_ms"] = time_ms(plain, iters=3, warmup=1)
+    with torch.cuda.device(blocks[0].device):
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        rec["err"] = max_abs_err(got, want)
+        rec["ms"] = time_ms(run, iters=20)
+        rec["plain_ms"] = time_ms(plain, iters=3, warmup=1)
     rec["bytes"] = stack_bytes(pk) + n_stacked * rows * SHARD_WORDS * 4
-    say(label, bsig_stack_shards=n_stacked, rows=rows,
+    say(label, slots=st.n_devices, bsig_stack_shards=n_stacked, rows=rows,
         containers=pk.types.numel(), payload_words=pk.payload.numel(),
         types=json.dumps({t: int((pk.types == i).sum()) for i, t in
                           enumerate(("array", "bitmap", "run"))}),
@@ -975,12 +988,19 @@ MP_RANK_TIMEOUT_S = 240        # each rank's own limit
 
 
 def mp_route(world: int = MP_WORLD) -> tuple[str, list]:
-    """(backend, each rank's device): one card a rank over NCCL where the
-    machine has a card for every rank, else every rank on ``cuda:0`` over
-    gloo (NCCL refuses two ranks on one card)."""
-    if torch.cuda.device_count() >= world:
-        return "nccl", [f"cuda:{r}" for r in range(world)]
-    return "gloo", ["cuda:0"] * world
+    """(backend, each rank's two-slot device list, its first the rank's
+    primary, where its one-device leg runs): NCCL and rank r on
+    ``[cuda:2r, cuda:2r+1]`` where the machine has two cards for every
+    rank, NCCL and ``[cuda:r, cuda:r]`` where it has one for every rank,
+    else gloo and every rank on ``[cuda:0, cuda:0]`` (NCCL refuses two
+    ranks on one card)."""
+    n = torch.cuda.device_count()
+    if n >= 2 * world:
+        return "nccl", [[f"cuda:{2 * r}", f"cuda:{2 * r + 1}"]
+                        for r in range(world)]
+    if n >= world:
+        return "nccl", [[f"cuda:{r}"] * 2 for r in range(world)]
+    return "gloo", [["cuda:0"] * 2 for _ in range(world)]
 
 
 def mp_worker_queries() -> list:
@@ -1030,53 +1050,26 @@ def mp_oracle(oracle) -> list:
     return json.loads(json.dumps(want))
 
 
-def rank_main(argv) -> int:
-    """One rank of phase ``multiprocess``: joins the process group over
-    ``--backend`` on ``--device`` (``mp_route``: NCCL with a card of its
-    own, or gloo on the card every rank shares), builds its slice of the
-    SSB corpus (256 shards) and of
-    config 4's (64 shards) from the seeds, and runs the SSB mix, config
-    4's requests and the multihost worker's set compressed-resident
-    through ``Executor(..., group=...)``, counting kernel launches per
-    corpus.  Rank 0 then holds both kernels on its own stacks against
-    their plain versions.  Prints one ``RANK {...}`` JSON line."""
+def rank_run(holder, cfg4, devices, group) -> dict:
+    """One leg of a rank of phase ``multiprocess``: the SSB mix (the
+    batches of run_ssb, one pass), then config 4's 64-Sum requests, the
+    GroupBy, Min / Max / Count / TopN and the multihost worker's set,
+    through ``Executor(..., device=devices, group=group)``,
+    compressed-resident.  Launch counts, in all and by slot, are reset
+    just before each corpus's requests and read just after."""
     from pilosa_tpu_torch import bsi64, ssb
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.ops import kernels
-    from pilosa_tpu_torch.parallel import multihost
-    from pilosa_tpu_torch.storage import Holder
-    from pilosa_tpu_torch.storage.membudget import DEFAULT_BUDGET
-    rank = int(argv[argv.index("--rank") + 1])
-    world = int(argv[argv.index("--world") + 1])
-    port = int(argv[argv.index("--port") + 1])
-    device = argv[argv.index("--device") + 1]
-    n_cfg4 = int(argv[argv.index("--cfg4-shards") + 1])
-    backend = argv[argv.index("--backend") + 1]
-    t_rank = time.perf_counter()
-    # the ranks share the host: split its cores, or their intra-op
-    # threads spin against each other while one waits in a collective
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    group, device = multihost.init_distributed(
-        f"localhost:{port}", world, rank, backend=backend, device=device)
-    rec = {"rank": rank, "world": world, "backend": backend,
-           "device": str(device)}
-    t0 = time.perf_counter()
-    lo, hi = multihost.shard_range(N_SHARDS, rank, world)
-    holder = Holder(None)
-    ssb.build_ssb(holder, np.random.default_rng(SEED), n_shards=N_SHARDS,
-                  keep=range(lo, hi))
-    cfg4, _ = cfg4_corpus(n_cfg4, group)
-    rec.update(ssb_shards=[lo, hi], bsi64_shards=list(
-        multihost.shard_range(n_cfg4, rank, world)),
-        build_s=time.perf_counter() - t0)
-    DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20      # compressed-resident
-
-    # the SSB mix: the batches of run_ssb, one pass
+    t_leg = time.perf_counter()
     rng = np.random.default_rng(SEED + 1)
     batches = [ssb.ssb_calls(rng, BATCH) for _ in range(N_BATCHES + 1)]
-    ex = Executor(holder, device=device, group=group)
+    ex = Executor(holder, device=devices, group=group)
     if ex.wholequery is not None or not ex.multiprocess:
         raise AssertionError("a grouped executor built a whole-query runner")
+    if ex.stacked.n_devices != len(devices):
+        raise AssertionError(f"a rank's executor holds "
+                             f"{ex.stacked.n_devices} slots, not "
+                             f"{len(devices)}")
     kernels.reset_launches()
     answers, lat = [], []
     for i, calls in enumerate(batches):
@@ -1086,11 +1079,12 @@ def rank_main(argv) -> int:
         torch.cuda.synchronize()
         if i:
             lat.append(time.perf_counter() - t0)
-    rec["ssb"] = {"launches": dict(kernels.LAUNCHES),
-                  "batch_p50_ms": statistics.median(lat) * 1e3,
-                  "batch_ms": [round(x * 1e3, 3) for x in lat],
-                  "fused_calls": ex.stacked.fused_calls,
-                  "answers": answers}
+    rec = {"ssb": {"launches": dict(kernels.LAUNCHES),
+                   "launches_by_slot": slot_launches(len(devices))["slot"],
+                   "batch_p50_ms": statistics.median(lat) * 1e3,
+                   "batch_ms": [round(x * 1e3, 3) for x in lat],
+                   "fused_calls": ex.stacked.fused_calls,
+                   "answers": answers}}
     ex.close()
 
     # config 4: the 64-Sum requests, the GroupBy, Min / Max / Count /
@@ -1098,7 +1092,7 @@ def rank_main(argv) -> int:
     rng = np.random.default_rng(SEED + 5)
     xs_all = [rng.integers(0, bsi64.V_MAX, size=bsi64.SUMS_PER_REQUEST)
               for _ in range(CFG4_REQUESTS + 1)]
-    ex = Executor(cfg4, device=device, group=group)
+    ex = Executor(cfg4, device=devices, group=group)
     kernels.reset_launches()
     answers, lat = [], []
     for i, xs in enumerate(xs_all):
@@ -1121,22 +1115,71 @@ def rank_main(argv) -> int:
     worker = [mp_normalize(ex.execute(bsi64.INDEX, q))[0]
               for q in mp_worker_queries()]
     rec["bsi64"] = {"launches": dict(kernels.LAUNCHES),
+                    "launches_by_slot": slot_launches(len(devices))["slot"],
                     "request_p50_ms": statistics.median(lat) * 1e3,
                     "request_ms": [round(t * 1e3, 3) for t in lat],
                     "group_by_ms": gb_ms,
                     "answers": json.loads(json.dumps(answers)),
                     "worker": worker}
     ex.close()
+    rec["devices"] = [str(d) for d in devices]
+    rec["seconds"] = time.perf_counter() - t_leg
+    return rec
 
-    if rank == 0:
-        # both kernels on this rank's own stacks against their plain
-        # versions (launches here are not the main path's)
-        dec, fus = check_ssb_shapes(holder, device, group=group,
-                                    label="multiprocess")
-        bsi_dec = check_bsi_stack(cfg4, device, n_cfg4,
-                                  group=group, label="multiprocess")
-        rec["kernel_recs"] = {"decode_block": dec, "fused_row_counts": fus,
-                              "decode_block_bsig_v": bsi_dec}
+
+def rank_main(argv) -> int:
+    """One rank of phase ``multiprocess``: joins the process group over
+    ``--backend`` with its device list ``--devices`` (``mp_route``: NCCL
+    with cards of its own, or gloo on the card every rank shares), builds
+    its slice of the SSB corpus (256 shards) and of config 4's (64
+    shards) from the seeds, and runs two legs in that group
+    (``rank_run``): on its primary card alone, then over its device
+    list.  After each, rank 0 holds both kernels on its own stacks (in
+    the slotted leg, slot 0's block of them) against their plain
+    versions.  Prints one ``RANK {...}`` JSON line."""
+    from pilosa_tpu_torch import ssb
+    from pilosa_tpu_torch.parallel import multihost
+    from pilosa_tpu_torch.storage import Holder
+    from pilosa_tpu_torch.storage.membudget import DEFAULT_BUDGET
+    rank = int(argv[argv.index("--rank") + 1])
+    world = int(argv[argv.index("--world") + 1])
+    port = int(argv[argv.index("--port") + 1])
+    devices = argv[argv.index("--devices") + 1].split(",")
+    n_cfg4 = int(argv[argv.index("--cfg4-shards") + 1])
+    backend = argv[argv.index("--backend") + 1]
+    t_rank = time.perf_counter()
+    # the ranks share the host: split its cores, or their intra-op
+    # threads spin against each other while one waits in a collective
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    group, devices = multihost.init_distributed(
+        f"localhost:{port}", world, rank, backend=backend, device=devices)
+    primary = devices[0]
+    rec = {"rank": rank, "world": world, "backend": backend,
+           "device": str(primary)}
+    t0 = time.perf_counter()
+    lo, hi = multihost.shard_range(N_SHARDS, rank, world)
+    holder = Holder(None)
+    ssb.build_ssb(holder, np.random.default_rng(SEED), n_shards=N_SHARDS,
+                  keep=range(lo, hi))
+    cfg4, _ = cfg4_corpus(n_cfg4, group)
+    rec.update(ssb_shards=[lo, hi], bsi64_shards=list(
+        multihost.shard_range(n_cfg4, rank, world)),
+        build_s=time.perf_counter() - t0)
+    DEFAULT_BUDGET.limit_bytes = BUDGET_MB << 20      # compressed-resident
+
+    for leg, devs in (("one", [primary]), ("slots", devices)):
+        rec[leg] = rank_run(holder, cfg4, devs, group)
+        if rank == 0:
+            # both kernels on this rank's own stacks (slot 0's block)
+            # against their plain versions; launches here are not the
+            # main path's
+            dec, fus = check_ssb_shapes(holder, devs, group=group,
+                                        label="multiprocess")
+            bsi_dec = check_bsi_stack(cfg4, devs, n_cfg4, group=group,
+                                      label="multiprocess")
+            rec[leg]["kernel_recs"] = {
+                "decode_block": dec, "fused_row_counts": fus,
+                "decode_block_bsig_v": bsi_dec}
     import torch.distributed as dist
     dist.barrier()
     multihost.close_distributed()
@@ -1148,13 +1191,16 @@ def rank_main(argv) -> int:
 def run_multiprocess(device, card: str, hist, ssb_answers, cfg4, oracle,
                      c4_answers, n_cfg4: int) -> dict:
     """Phase ``multiprocess``: MP_WORLD rank processes (fresh
-    interpreters running ``rank_main``), over NCCL with a card each where
-    the machine has them, else over gloo on the one card
-    (``mp_route``).  Every rank's
+    interpreters running ``rank_main``), over NCCL with cards of their
+    own where the machine has them, else over gloo on the one card, each
+    with a two-slot device list (``mp_route``), each running a
+    one-device leg and then a slotted leg.  In both legs every rank's
     answers must equal the oracle and the single-process port's answers
     on the same data (the ``ssb`` and ``bsi64`` phases, and the worker
-    set run here on the single-process config-4 holder); both kernels
-    must launch in every rank.  Returns the phase's record."""
+    set run here on the single-process config-4 holder), the slotted
+    leg's the one-device leg's, and both kernels must launch in every
+    rank — in the slotted leg in every slot of every rank.  Returns the
+    phase's record."""
     import tempfile
     from pilosa_tpu_torch import bsi64, ssb
     from pilosa_tpu_torch.executor import Executor
@@ -1178,7 +1224,8 @@ def run_multiprocess(device, card: str, hist, ssb_answers, cfg4, oracle,
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, __file__, "--rank", str(r), "--world",
-         str(MP_WORLD), "--port", str(port), "--device", rank_devices[r],
+         str(MP_WORLD), "--port", str(port),
+         "--devices", ",".join(rank_devices[r]),
          "--backend", backend, "--cfg4-shards", str(n_cfg4)],
         stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(MP_WORLD)]
@@ -1215,43 +1262,64 @@ def run_multiprocess(device, card: str, hist, ssb_answers, cfg4, oracle,
     rng = np.random.default_rng(SEED + 1)
     batches = [ssb.ssb_calls(rng, BATCH) for _ in range(N_BATCHES + 1)]
     want_c4 = json.loads(json.dumps(c4_answers))
-    for rec in recs:
-        r = rec["rank"]
-        got = rec["ssb"].pop("answers")
+
+    def check_leg(r, leg, run):
+        # equal to the single-process answers in both legs, so the
+        # slotted leg's answers equal the one-device leg's too
+        got = run["ssb"].pop("answers")
         for calls, g in zip(batches, got):
-            check_answers(f"multiprocess rank {r}", hist, shards, calls, g)
+            check_answers(f"multiprocess rank {r} ({leg})", hist, shards,
+                          calls, g)
         if got != ssb_answers:
-            raise AssertionError(f"rank {r}: the SSB answers differ from "
-                                 f"the single-process port's")
-        got = rec["bsi64"].pop("answers")
-        if got != want_c4:
-            raise AssertionError(f"rank {r}: the config-4 answers differ "
-                                 f"from the single-process port's")
-        got = rec["bsi64"].pop("worker")
+            raise AssertionError(f"rank {r} ({leg}): the SSB answers "
+                                 f"differ from the single-process port's")
+        if run["bsi64"].pop("answers") != want_c4:
+            raise AssertionError(f"rank {r} ({leg}): the config-4 answers "
+                                 f"differ from the single-process port's")
+        got = run["bsi64"].pop("worker")
         if got != want_worker or got != single:
-            raise AssertionError(f"rank {r}: the multihost worker set "
-                                 f"{got} != oracle {want_worker}")
+            raise AssertionError(f"rank {r} ({leg}): the multihost worker "
+                                 f"set {got} != oracle {want_worker}")
+        n_slots = len(run["devices"])
         for corpus, names in (("ssb", ("decode_block", "fused_row_counts")),
                               ("bsi64", ("decode_block",))):
             for name in names:
-                if rec[corpus]["launches"].get(name, 0) <= 0:
-                    raise AssertionError(f"rank {r} never launched {name} "
-                                         f"on the {corpus} corpus")
-        say("multiprocess", rank=r, backend=rec["backend"],
-            device=rec["device"], card=repr(card),
-            seconds=rec["seconds"], build_s=rec["build_s"],
-            ssb_shards=rec["ssb_shards"],
-            ssb_batch_p50_ms=rec["ssb"]["batch_p50_ms"],
-            ssb_launches=json.dumps(rec["ssb"]["launches"]),
-            bsi64_shards=rec["bsi64_shards"],
-            bsi64_request_p50_ms=rec["bsi64"]["request_p50_ms"],
-            bsi64_group_by_ms=rec["bsi64"]["group_by_ms"],
-            bsi64_launches=json.dumps(rec["bsi64"]["launches"]))
-    kr = recs[0].pop("kernel_recs")
-    for name, k in kr.items():
-        if k["err"]:
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"on rank 0's stacks: {k['err']}")
+                if run[corpus]["launches"].get(name, 0) <= 0:
+                    raise AssertionError(f"rank {r} ({leg}) never launched "
+                                         f"{name} on the {corpus} corpus")
+                by_slot = run[corpus]["launches_by_slot"][name]
+                if len(by_slot) != n_slots or min(by_slot) <= 0:
+                    raise AssertionError(f"rank {r} ({leg}): a slot never "
+                                         f"launched {name} on the "
+                                         f"{corpus} corpus: {by_slot}")
+
+    for rec in recs:
+        r = rec["rank"]
+        for leg in ("one", "slots"):
+            run = rec[leg]
+            check_leg(r, leg, run)
+            say("multiprocess", rank=r, leg=leg, backend=rec["backend"],
+                devices=run["devices"], card=repr(card),
+                seconds=run["seconds"], build_s=rec["build_s"],
+                ssb_shards=rec["ssb_shards"],
+                ssb_batch_p50_ms=run["ssb"]["batch_p50_ms"],
+                ssb_launches=json.dumps(run["ssb"]["launches"]),
+                ssb_launches_by_slot=json.dumps(
+                    run["ssb"]["launches_by_slot"]),
+                bsi64_shards=rec["bsi64_shards"],
+                bsi64_request_p50_ms=run["bsi64"]["request_p50_ms"],
+                bsi64_group_by_ms=run["bsi64"]["group_by_ms"],
+                bsi64_launches=json.dumps(run["bsi64"]["launches"]),
+                bsi64_launches_by_slot=json.dumps(
+                    run["bsi64"]["launches_by_slot"]))
+        say("multiprocess", rank=r, seconds=rec["seconds"])
+    kr = {leg: recs[0][leg].pop("kernel_recs") for leg in ("one", "slots")}
+    for leg, recs_k in kr.items():
+        for name, k in recs_k.items():
+            if k["err"]:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version on rank 0's stacks "
+                                     f"({leg}): {k['err']}")
     return {"world": MP_WORLD, "backend": backend,
             "devices": rank_devices, "card": card, "wall_s": wall,
             "ranks": recs, "kernel_recs": kr}
@@ -3413,6 +3481,9 @@ def run_bench(device) -> dict:
         "chaos_timing": configs["11_tail_tolerance_chaos"]["timing_gates"],
         "slo_fired": configs["20_slo_alerting"]["alert"]["fired"],
         "slo_qps_ratio": configs["20_slo_alerting"]["qps_ratio"],
+        # the bench gates this one itself (5%); printed for its margin
+        "observability_overhead_pct":
+            configs["observability"]["overhead_pct"],
         "wire_sparse_bytes_ratio":
             configs["12_internal_wire"]["sparse_bytes_ratio"],
         "tenant_attribution": ten["shed_attribution"],
@@ -3780,28 +3851,34 @@ def mesh_lines(mesh: dict, src: str) -> list:
 
 def mp_lines(mp: dict, src: str) -> list:
     """Phase multiprocess's rows of the ``kernels`` line: each kernel at
-    rank 0's half shapes; launches are rank 0's main-path run, with
-    every rank's beside them."""
+    rank 0's half shapes (the one-device leg) and on slot 0's block of
+    them (the slotted leg); launches are rank 0's in that leg's
+    main-path run (slot 0's in the slotted leg), with every rank's (and
+    slot's) beside them."""
     lines = []
-    for name, key, corpus, shape in (
-            ("decode_block", "decode_block", "ssb",
-             "multiprocess_rank_ssb_topn_filter"),
-            ("fused_row_counts", "fused_row_counts", "ssb",
-             "multiprocess_rank_ssb_topn_filter"),
-            ("decode_block", "decode_block_bsig_v", "bsi64",
-             "multiprocess_rank_bsi64_bsig_v")):
-        rec = mp["kernel_recs"][key]
-        b_ms, b_by = bound(rec)
-        lines.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": f"{JAX_KERNELS}:"
-                                  f"{245 if name == 'decode_block' else 326}",
-                      "shape": shape,
-                      "launches": mp["ranks"][0][corpus]["launches"][name],
-                      "launches_per_rank": [
-                          r[corpus]["launches"][name] for r in mp["ranks"]],
-                      "max_abs_err": rec["err"], "ms": rec["ms"],
-                      "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": None})
+    for leg, tag in (("one", "rank"), ("slots", "rank_slot0")):
+        for name, key, corpus, shape in (
+                ("decode_block", "decode_block", "ssb", "ssb_topn_filter"),
+                ("fused_row_counts", "fused_row_counts", "ssb",
+                 "ssb_topn_filter"),
+                ("decode_block", "decode_block_bsig_v", "bsi64",
+                 "bsi64_bsig_v")):
+            rec = mp["kernel_recs"][leg][key]
+            b_ms, b_by = bound(rec)
+            runs = [r[leg][corpus] for r in mp["ranks"]]
+            lines.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": f"{JAX_KERNELS}:"
+                            f"{245 if name == 'decode_block' else 326}",
+                "shape": f"multiprocess_{tag}_{shape}",
+                "devices": mp["ranks"][0][leg]["devices"],
+                "launches": runs[0]["launches_by_slot"][name][0],
+                "launches_per_rank": [x["launches"][name] for x in runs],
+                "launches_by_slot_per_rank": [
+                    x["launches_by_slot"][name] for x in runs],
+                "max_abs_err": rec["err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None})
     return lines
 
 

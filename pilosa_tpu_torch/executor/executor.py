@@ -47,7 +47,8 @@ Deviations from the JAX module:
 
 * A batched launch on each device covers that device's block of its
   shard slice (``stacked_per_device(n)`` is ``ceil(n / n_devices)``,
-  without the JAX module's pow2 bucket).  A working set over the device
+  without the JAX module's pow2 bucket; under a process group the
+  largest rank's slot block of the request).  A working set over the device
   budget runs slice-major over the shard schedule
   (``_run_batched_groups``, parallel/stacked.py ``shard_schedule``).
 * Chunks of a batched group are not padded to a power of two: the
@@ -71,8 +72,11 @@ Deviations from the JAX module:
   its dispatch through the fetch under the same lock.
 
 Multi-process mode (``Executor(holder, device=..., group=...)``,
-parallel/multihost.py): the group goes to the stacked executor, whose
-reducers stack this rank's shards and end in collectives.  Every rank
+parallel/multihost.py): ``device`` is this rank's device or device list
+(``resolve_devices``: ``[cuda:0, cuda:1]``, or ``["cpu"] * k`` for k
+slots on the CPU), and the group and the list go to the stacked
+executor, whose reducers stack this rank's shards over its slots, reduce
+them onto its primary and end in collectives.  Every rank
 runs the same requests, so the request path may not branch on a rank's
 own data: under a group there are no whole-query programs (a CUDA graph
 cannot capture a gloo collective; the JAX module keeps multi-process
@@ -263,7 +267,9 @@ def _run_batched_groups(batcher, holder, index, shards, groups, results):
                                    fused_only)
     # the chunk layout must be identical across slices so per-chunk parts
     # can accumulate; size it by the largest slice
-    per_dev = stacked.stacked_per_device(sched.max_slice_len)
+    # (under a process group: one slice, sized alike on every rank)
+    per_dev = stacked.stacked_per_device(sched.max_slice_len, holder, index,
+                                         shards)
     # a multi-slice schedule keeps the direct slice-major dispatch:
     # batching a streamed working set would re-stage it whole
     fuse = len(sched.slices) == 1

@@ -1,6 +1,6 @@
-"""Multi-process execution: one engine spanning N processes, one per GPU,
-over ``torch.distributed`` — the port of the JAX package's
-``parallel/multihost.py``.
+"""Multi-process execution: one engine spanning N processes, each with
+its own device list, over ``torch.distributed`` — the port of the JAX
+package's ``parallel/multihost.py``.
 
 Two composition modes cover the reference's multi-node story (its
 HTTP+protobuf data plane and gossip membership):
@@ -14,25 +14,33 @@ HTTP+protobuf data plane and gossip membership):
    (``import_process_slice``) and keeps shape-matched empty fragments
    for the others', so every rank sees the same shard set.  An
    ``Executor(holder, device=..., group=...)`` then stacks only this
-   rank's shards and every cross-shard reduction is an explicit
-   collective (``dist.all_reduce`` for the sums the JAX package's
-   ``psum`` does, ``dist.all_gather`` for its per-shard ``all_gather``,
-   parallel/stacked.py).  Every rank runs the same requests in lockstep
-   and holds the same answers.  Use it when one index's working set
-   exceeds a card but the query rate does not need independent
-   replicas.
+   rank's shards, over this rank's device list, and every cross-shard
+   reduction is the rank's own reduction onto its primary device
+   followed by an explicit collective (``dist.all_reduce`` for the sums
+   the JAX package's ``psum`` does, ``dist.all_gather`` for its
+   per-shard ``all_gather``, parallel/stacked.py).  Every rank runs the
+   same requests in lockstep and holds the same answers.  Use it when
+   one index's working set exceeds a card but the query rate does not
+   need independent replicas.
 
 This module wires mode 2: ``init_distributed`` brings up the process
 group (the rendezvous the reference's gossip played for membership).
-The JAX package's ``global_mesh()`` has no counterpart: the group passed
-to the executor takes its role.
+The JAX package's ``global_mesh()`` — one shard axis over every
+process's devices — has no object of its own here: the group passed to
+the executor, with each rank's device list, takes its role, and the
+engine's shard axis is rank-major, then slot-major, as that mesh lays
+it out.
 
-Routes: with a card for every rank, each rank takes ``cuda:<local
-rank>`` and the group runs over NCCL (``chip_smoke.py`` phase
-``multiprocess`` on a host with two or more cards: two ranks on
-``cuda:0`` and ``cuda:1``); ranks that share one card run over gloo
-(the same phase on a one-card host).  A rank holds one device: a
-device mesh inside each rank (parallel/stacked.py) is not wired.
+Layouts: a rank holds one card (``device=None``: ``cuda:<local rank>``),
+or a list of devices whose first is its primary — several cards of its
+own (``[cuda:0, cuda:1]`` and ``[cuda:2, cuda:3]`` for two ranks on
+four cards), or slots of a card it shares (``[cuda:0, cuda:0]``), as a
+JAX process holds every local device.  Ranks with cards of their own
+run over NCCL, bound to each rank's primary (``chip_smoke.py`` phase
+``multiprocess`` on two or more cards); ranks that share one card run
+over gloo (the same phase on one card).  NCCL refuses two ranks whose
+primaries are one card, and its error stands: nothing falls back to
+gloo.
 """
 
 from __future__ import annotations
@@ -47,13 +55,19 @@ def init_distributed(coordinator: str, num_processes: int,
                      process_id: int, backend: str | None = None,
                      device=None):
     """Join the process group of ``num_processes`` ranks whose rank 0
-    listens on ``coordinator`` ("host:port"); returns (group, device).
+    listens on ``coordinator`` ("host:port"); returns (group, devices),
+    ``devices`` this rank's device list, its first the primary.
 
-    ``backend=None`` picks ``nccl`` with device ``cuda:<local rank>``
-    (one rank per GPU; the local rank is ``process_id`` modulo the cards
-    this host has), or ``gloo`` when ``device`` is ``"cpu"``.  Ranks that
-    share one card must pass ``backend="gloo"``: NCCL refuses two ranks
-    on one device.  Nothing falls back from one backend to the other."""
+    ``device``: None — one card a rank, ``cuda:<local rank>`` (the local
+    rank is ``process_id`` modulo the cards this host has); else any
+    spec ``executor.resolve_devices`` takes, such as one device or a
+    list of one type (``[cuda:2, cuda:3]``, ``["cpu"] * k``), which
+    ``Executor(device=devices, group=group)`` takes as the rank's mesh.
+    The primary becomes the current CUDA device, and NCCL binds to it.
+    ``backend=None`` picks ``nccl`` for CUDA devices and ``gloo`` for
+    CPU ones.  Ranks whose primaries share one card must
+    pass ``backend="gloo"``: NCCL refuses two ranks on one device, and
+    nothing falls back from one backend to the other."""
     import torch.distributed as dist
 
     if num_processes < 1:
@@ -68,14 +82,16 @@ def init_distributed(coordinator: str, num_processes: int,
                 "no CUDA device is present; pass device='cpu' to run the "
                 "ranks on the CPU over gloo")
         device = torch.device("cuda", process_id % n_cards)
-    device = torch.device(device)
+    from ..executor.executor import resolve_devices
+    devices = resolve_devices(device)
+    primary = devices[0]
     if backend is None:
-        backend = "gloo" if device.type == "cpu" else "nccl"
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
+        backend = "gloo" if primary.type == "cpu" else "nccl"
+    if primary.type == "cuda":
+        torch.cuda.set_device(primary)
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
-    return dist.group.WORLD, device
+    return dist.group.WORLD, devices
 
 
 def close_distributed():

@@ -58,7 +58,8 @@ primary and added per signature group in slot order, exactly (int64);
 its ``all_gather`` becomes ``_gather``: the blocks' per-shard outputs
 copied to the primary and concatenated in slot order, which is shard
 order.  A one-device list is the single-device path.  Under a process
-group (multi-process mode below) a rank holds one device.
+group (multi-process mode below) each rank holds such a list, its own
+mesh.
 
 Deviations from the JAX module, by design:
 
@@ -73,7 +74,8 @@ Deviations from the JAX module, by design:
 * Every compressed entry takes the fused kernel: the TPU's ``fits_vmem``
   rule does not apply on the card (ops/kernels.py).
 * ``stacked_per_device(n)`` is ``ceil(n / n_devices)``, the JAX
-  module's ``_bucket(n) // n_devices`` without the pow2 padding, and the
+  module's ``_bucket(n) // n_devices`` without the pow2 padding (under a
+  process group, the largest slot block of any rank: below), and the
   shard schedule keeps the JAX rule that no slice is cut below
   ``n_devices`` shards.  The executor reaches the reducers through the
   cross-query dispatch batcher (parallel/batcher.py), which serialises
@@ -113,30 +115,41 @@ Deviations from the JAX module, by design:
   It is serialized under ``_ov_lock`` (the JAX module takes its executor
   lock).
 
-Multi-process mode (``StackedExecutor(device, group=...)``, the JAX
-module's multi-process mesh, parallel/multihost.py): N ranks, each with
-its own card (or sharing one over gloo), hold the same shard set, each
-rank the data of its contiguous slice of the index's shards
-(``multihost.shard_range``; the other shards are empty placeholders).
-Every reducer stacks only this rank's shards of the requested set and
-ends in one fixed collective sequence, the same on every rank whatever
-its data: the JAX module's ``psum`` becomes ``dist.all_reduce(SUM)`` of
-the reduced partials, padded to one length agreed by an
-``all_reduce(MAX)`` of the ranks' lengths (``_all_sum``); its
-``all_gather`` of per-shard outputs becomes ``dist.all_gather`` of
+Multi-process mode (``StackedExecutor(devices, group=...)``, the JAX
+module's multi-process mesh over ``global_mesh()``, parallel/multihost.py):
+W ranks hold the same shard set, each rank the data of its contiguous
+slice of the index's shards (``multihost.shard_range``; the other shards
+are empty placeholders), and each rank a device list of its own — one
+card, several, or slots of a card it shares over gloo — as each JAX
+process holds its local devices.  Ranks may hold different slot counts.
+Every reducer stacks only this rank's shards of the requested set, cut
+into one block a slot of its list (``split_blocks``), so the engine's
+shard axis is rank-major, then slot-major, as the JAX global mesh lays
+it out.  Each reducer first reduces the rank's slots onto its primary
+(``_psum`` / ``_gather``, as one process does), then runs one fixed
+collective sequence from the primary, the same on every rank whatever
+its data, slot count or block count: the JAX module's ``psum`` becomes
+``dist.all_reduce(SUM)`` of the reduced partials, padded to one length
+agreed by an ``all_reduce(MAX)`` of the ranks' lengths (``_all_sum``);
+its ``all_gather`` of per-shard outputs becomes ``dist.all_gather`` of
 fixed-shape per-rank blocks (``segments``) or ``all_gather_object`` of
 the ragged per-shard extrema (``bsi_min_max``).  A rank that holds none
-of a group's shards joins the collectives with zeros.  Afterwards every
-rank holds the same answer.  As in the JAX module, the overlay refresh
-re-stages instead (a dense stack whose members journaled ingest since
-it was staged is rebuilt), and the over-budget shard schedule is off:
-one slice.  One deliberate deviation: the JAX module pins the dense
-form on a multi-process mesh, because one global SPMD array needs
-placeholder fragments of one shape.  Here there is no global array:
-each rank's stacks, ragged ``PackedStack`` ones included, hold only its
-own shards, so compressed-resident fragments stay compressed and
-``decode_block`` and ``fused_row_counts`` run in every rank.  The
-answers are the same.
+of a group's shards, or fewer than its slots, joins the collectives
+with zeros.  Afterwards every rank holds the same answer.  A grouped
+request's batch chunks each end in collectives, so every rank must cut
+them alike: ``stacked_per_device`` takes, given the request's shards,
+the largest slot block of any rank (``ceil(owned / slots)`` of each
+rank, from the ranks' slot counts gathered once, at the first such
+request).  As in the JAX module, the overlay refresh re-stages instead
+(a dense stack whose members journaled ingest since it was staged is
+rebuilt), and the over-budget shard schedule is off: one slice.  One
+deliberate deviation: the JAX module pins the dense form on a
+multi-process mesh, because one global SPMD array needs placeholder
+fragments of one shape.  Here there is no global array: each slot's
+stacks, ragged ``PackedStack`` ones included, hold only its rank's own
+shards, so compressed-resident fragments stay compressed and
+``decode_block`` and ``fused_row_counts`` run in every slot of every
+rank.  The answers are the same.
 """
 
 from __future__ import annotations
@@ -320,8 +333,6 @@ class StackedExecutor:
         # the mesh width: blocks a group is cut into, and the shard
         # schedule's minimum slice length
         self.n_devices = len(self.devices)
-        if group is not None and self.n_devices > 1:
-            raise ValueError("a rank of a process group holds one device")
         # multi-process mode (module docstring): this rank's place in
         # the process group; one rank is the single-process path
         self.group = group
@@ -331,6 +342,9 @@ class StackedExecutor:
             self.rank = dist.get_rank(group)
             self.world = dist.get_world_size(group)
         self.multiprocess = self.world > 1
+        # every rank's slot count, gathered at the first grouped request
+        # that sizes batch chunks (stacked_per_device)
+        self._rank_slots = None
         # (index, keys, shards) -> (gen token, groups): the stacked input
         # blocks, rebuilt only when a member fragment's data changes.
         # LRU-bounded, each entry charged to the device budget.
@@ -371,9 +385,24 @@ class StackedExecutor:
         stack_cache.clear()
         graphs.clear()
 
-    def stacked_per_device(self, n_shards: int) -> int:
-        """Stacked shards one device's launch covers for ``n_shards``:
-        its block of the shard axis, ``ceil(n / n_devices)``."""
+    def stacked_per_device(self, n_shards: int, holder=None, index=None,
+                           shards=None) -> int:
+        """Stacked shards one slot's launch covers for ``n_shards``: its
+        block of the shard axis, ``ceil(n / n_devices)``.  Under a
+        process group, given the request's ``shards`` of ``index``, the
+        largest block of any rank: ``ceil(owned / slots)`` of each rank's
+        own shards and slot count.  Every rank computes it alike, so
+        every rank cuts a batched group into the same chunks and issues
+        the same collectives; the first call is a collective itself (the
+        ranks' slot counts)."""
+        if self.multiprocess and shards is not None:
+            if self._rank_slots is None:
+                self._rank_slots = self.gather_objects(self.n_devices)
+            owned = [0] * self.world
+            for r in self._owners(holder, index, shards):
+                owned[r] += 1
+            return max(1, max(-(-o // k) for o, k
+                              in zip(owned, self._rank_slots)))
         return max(1, -(-n_shards // self.n_devices))
 
     def slot_bytes(self) -> list[int]:
@@ -522,9 +551,12 @@ class StackedExecutor:
     def _all_sum(self, parts, lead: tuple, ragged: bool = True,
                  keep_last: bool = False) -> list:
         """The multi-process end of an additive reducer: this rank's
-        parts (``lead`` + a last axis of per-part length when ``ragged``)
-        summed into one block, zero-padded to the longest last axis of
-        any rank, and ``all_reduce``-summed.  ``keep_last``: the last
+        parts (``lead`` + a last axis of per-part length when ``ragged``),
+        each already reduced over the rank's slots onto its primary
+        (``_psum``), summed into one block on the primary, zero-padded to
+        the longest last axis of any rank, and ``all_reduce``-summed from
+        the primary (the collective waits on the primary's current
+        stream, which waits on each slot's copy).  ``keep_last``: the last
         entry of the last axis stays last (a BSI sum's not-null count
         after its magnitude bits).  Returns the reduced block as the
         reducer's one part; no part when every rank's last axis is
@@ -552,7 +584,8 @@ class StackedExecutor:
     def _gather_shards(self, out: dict, holder, index, shards,
                        tail: tuple) -> dict:
         """The multi-process end of a per-shard reducer: this rank's
-        ``{shard: host uint32 [*tail]}`` rows, gathered as one fixed
+        ``{shard: host uint32 [*tail]}`` rows (its slots' outputs
+        already gathered in slot order, ``_gather``), gathered as one fixed
         ``[K, *tail]`` block a rank (K: the most shards any rank owns of
         ``shards``, which every rank computes alike) and spread back to
         ``{shard: rows}`` over every requested shard."""
@@ -729,7 +762,8 @@ class StackedExecutor:
         ``placed_per_key[i]`` is None when key i's fragment is absent in
         the whole group, a ``PackedStack`` for a compressed entry, else
         the dense ``[S, rows, W]`` stack.  In multi-process mode only
-        this rank's shards of ``shards`` are stacked."""
+        this rank's shards of ``shards`` are stacked, cut over this
+        rank's slots."""
         shards = self.owned(holder, index, shards)
         frags, token, epochs = self._stack_token(keys, holder, index, shards)
         ckey = (index, tuple(keys), tuple(shards))

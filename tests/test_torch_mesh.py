@@ -422,9 +422,38 @@ def test_resolve_devices_on_lists_cpu_and_missing_cards(monkeypatch):
         resolve_devices(["cuda"])                  # cards by index
 
 
-def test_a_rank_of_a_process_group_holds_one_device():
-    with pytest.raises(ValueError, match="one device"):
-        StackedExecutor(["cpu", "cpu"], group=object())
+def test_a_rank_of_a_process_group_holds_one_device(monkeypatch):
+    """A rank of a process group holds one device list, its own mesh: it
+    stacks only its own shards, cut over its slots, and sizes batch
+    chunks by the largest slot block of any rank.  Rank 1 of 2 here,
+    with 3 slots against rank 0's 1; the collectives are stood in
+    for."""
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    gathered = []
+
+    def all_gather_object(out, obj, group=None):
+        gathered.append(obj)
+        out[:] = [1, obj]
+
+    monkeypatch.setattr(dist, "all_gather_object", all_gather_object)
+    h = Holder(None)
+    f = h.create_index("i", track_existence=False).create_field("f")
+    f.import_bits([1] * 8, [s * SHARD_WIDTH + 5 for s in range(8)])
+    st = StackedExecutor(["cpu"] * 3, group=object())
+    try:
+        assert st.multiprocess and st.n_devices == 3
+        blocks = st._placed_groups([("f", "standard")], h, "i",
+                                   list(range(8)))
+        assert [(b[0], b.slot) for b in blocks] == \
+            [([4, 5], 0), ([6], 1), ([7], 2)]
+        # rank 0's 4 shards in its one slot, then rank 1's 4 over 3
+        assert st.stacked_per_device(8, h, "i", list(range(8))) == 4
+        assert st.stacked_per_device(4, h, "i", list(range(4, 8))) == 2
+        assert gathered == [3]          # the slot counts, gathered once
+    finally:
+        st.close()
 
 
 def test_launch_counts_by_card_and_slot():
