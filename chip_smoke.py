@@ -1654,12 +1654,6 @@ def served_wq(srv, label: str, replays: bool) -> dict:
 WARM_SIGNATURES = 4            # requests of the warm-start mix, each its own
 #                                signature, sent twice from one client
 SLO_LOAD_S = 5.0               # seconds of compressed mix in the SLO leg
-# The warm restart's replay budget.  The compressed replay re-packs every
-# fragment on the host first and took 24.6-33.3 s between calls on the
-# card (one host against another), around the server's 30 s default,
-# past which the replayer skips the rest by design; the phase checks
-# that the whole corpus replays, so it gives the replay room.
-WARM_BUDGET_S = 120.0
 PR5_DENSE_PAD_PCT = 19.5       # dense replay p50 over eager, PR 5 (PERF.md)
 
 
@@ -1776,8 +1770,7 @@ def warm_leg(data_dir: str, hist, tab, device, n_shards: int,
     rec["corpus_entries"] = len(folded)
 
     t0 = time.perf_counter()
-    srv = start_server(data_dir, device, warmup_budget_s=WARM_BUDGET_S,
-                       **kw)
+    srv = start_server(data_dir, device, **kw)
     try:
         ready_s, seen = wait_ready(srv, t0)
         wq = srv.api.executor.wholequery

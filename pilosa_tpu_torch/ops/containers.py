@@ -16,7 +16,10 @@ covers ``CONTAINER_WORDS`` = 2048 words = 2^16 bits):
 
 Copied from the JAX module: the host codec (``pow2_bucket``, ``Packed``,
 ``pack_words``, ``estimate_packed_bytes``, ``unpack_packed`` — the numpy
-decode oracle — and ``pad_packed``).  New here: ``PackedStack``, the
+decode oracle — and ``pad_packed``).  ``pack_words`` is vectorised over
+the whole fragment here, where the JAX module loops over containers; its
+output is the JAX module's to the byte (same forms, tables, payload and
+dtypes).  New here: ``PackedStack``, the
 ragged layout both CUDA kernels take (ops/kernels.py), its host builder
 ``stack_packed``, ``decode_block``, the plain PyTorch decode that is the
 plain version of the CUDA decode kernel, and ``upload_decode`` over
@@ -96,18 +99,14 @@ class Packed:
                 "run": int(np.count_nonzero(t == TYPE_RUN))}
 
 
-def _bit_runs(dense_words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """([starts], [ends]) of the set-bit runs of one container's 2048
-    words, bit-level [start, end) within the 2^16-bit span."""
-    bits = np.unpackbits(dense_words.view(np.uint8), bitorder="little")
-    d = np.diff(bits.astype(np.int8))
-    starts = np.nonzero(d == 1)[0] + 1
-    ends = np.nonzero(d == -1)[0] + 1
-    if bits[0]:
-        starts = np.concatenate(([0], starts))
-    if bits[-1]:
-        ends = np.concatenate((ends, [bits.size]))
-    return starts, ends
+def _bit_positions(masks: np.ndarray, slots: np.ndarray) -> np.ndarray:
+    """Bit positions within their container of the set bits of
+    ``masks`` (uint32 words at container word ``slots``), in word order
+    then bit order."""
+    bits = np.unpackbits(masks.view(np.uint8).reshape(-1, 4), axis=1,
+                         bitorder="little")
+    row, bit = np.nonzero(bits)
+    return slots[row].astype(np.int64) * WORD_BITS + bit
 
 
 def estimate_packed_bytes(idx: np.ndarray) -> int:
@@ -125,60 +124,73 @@ def pack_words(idx: np.ndarray, val: np.ndarray) -> Packed:
     """Pack a fragment's sparse word store (sorted flat indices + word
     values, storage/fragment.py) into a container stream, choosing the
     cheapest form per container (the optimize heuristic of
-    roaring.go:2232, word-granular)."""
+    roaring.go:2232, word-granular).
+
+    Whole-fragment numpy passes over the stored words, no loop over
+    containers.  A container is a run container when its word-run count
+    (slot-adjacent groups of stored words, the JAX module's candidacy
+    prefilter) and its bit-run count are both at most RUN_MAX and 2 x
+    its bit runs undercut min(2 x words, CONTAINER_WORDS); else an array
+    container up to ARRAY_WORDS_MAX words; else a bitmap.  Bit runs are
+    found word by word: a word's run starts are its set bits whose lower
+    neighbour is clear, the neighbour of bit 0 being the top bit of the
+    slot-adjacent stored word below it (clear at a container's edge or
+    past a gap); run ends likewise from above."""
     cid = idx // CONTAINER_WORDS
     uniq, start, cnt = np.unique(cid, return_index=True,
                                  return_counts=True)
-    C = uniq.size
     keys = uniq.astype(np.int32)
-    types = np.empty(C, dtype=np.int32)
-    counts = np.empty(C, dtype=np.int32)
-    offsets = np.empty(C, dtype=np.int32)
-    parts: list[np.ndarray] = []
-    off = 0
-    a_max = r_max = 0
-    for i in range(C):
-        a, n = int(start[i]), int(cnt[i])
-        w_off = (idx[a: a + n] % CONTAINER_WORDS).astype(np.uint32)
-        w_val = val[a: a + n]
-        ctype = -1
-        dense = None
-        # bit-run candidacy prefilter: every gap between non-adjacent
-        # stored words forces a separate bit run, so the word-run count
-        # lower-bounds the bit-run count — skip the unpackbits scan when
-        # it already exceeds RUN_MAX
-        if int(np.count_nonzero(np.diff(w_off.astype(np.int64)) != 1)) \
-                + 1 <= RUN_MAX:
-            dense = np.zeros(CONTAINER_WORDS, dtype=np.uint32)
-            dense[w_off] = w_val
-            starts_b, ends_b = _bit_runs(dense)
-            nr = starts_b.size
-            if nr <= RUN_MAX and 2 * nr < min(2 * n, CONTAINER_WORDS):
-                ctype = TYPE_RUN
-                pl = np.empty(2 * nr, dtype=np.uint32)
-                pl[0::2] = starts_b
-                pl[1::2] = ends_b
-                counts[i] = nr
-                r_max = max(r_max, nr)
-        if ctype < 0:
-            if n <= ARRAY_WORDS_MAX:
-                ctype = TYPE_ARRAY
-                pl = np.concatenate([w_off, w_val])
-                counts[i] = n
-                a_max = max(a_max, n)
-            else:
-                ctype = TYPE_BITMAP
-                if dense is None:
-                    dense = np.zeros(CONTAINER_WORDS, dtype=np.uint32)
-                    dense[w_off] = w_val
-                pl = dense
-                counts[i] = CONTAINER_WORDS
-        types[i] = ctype
-        offsets[i] = off
-        parts.append(pl)
-        off += pl.size
-    payload = np.concatenate(parts) if parts \
-        else np.zeros(0, dtype=np.uint32)
+    if keys.size == 0:
+        e = np.empty(0, dtype=np.int32)
+        return Packed(keys, e, e.copy(), e.copy(),
+                      np.zeros(0, dtype=np.uint32), 0, 0)
+    seg = np.repeat(np.arange(keys.size), cnt)  # container of each word
+    slot = (idx % CONTAINER_WORDS).astype(np.uint32)
+    w = val.astype(np.uint32)  # the words as a bitmap container holds them
+    # adj[j]: stored word j sits in the slot right after word j - 1's
+    adj = np.zeros(idx.size, dtype=bool)
+    adj[1:] = (np.diff(idx) == 1) & (slot[1:] != 0)
+    below = np.zeros_like(w)
+    below[1:] = np.where(adj[1:], w[:-1] >> 31, 0)
+    above = np.zeros_like(w)
+    above[:-1] = np.where(adj[1:], w[1:] << 31, 0)
+    begins = w & ~((w << 1) | below)
+    ends = w & ~((w >> 1) | above)
+    word_runs = np.add.reduceat((~adj).astype(np.int64), start)
+    nr = np.add.reduceat(np.bitwise_count(begins).astype(np.int64), start)
+    n = cnt.astype(np.int64)
+    is_run = (word_runs <= RUN_MAX) & (nr <= RUN_MAX) & \
+        (2 * nr < np.minimum(2 * n, CONTAINER_WORDS))
+    is_arr = ~is_run & (n <= ARRAY_WORDS_MAX)
+    is_bmp = ~is_run & ~is_arr
+    types = np.where(is_run, TYPE_RUN,
+                     np.where(is_arr, TYPE_ARRAY, TYPE_BITMAP)
+                     ).astype(np.int32)
+    size = np.where(is_run, 2 * nr,
+                    np.where(is_arr, 2 * n, CONTAINER_WORDS))
+    counts = np.where(is_bmp, CONTAINER_WORDS, size // 2).astype(np.int32)
+    off = np.cumsum(size) - size
+    offsets = off.astype(np.int32)
+    # the JAX module concatenates the array containers' raw word values
+    # into the payload, so their dtype promotes it
+    dtype = np.result_type(np.uint32, val.dtype) if is_arr.any() \
+        else np.uint32
+    payload = np.zeros(int(off[-1] + size[-1]), dtype=dtype)
+    base = off[seg]
+    m = is_bmp[seg]
+    payload[base[m] + slot[m]] = w[m]
+    m = is_arr[seg]
+    rank = np.arange(idx.size) - start[seg]
+    payload[base[m] + rank[m]] = slot[m]
+    payload[(base + n[seg] + rank)[m]] = val[m]
+    m = is_run[seg]
+    pairs = np.repeat(off[is_run] - 2 * (np.cumsum(nr[is_run]) -
+                                         nr[is_run]), nr[is_run])
+    pairs += 2 * np.arange(pairs.size)
+    payload[pairs] = _bit_positions(begins[m], slot[m])
+    payload[pairs + 1] = _bit_positions(ends[m], slot[m]) + 1
+    a_max = int(n[is_arr].max()) if is_arr.any() else 0
+    r_max = int(nr[is_run].max()) if is_run.any() else 0
     return Packed(keys, types, counts, offsets, payload, a_max, r_max)
 
 

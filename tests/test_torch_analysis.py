@@ -24,6 +24,7 @@ import textwrap
 from pathlib import Path
 
 import pytest
+import torch
 
 from pilosa_tpu.analysis import astlint as jax_astlint
 from pilosa_tpu_torch import cli as port_cli
@@ -37,6 +38,17 @@ from pilosa_tpu_torch.analysis.astlint import (
 REPO_ROOT = Path(__file__).resolve().parents[1]
 PORT_REL = "pilosa_tpu_torch/executor/snippet.py"
 JAX_REL = "pilosa_tpu/executor/snippet.py"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def lint(src, *rules, rel=PORT_REL):

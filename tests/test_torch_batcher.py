@@ -37,6 +37,17 @@ from pilosa_tpu_torch.utils.deadline import (  # noqa: E402
     DeadlineExceeded, QueryContext)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fill(h, field_options):
     rng = np.random.default_rng(11)
     idx = h.create_index("b", track_existence=False)

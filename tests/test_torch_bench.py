@@ -45,6 +45,17 @@ SIZES = baseline.Sizes(star_per_row=30_000, lang_shards=2, lang_bits=40_000,
 SEED = 7
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_build_indexes(h, rng, sizes: baseline.Sizes):
     """bench.py ``build_indexes`` (:129-176) on a JAX holder, its loop
     copied with the sizes as arguments (the function itself takes

@@ -22,6 +22,7 @@ Every answer comparison is exact.
 """
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -43,13 +44,19 @@ SHARDS_5D = 8
 
 @pytest.fixture(scope="module", autouse=True)
 def two_threads():
-    """Two intra-op threads: the legs' client and server threads each
-    run torch ops, and beside other test workers a full pool per thread
-    spins against the rest."""
-    n = torch.get_num_threads()
+    """Two intra-op threads, here and in the worker processes the legs
+    spawn: the legs' client and server threads each run torch ops, and
+    beside other test workers a full pool per thread spins against the
+    rest."""
+    n, omp = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(2)
+    os.environ["OMP_NUM_THREADS"] = "2"
     yield
     torch.set_num_threads(n)
+    if omp is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
 
 
 # -- copies of bench.py's draws ---------------------------------------------------

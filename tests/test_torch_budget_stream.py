@@ -51,6 +51,17 @@ MB = 1 << 20
 # The query generator of tests/test_differential.py (``gen_bitmap`` and
 # ``gen_query``), copied so that this file imports no JAX test module:
 # the same rng calls in the same order, so a seed gives the same queries.
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def gen_bitmap(rng, depth=0):
     choice = rng.integers(0, 8 if depth < 2 else 4)
     if choice == 0:

@@ -26,10 +26,21 @@ import urllib.request
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from pilosa_tpu_torch.core import SHARD_WIDTH  # noqa: E402
 from pilosa_tpu_torch.server.server import Config, Server  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _free_ports(n: int) -> list[int]:

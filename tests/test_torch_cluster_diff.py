@@ -17,7 +17,7 @@ import urllib.request
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from pilosa_tpu.executor import Executor as JaxExecutor  # noqa: E402
 from pilosa_tpu.parallel.cluster import Cluster as JaxCluster  # noqa: E402
@@ -36,6 +36,17 @@ from test_torch_cluster import (  # noqa: E402, F401
     restore_knobs)
 
 HOSTS = ["localhost:1", "localhost:2", "localhost:3"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture

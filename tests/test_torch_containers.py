@@ -31,6 +31,17 @@ WORDS = 2 * CW          # two container tiles per row
 ROWS = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def pallas():
     """The JAX kernels' backend knob forced to "pallas" for one test."""
@@ -351,3 +362,175 @@ def test_plain_decode_matches_pallas_on_a_bsi_fragment(pallas):
     st = tc.stack_packed(packs, tc.tiles_of(rows, WORDS), "cpu")
     got = tk.decode_block(*st, rows=rows, words=WORDS)
     assert np.array_equal(tb.to_numpy(got), np.stack(dense))
+
+
+# -- the vectorised pack against the JAX module's loop --------------------------
+
+SWEEP_WORDS = 4 * CW    # four container tiles per row
+
+
+def _same_pack(idx, val, rows, words, dense=None):
+    """The port's pack equals the JAX module's field by field, dtypes
+    and Python types included, and decodes back to the dense words.
+    Returns the port's pack."""
+    p, q = tc.pack_words(idx, val), jc.pack_words(idx, val)
+    for f in ("keys", "types", "counts", "offsets", "payload"):
+        a, b = getattr(p, f), getattr(q, f)
+        assert a.dtype == b.dtype, (f, a.dtype, b.dtype)
+        assert np.array_equal(a, b), f
+    assert (p.a_max, p.r_max) == (q.a_max, q.r_max)
+    assert (type(p.a_max), type(p.r_max)) == (type(q.a_max), type(q.r_max))
+    if dense is None:
+        dense = np.zeros(rows * words, dtype=np.uint32)
+        dense[idx] = val
+    assert np.array_equal(tc.unpack_packed(p, rows, words),
+                          dense.reshape(rows, words))
+    return p
+
+
+def _sweep_store(seed, density, rows, form):
+    """(idx int64, val uint32) of a seeded sparse store over ``rows`` x
+    SWEEP_WORDS.  ``random``: each word kept with probability
+    ``density``, random values, a tenth of them zero.  ``run_heavy``:
+    each kept word starts a stretch of all-ones words (some cut
+    mid-word), so containers hold few bit runs.  ``bitmap_heavy``: every
+    container the random store touches is filled past ARRAY_WORDS_MAX
+    words."""
+    rng = np.random.default_rng(seed)
+    size = rows * SWEEP_WORDS
+    keep = rng.random(size) < density
+    val = rng.integers(0, 1 << 32, size=size, dtype=np.uint64) \
+        .astype(np.uint32)
+    val[rng.random(size) < 0.1] = 0
+    if form == "run_heavy":
+        ones = np.zeros(size + 1, dtype=np.int64)
+        at = np.flatnonzero(keep)
+        np.add.at(ones, at, 1)
+        np.add.at(ones, np.minimum(at + rng.integers(1, 400, at.size),
+                                   size), -1)
+        keep = np.cumsum(ones[:-1]) > 0
+        val[:] = 0xFFFFFFFF
+        edge = keep & (rng.random(size) < 0.02)
+        val[edge] = np.uint32(0xFFFF0000)
+    elif form == "bitmap_heavy":
+        touched = np.unique(np.flatnonzero(keep) // CW)
+        tile = np.zeros(size // CW, dtype=bool)
+        tile[touched] = True
+        keep |= np.repeat(tile, CW) & (rng.random(size) < 0.7)
+    idx = np.flatnonzero(keep).astype(np.int64)
+    return idx, val[idx]
+
+
+@pytest.mark.parametrize("form", ["random", "run_heavy", "bitmap_heavy"])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("density", [0.002, 0.01, 0.2, 0.6, 1.0])
+def test_pack_sweep_matches_jax(density, rows, form):
+    seed = int(density * 1e4) * 100 + rows
+    idx, val = _sweep_store(seed, density, rows, form)
+    assert idx.size
+    hist = _same_pack(idx, val, rows, SWEEP_WORDS).type_histogram()
+    if form == "run_heavy":
+        assert hist["run"] > 0, hist
+    if form == "bitmap_heavy":
+        assert hist["bitmap"] > 0, hist
+
+
+def _runs_by_bits(n_words, n_runs):
+    """One stretch of ``n_words`` slot-adjacent all-ones words (one word
+    run) cut into ``n_runs`` bit runs by clearing bit 0 of n_runs - 1
+    words spread along it."""
+    v = np.full(n_words, 0xFFFFFFFF, dtype=np.uint32)
+    v[np.linspace(1, n_words - 1, n_runs - 1).astype(np.int64)] = \
+        np.uint32(0xFFFFFFFE)
+    return 3 * CW + np.arange(n_words, dtype=np.int64), v
+
+
+def _boundary_stores():
+    """name -> (idx, val, form the pack must choose per container)."""
+    rng = np.random.default_rng(13)
+    i64 = np.int64
+
+    def array_of(tile, n):
+        slots = np.sort(rng.choice(CW, n, replace=False))
+        return (tile * CW + slots).astype(i64), _rand_words(rng, n)
+
+    tie = 2 * CW + np.arange(40, dtype=i64)
+    return {
+        "empty": (np.zeros(0, i64), np.zeros(0, np.uint32), []),
+        "zero_words_in_array": (
+            np.array([5, 9, 700, 701, 1500], i64),
+            np.array([0, 0x55, 0, 0xFFFFFFFF, 3], np.uint32), ["array"]),
+        "zero_words_only": (np.array([5, 9, 13], i64),
+                            np.zeros(3, np.uint32), ["run"]),
+        # no bit run, but more word runs than the prefilter lets through
+        "zero_words_past_the_word_run_count": (
+            2 * np.arange(tc.RUN_MAX + 1, dtype=i64),
+            np.zeros(tc.RUN_MAX + 1, np.uint32), ["array"]),
+        "bit_0_and_bit_65535": (
+            np.array([CW, 2 * CW - 1], i64),
+            np.array([1, 0x80000000], np.uint32), ["array"]),
+        "runs_at_bit_0_and_bit_65535": (
+            CW + np.array([0, 1, 2, CW - 3, CW - 2, CW - 1], i64),
+            np.full(6, 0xFFFFFFFF, np.uint32), ["run"]),
+        "run_across_containers": (
+            np.arange(CW - 100, CW + 100, dtype=i64),
+            np.full(200, 0xFFFFFFFF, np.uint32), ["run", "run"]),
+        "word_runs_64": _run_container(1, tc.RUN_MAX) + (["run"],),
+        "word_runs_65": _run_container(1, tc.RUN_MAX + 1) + (["array"],),
+        "bit_runs_64": _runs_by_bits(200, tc.RUN_MAX) + (["run"],),
+        "bit_runs_65": _runs_by_bits(200, tc.RUN_MAX + 1) + (["array"],),
+        "tie_is_not_a_run": (tie, np.full(40, 0x00FF0000, np.uint32),
+                             ["array"]),
+        "array_words_max": array_of(0, tc.ARRAY_WORDS_MAX) + (["array"],),
+        "array_words_max_plus_1": array_of(1, tc.ARRAY_WORDS_MAX + 1)
+        + (["bitmap"],),
+        "full_container": (np.arange(CW, dtype=i64) + 5 * CW,
+                           np.full(CW, 0xFFFFFFFF, np.uint32), ["run"]),
+        # int64 word values promote the payload as the JAX concatenate does
+        "int64_values": (np.array([3, 9, CW + 1, CW + 2, CW + 3], i64),
+                         np.array([7, 1, 0xF0, 0x0F, 0xFFFFFFFF], i64),
+                         ["array", "array"]),
+    }
+
+
+BOUNDARY = _boundary_stores()
+FORM_NAMES = {tc.TYPE_ARRAY: "array", tc.TYPE_BITMAP: "bitmap",
+              tc.TYPE_RUN: "run"}
+
+
+@pytest.mark.parametrize("name", sorted(BOUNDARY))
+def test_pack_boundary_matches_jax(name):
+    idx, val, forms = BOUNDARY[name]
+    p = _same_pack(idx, val, ROWS, WORDS)
+    assert [FORM_NAMES[int(t)] for t in p.types] == forms
+    if not forms:
+        assert p.payload.dtype == np.uint32 and p.payload.size == 0
+        assert (p.a_max, p.r_max) == (0, 0)
+
+
+@pytest.mark.parametrize("route", ["fragment", "qwire"])
+def test_pack_of_int64_stores_matches_jax(route):
+    """The two callers' stores: a port Fragment's sorted int64 word
+    indices (storage/fragment.py) and the binary wire's
+    ``np.flatnonzero`` of one segment, cast to int64 (qwire.py)."""
+    from pilosa_tpu_torch.core import SHARD_WORDS
+    rows = 3
+    idx, val = _sweep_store(29, 0.02, rows * SHARD_WORDS // SWEEP_WORDS,
+                            "run_heavy")
+    dense = np.zeros(rows * SHARD_WORDS, dtype=np.uint32)
+    dense[idx] = val
+    if route == "fragment":
+        from pilosa_tpu_torch.storage import Holder
+        f = Holder(None).create_index("i").create_field("f")
+        fr = f._create_view_if_not_exists("standard") \
+            .create_fragment_if_not_exists(0)
+        for r in range(rows):
+            fr.set_row(r, dense[r * SHARD_WORDS: (r + 1) * SHARD_WORDS])
+        idx, val = fr._idx, fr._val
+        assert idx.dtype == np.int64
+        p = _same_pack(idx, val, rows, SHARD_WORDS, dense)
+        assert np.array_equal(fr.packed_host().payload, p.payload)
+    else:
+        idx = np.flatnonzero(dense)
+        _same_pack(idx.astype(np.int64), dense[idx], rows, SHARD_WORDS,
+                   dense)

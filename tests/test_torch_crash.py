@@ -102,6 +102,7 @@ class _Harness:
         env["PYTHONPATH"] = os.pathsep.join(
             [repo_root] + [p for p in
                            env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        env["OMP_NUM_THREADS"] = "2"  # as the test workers' own torch
         self.proc = subprocess.Popen(
             [sys.executable, WORKER, self.data_dir,
              f"localhost:{self.port}", str(MAX_OP_N), spec],

@@ -50,6 +50,17 @@ from test_observability import _parse_prometheus  # noqa: E402
 from test_torch_server import restore_knobs  # noqa: E402, F401
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 class _EventLogger:
     """Collects Logger.event calls (the structured retrace lines)."""
 

@@ -24,7 +24,7 @@ import urllib.request
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from pilosa_tpu.storage import fragment as jfragment  # noqa: E402
 from pilosa_tpu.storage import roaring_io as jroaring  # noqa: E402
@@ -48,6 +48,17 @@ from test_torch_cluster_obs import Config  # noqa: E402
 
 
 SHARD_WORDS = SHARD_WIDTH // 32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _mk_fragment(path, cls=Fragment, **kw):

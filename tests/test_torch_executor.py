@@ -43,6 +43,17 @@ N_SSB_SHARDS = 3
 N_QUERIES = 24
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(params=["dense", "compressed"])
 def residency(request):
     """Dense-resident (no device budget) or compressed-resident (a budget

@@ -44,6 +44,17 @@ N_SHARDS = 3
 _ = restore_knobs  # the autouse fixture, re-exported into this module
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _records(rng, n, rows=6, shards=N_SHARDS):
     return (rng.integers(0, rows, size=n),
             rng.integers(0, shards * SHARD_WIDTH, size=n))

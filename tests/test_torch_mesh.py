@@ -54,6 +54,17 @@ N_SHARDS = 11            # test_parallel's count: not a multiple of 3 or 8
 N_QUERIES = 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_of(jh) -> Holder:
     """The port holder of the JAX holder's arrays (convert.py)."""
     return holder_from_arrays(*_arrays_of_jax_holder(jh))

@@ -24,7 +24,7 @@ import urllib.request
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from pilosa_tpu.server import server as jax_server  # noqa: E402
 from pilosa_tpu_torch.core import SHARD_WIDTH  # noqa: E402
@@ -36,6 +36,17 @@ from test_torch_cluster import (  # noqa: E402, F401
     _free_ports, _req, close_all, cluster3, make_cluster, query,
     restore_knobs, setup_index)
 from test_torch_cluster_diff import jax_knobs  # noqa: E402, F401
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _owned_frag_count(srv, index="ci"):

@@ -50,6 +50,17 @@ N_SHARDS = 3
 # -- process-wide state ----------------------------------------------------
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _knobs():
     """Every module global a Server of either package sets: both
     packages' budgets, fragment codec flags, batch and ingest limits,

@@ -39,6 +39,17 @@ QUERIES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fill(holder, field_options):
     """The same writes into a JAX or a port holder (both expose the same
     storage API): a set field, a mutex field, a time field, an int field

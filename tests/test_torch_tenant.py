@@ -24,7 +24,7 @@ import urllib.request
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from pilosa_tpu_torch.cache.results import ResultCache  # noqa: E402
 from pilosa_tpu_torch.core import SHARD_WIDTH  # noqa: E402
@@ -47,6 +47,17 @@ N_SHARDS = 8
 
 
 # -- token grammar + weights spec (fuzz contract) ---------------------------
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 
 def test_validate_token_accepts_metrics_safe_names():
     for tok in ("a", "acme", "tenant-7", "a.b_c-d", "X9", "a" * 64):

@@ -46,6 +46,17 @@ from pilosa_tpu_torch.storage.membudget import DEFAULT_BUDGET  # noqa: E402
 N_SHARDS = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: beside the other test workers on the same
+    cores, a full pool of torch threads per worker spins against the
+    rest and a case runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fill(h, field_options):
     rng = np.random.default_rng(99)
     idx = h.create_index("w")
