@@ -274,3 +274,134 @@ def test_wrong_oracle_fails_the_run(monkeypatch, capsys):
 def test_profile_needs_a_card():
     with pytest.raises(SystemExit):
         bench.parse_args(["--device", "cpu", "--profile"])
+
+
+# -- the two timing gates: paired rounds, warm-up, the servers' counters -------
+
+def _runs(scales: list, n: int = 64) -> list:
+    """Closed-loop runs [(wall s, per-request s)] whose requests spread
+    evenly over 30-50 ms, each run's scaled by its factor."""
+    lat = np.linspace(0.030, 0.050, n)
+    return [(float((lat * f).sum()), list(lat * f)) for f in scales]
+
+
+def test_round_order_alternates():
+    """Round k runs the two modes in turn: a, b, then b, a."""
+    orders = [bench.round_order(k, ("base", "obs")) for k in range(4)]
+    assert orders == [("base", "obs"), ("obs", "base")] * 2
+
+
+def test_paired_overhead_ignores_a_drift_on_one_server():
+    """A slow spell of the host over three of the observed server's eight
+    runs moves the pooled median request past the 5% bound; the median
+    of the rounds' overheads stays at the servers' true 0%."""
+    base = _runs([1.0] * 8)
+    obs = _runs([2.0, 2.0, 2.0] + [1.0] * 5)
+    pooled = 100.0 * (1.0 - bench.runs_record(base, 1, 16)["p50_ms"]
+                      / bench.runs_record(obs, 1, 16)["p50_ms"])
+    assert pooled > bench.OBS_OVERHEAD_MAX_PCT
+    paired = bench.paired_rounds(base, obs, bench.p50_overhead_pct)
+    assert paired["rounds"][:3] == [pytest.approx(50.0)] * 3
+    assert paired["median"] == pytest.approx(0.0, abs=1e-9)
+
+
+def test_paired_overhead_fails_a_true_six_percent():
+    """A 6% slower observed server in every round fails the bound,
+    whatever the host's drift over the rounds."""
+    drift = [1.0, 1.1, 0.9, 1.3, 1.0, 0.95, 1.2, 1.05]
+    base = _runs(drift)
+    obs = _runs([1.06 * f for f in drift])
+    paired = bench.paired_rounds(base, obs, bench.p50_overhead_pct)
+    assert paired["median"] == pytest.approx(100.0 * (1 - 1 / 1.06))
+    assert paired["median"] > bench.OBS_OVERHEAD_MAX_PCT
+
+
+def test_paired_qps_ratio_against_the_best_run():
+    """One fast run of the evaluation-off server drops the best-run
+    ratio under 0.95; the median of the rounds' ratios holds.  A true 6%
+    cost in every round fails it."""
+    on = _runs([1.0] * 6)
+    off = _runs([1.0] * 5 + [1 / 1.1])
+    best = bench.runs_record(on, 1, 1)["qps"] / \
+        bench.runs_record(off, 1, 1)["qps"]
+    assert best < bench.SLO_QPS_RATIO_MIN
+    paired = bench.paired_rounds(on, off, bench.rate_ratio)
+    assert paired["median"] == pytest.approx(1.0)
+    slow = bench.paired_rounds(_runs([1 / 0.94] * 6), _runs([1.0] * 6),
+                               bench.rate_ratio)
+    assert slow["median"] == pytest.approx(0.94)
+    assert slow["median"] < bench.SLO_QPS_RATIO_MIN
+    with pytest.raises(ValueError):
+        bench.paired_rounds(on, off[:5], bench.rate_ratio)
+
+
+class _Registry:
+    """A stand-in server: ``stats()`` reports the captures its rounds
+    added so far (``plan[k]`` in round k)."""
+
+    def __init__(self, plan):
+        self.plan, self.captures = plan, 0
+
+    def stats(self):
+        return {"captures": self.captures}
+
+
+def test_warm_until_steady_stops_at_a_round_without_capture():
+    servers = {"a": _Registry([3, 1, 0, 5]), "b": _Registry([2, 0, 0, 5])}
+    rounds = []
+
+    def warm_round(k):
+        rounds.append(k)
+        for sp in servers.values():
+            sp.captures += sp.plan[k]
+
+    assert bench.warm_until_steady("t", servers, warm_round) == 3
+    assert rounds == [0, 1, 2]
+
+
+def test_warm_until_steady_raises_past_its_bound():
+    servers = {"a": _Registry([1] * 99), "b": _Registry([0] * 99)}
+    rounds = []
+
+    def warm_round(k):
+        rounds.append(k)
+        for sp in servers.values():
+            sp.captures += sp.plan[k]
+
+    with pytest.raises(bench.LegFailed, match="still captured"):
+        bench.warm_until_steady("t", servers, warm_round)
+    assert rounds == list(range(bench.WARM_ROUNDS_MAX))
+
+
+def test_serve_worker_stats_line():
+    """A SERVE_WORKER's ``stats`` line: SLO evaluations and every
+    counter the timing legs difference, which move with the server's
+    work — launches with queries, bundles with ``POST /debug/bundle``,
+    CPU seconds with both."""
+    modes = {"on": dict(alert_rules="all", timeseries_interval=0.05,
+                        timeseries_window=30),
+             "off": dict(alert_rules="off")}
+    with bench.server_processes("t", "cpu", modes) as sps:
+        before = bench.server_counters(sps)
+        for sp in sps.values():
+            bench.load_set(sp.port, "t", "a", [1, 1, 2], [3, 70_000, 5])
+            for _ in range(3):
+                assert json.loads(bench.post(
+                    sp.port, "/index/t/query", b"Count(Row(a=1))"))[
+                        "results"] == [2]
+        bench.post(sps["on"].port, "/debug/bundle", b"{}")
+        after = bench.server_counters(sps)
+    for mode, c in after.items():
+        assert set(c) == {"slo_evaluations", *bench.SERVER_COUNTERS}, mode
+        assert all(isinstance(c[k], (int, float))
+                   for k in bench.SERVER_COUNTERS), c
+    assert after["off"]["slo_evaluations"] is None
+    assert after["on"]["slo_evaluations"] >= 0
+    delta = bench.counters_delta(before, after)
+    assert delta["on"]["bundles"] == 1 and delta["off"]["bundles"] == 0
+    assert delta["on"]["alerts_fired"] == delta["off"]["alerts_fired"] == 0
+    for mode in ("on", "off"):
+        assert delta[mode]["launches"] > 0, delta
+        assert delta[mode]["cpu_s"] > 0, delta
+        # the CPU runs no graph: nothing captured or replayed
+        assert delta[mode]["captures"] == delta[mode]["replays"] == 0

@@ -349,7 +349,10 @@ GATES = {
         and r["alert"]["bundle_ok"] and r["alert"]["bundle_kb"] > 0
         and r["alert"]["budget_held"] and r["alert"]["resolved"]
         and r["answers_identical"] and r["evaluations_on"] > 0
-        and r["qps_gate"] == "skipped on cpu"),
+        and r["qps_gate"] == "skipped on cpu"
+        and r["captures_timed_gate"] == "skipped on cpu"
+        and r["warm_rounds"] >= 1 and len(r["qps_rounds"]) == r["rounds"]
+        and sorted(r["captures_timed"]) == ["off", "on"]),
     "wire": lambda r: (r["answers_identical"]
                        and r["sparse_bytes_ratio"] > 1.5
                        and r["fallback"]["count"] >= 1),
@@ -366,7 +369,11 @@ GATES = {
     "observability": lambda r: (
         r["profile_stages"] > 0 and r["trace_spans"] > 0
         and r["slow_recorded"] >= 1 and r["timeseries_samples"] > 0
-        and r["overhead_gate"] == "skipped on cpu"),
+        and r["overhead_gate"] == "skipped on cpu"
+        and r["captures_timed_gate"] == "skipped on cpu"
+        and r["warm_rounds"] >= 1
+        and len(r["overhead_rounds_pct"]) == r["rounds"]
+        and sorted(r["captures_timed"]) == ["base", "obs"]),
     "restart": lambda r: (r["replayed"] >= 1
                           and r["retraces_during_warm"] == 0
                           and r["answers"] == "pass"),
