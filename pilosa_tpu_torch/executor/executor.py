@@ -100,6 +100,7 @@ from ..ops import bitset, bsi
 from ..pql import Call, parse
 from ..storage.field import FIELD_TYPE_INT, FIELD_TYPE_BOOL
 from ..storage import time_quantum as tq
+from ..utils.tracing import GLOBAL_TRACER
 from .plan import PlanCompiler, Resolver, parametrize, plan_inputs
 from .results import (
     FieldRow, GroupCount, Pair, RowIdentifiers, RowResult, ValCount,
@@ -466,7 +467,14 @@ def _resolve_pendings(results):
                 unique.setdefault(id(p), p)
     tensors = {k: p for k, p in unique.items()
                if isinstance(p, torch.Tensor)}
-    host = dict(zip(tensors, _fetch(list(tensors.values()))))
+    host = {}
+    if tensors:
+        # the wait behind every launch enqueued before this request's,
+        # then the copy
+        with GLOBAL_TRACER.span("executor.fetch") as span:
+            host = dict(zip(tensors, _fetch(list(tensors.values()))))
+            span.set_tag("bytes", 8 * sum(p.numel()
+                                          for p in tensors.values()))
     for k, p in unique.items():
         if k not in host:
             host[k] = np.asarray(p)
@@ -634,7 +642,6 @@ class Executor:
     def _execute_ctx(self, index_name: str, query, shards, translate,
                      check_current) -> list[Any]:
         from ..utils import profile as qprof
-        from ..utils.tracing import GLOBAL_TRACER
         check_current("execute")
         with GLOBAL_TRACER.span("executor.execute") as espan:
             espan.set_tag("index", index_name)
@@ -664,7 +671,6 @@ class Executor:
                     shards = sorted(idx0.available_shards())
                 from ..cache.results import gen_vector
                 from ..core import attr_epoch, schema_epoch
-                from ..utils.tracing import GLOBAL_TRACER
                 qrepr = query if isinstance(query, str) else repr(query)
                 qkey = ("local", index_name, qrepr, tuple(shards),
                         bool(translate))
@@ -693,9 +699,12 @@ class Executor:
         if isinstance(query, str):
             if translate and self.prepared is not None:
                 with stats.timer("query.prepared"), \
-                        qprof.stage("prepared") as pnode:
-                    hit, out = self.prepared.attempt(index_name, query,
-                                                     shards)
+                        qprof.stage("prepared") as pnode, \
+                        GLOBAL_TRACER.span("prepared.attempt") as span:
+                    hit, out, sig = self.prepared.attempt(index_name,
+                                                          query, shards)
+                    span.set_tag("outcome", "hit" if hit else "miss")
+                    span.set_tag("template", sig)
                     if pnode is not None:
                         pnode.tags["outcome"] = "hit" if hit else "miss"
                 if hit:

@@ -47,6 +47,7 @@ from ..core import schema_epoch
 from ..native import fingerprint_native
 from ..pql import parse
 from ..pql.ast import LitInt, Query
+from ..utils.devobs import sig_of
 from ..utils.locks import make_lock
 from .plan import Resolver, parametrize
 
@@ -100,6 +101,12 @@ def _fingerprint_py(query: str):
         out.append("?" if iv is not None else fl)
     out.append(texts[-1])
     return "".join(out), values
+
+
+def template_sig(index: str, template: str) -> str:
+    """Short stable id of an index's template, the ``template`` tag of
+    the ``prepared.attempt`` span."""
+    return sig_of(("prepared", index, template))
 
 
 def fingerprint_spans(query: str) -> dict[int, int]:
@@ -239,11 +246,13 @@ class PreparedCache:
 
     def attempt(self, index: str, query: str, shards):
         """Try to serve ``query`` from the cache.  Returns
-        (True, results) on a hit; (False, parsed_query_or_None) on a miss
-        — the parsed AST (literal-tagged, tags invisible to the classic
-        path) is handed back so the caller never parses twice."""
+        (True, results, sig) on a hit; (False, parsed_query_or_None, sig)
+        on a miss — the parsed AST (literal-tagged, tags invisible to the
+        classic path) is handed back so the caller never parses twice.
+        ``sig`` is the query's ``template_sig``."""
         template, values = _fingerprint_fast(query)
         key = (index, template)
+        sig = template_sig(index, template)
         with self._lock:
             entry = self._entries.get(key)
             if entry is not None:
@@ -258,22 +267,24 @@ class PreparedCache:
                 # a literal beyond int64 can't ride the params machinery;
                 # the classic path (arbitrary-precision ints) owns it
                 self.misses += 1
-                return False, None
+                return False, None, sig
 
         if entry is _UNCACHEABLE:
             self.misses += 1
-            return False, None
+            return False, None, sig
         if isinstance(entry, PreparedEntry):
             if entry.epoch == schema_epoch() and entry.guards_ok(vals):
                 self.hits += 1
-                return True, entry.run(self.executor, index, vals, shards)
+                return True, entry.run(self.executor, index, vals,
+                                       shards), sig
             if entry.epoch != schema_epoch():
                 with self._lock:
                     self._entries.pop(key, None)
             else:
                 self.guard_misses += 1
-                return False, None  # entry stays; these values take another
-                #                     branch -> classic path
+                # entry stays; these values take another branch ->
+                # classic path
+                return False, None, sig
 
         # build: tagged parse + prepare; on ineligibility remember that
         self.misses += 1
@@ -287,8 +298,8 @@ class PreparedCache:
             while len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
         if entry is not None:
-            return True, entry.run(self.executor, index, vals, shards)
-        return False, q
+            return True, entry.run(self.executor, index, vals, shards), sig
+        return False, q, sig
 
     # -- preparation -------------------------------------------------------
 

@@ -181,15 +181,20 @@ class DispatchBatcher:
     def _submit(self, kind, key, params, scalar, payload,
                 temp_weight: int = 0):
         bg = getattr(self._bg_local, "flag", False)
-        t = _Ticket(kind, key, np.ascontiguousarray(params, dtype=np.int32),
-                    scalar, payload, bg, temp_weight=temp_weight)
-        with self._cond:
-            if self._closed:
-                return None
-            self._ensure_thread()
-            self._queue.append(t)
-            self._cond.notify_all()
-        return t.future.result()
+        # the ticket captures this span's context: its batcher.queue and
+        # the launch's spans parent under it
+        with GLOBAL_TRACER.span("batcher.submit") as span:
+            span.set_tag("kind", kind)
+            t = _Ticket(kind, key,
+                        np.ascontiguousarray(params, dtype=np.int32),
+                        scalar, payload, bg, temp_weight=temp_weight)
+            with self._cond:
+                if self._closed:
+                    return None
+                self._ensure_thread()
+                self._queue.append(t)
+                self._cond.notify_all()
+            return t.future.result()
 
     def _call(self, fn, *args):
         """A direct (un-ticketed) launch, serialised with every other."""
@@ -511,6 +516,37 @@ class DispatchBatcher:
             if not t.future.done():
                 t.future.set_exception(exc)
 
+    @contextmanager
+    def _launch_span(self, kind, tickets, rows):
+        """The live ``batcher.launch`` span of one launch, under the first
+        ticket's trace, and for each sampled ticket a synthesized
+        ``batcher.queue`` span under its own: enqueue to this launch's
+        start.  ``rows`` stands as ``paddedRows`` until ``_tag_out``
+        reads a whole-query launch's own."""
+        with GLOBAL_TRACER.attach(tickets[0].trace), \
+                GLOBAL_TRACER.span("batcher.launch") as span:
+            now = time.monotonic()
+            for t in tickets:
+                if t.trace is not None and t.trace.sampled:
+                    GLOBAL_TRACER.record_span(
+                        "batcher.queue", t.trace.trace_id, t.trace.span_id,
+                        max(now - t.enq, 0.0),
+                        {"kind": t.kind, "launch": span.span_id},
+                        collect=t.trace.collect)
+            span.tags.update(
+                kind=kind, tickets=len(tickets), batchRows=rows,
+                paddedRows=rows, compiled=False,
+                traces=[t.trace.trace_id for t in tickets
+                        if t.trace is not None])
+            yield span
+
+    @staticmethod
+    def _tag_out(span, out):
+        """A whole-query launch's padded rows and capture flag."""
+        if getattr(out, "rows_padded", None) is not None:
+            span.tags["paddedRows"] = out.rows_padded
+            span.tags["compiled"] = out.compiled
+
     def _launch(self, kind, tickets, sched=None):
         self.batch_size_hist.observe(len(tickets))
         if len(tickets) == 1:
@@ -524,10 +560,13 @@ class DispatchBatcher:
                     queue_s=max(time.monotonic() - t.enq, 0.0),
                     tickets=1, rows=t.params.shape[0])
                 try:
-                    with activate(t.ctx), GLOBAL_TRACER.attach(t.trace), \
-                            qprof.activate(t.prof), self.launch_lock:
+                    with activate(t.ctx), qprof.activate(t.prof), \
+                            self._launch_span(kind, tickets,
+                                              t.params.shape[0]) as span, \
+                            self.launch_lock:
                         t0 = time.perf_counter()
                         result = self._direct(t, sched)
+                        self._tag_out(span, result)
                         if t.prof is not None:
                             t.prof.event("batcher.launch",
                                          time.perf_counter() - t0,
@@ -588,8 +627,8 @@ class DispatchBatcher:
 
     def _note_fused(self, tickets, dur_s, batch_rows=0):
         """Attribute one fused launch back to EVERY participating query:
-        a profile event under each ticket's captured node and a
-        synthesized span under each sampled trace."""
+        a profile event under each ticket's captured node (the trace has
+        the launch's one ``batcher.launch`` span)."""
         for t in tickets:
             if t.prof is not None:
                 t.prof.event("batcher.launch", dur_s, node=t.prof_node,
@@ -597,13 +636,6 @@ class DispatchBatcher:
                              batchTickets=len(tickets),
                              batchRows=batch_rows,
                              ticketRows=t.params.shape[0])
-            if t.trace is not None and t.trace.sampled:
-                GLOBAL_TRACER.record_span(
-                    "dispatch.fused_launch", t.trace.trace_id,
-                    t.trace.span_id, dur_s,
-                    {"kind": t.kind, "tickets": len(tickets),
-                     "batchRows": batch_rows},
-                    collect=t.trace.collect)
 
     def _launch_fused_whole(self, tickets):
         """Fuse same-shape whole-query programs: concatenate each node's
@@ -633,9 +665,11 @@ class DispatchBatcher:
             ltok = devobs.set_launch_ctx(queue_s=queue_s,
                                          tickets=len(tickets), rows=B)
             try:
-                with self.launch_lock:
+                with self._launch_span("wholequery", tickets, B) as span, \
+                        self.launch_lock:
                     out = runner.run(program, node_mats, p0["holder"],
                                      p0["index"], p0["shards"])
+                    self._tag_out(span, out)
             finally:
                 devobs.reset_launch_ctx(ltok)
             self._note_fused(tickets, time.perf_counter() - t_launch0,
@@ -700,7 +734,7 @@ class DispatchBatcher:
             ltok = devobs.set_launch_ctx(queue_s=queue_s,
                                          tickets=len(tickets), rows=B)
             try:
-                with self.launch_lock:
+                with self._launch_span(kind, tickets, B), self.launch_lock:
                     if kind == "count":
                         parts = st.count_batch_async(
                             p0["slotted"], mat, p0["holder"], p0["index"],

@@ -224,16 +224,19 @@ class WholeOut:
     carries the host-assembly facts the finalizers need (per-group
     shard lists, fragment-less shards, actual batch rows)."""
 
-    __slots__ = ("parts", "meta", "sig", "compiled")
+    __slots__ = ("parts", "meta", "sig", "compiled", "rows_padded")
 
     def __init__(self, parts, meta, sig: str | None = None,
-                 compiled: bool = False):
+                 compiled: bool = False, rows_padded: int | None = None):
         self.parts = parts
         self.meta = meta
         # digest of the program key; None for the no-live-groups launch
         self.sig = sig
         # True when THIS launch captured its program (a cold signature)
         self.compiled = compiled
+        # params rows the launch ran over, every node's (``pad_pow2_rows``
+        # for a replay); None where no launch ran or on a per-ticket view
+        self.rows_padded = rows_padded
 
     def slice_batch(self, program, node_lo: list[int], node_b: list[int]):
         """A fused launch's per-ticket view: slice every node's batch
@@ -595,12 +598,13 @@ class WholeQueryRunner:
                     pad_mats, live))
         outs = self._merge(program, live, sched, runs, outs)
         dt = time.perf_counter() - t0
-        self._record(program, sig, live, actual_b,
-                     pad_mats if padded else exact_mats, dt, compiled,
-                     launches)
+        rows_padded = sum(_mat_rows(m)
+                          for m in (pad_mats if padded else exact_mats))
+        self._record(program, sig, live, actual_b, rows_padded, dt,
+                     compiled, launches)
         parts = [[outs[j] for j in idxs]
                  for idxs in self._out_index(program, sched)]
-        return WholeOut(parts, meta, sig, compiled)
+        return WholeOut(parts, meta, sig, compiled, rows_padded)
 
     @staticmethod
     def _fingerprint(pad_mats, live) -> str:
@@ -616,10 +620,11 @@ class WholeQueryRunner:
                 i += n
         return devobs.fingerprint(args)
 
-    def _record(self, program, sig, live, actual_b, run_mats, dt,
+    def _record(self, program, sig, live, actual_b, rows_padded, dt,
                 compiled, launches):
         """One launch-ledger entry and one profile event for this run:
-        ``run_mats`` are the params it ran over (padded for a replay)."""
+        ``rows_padded`` the params rows it ran over (padded for a
+        replay)."""
         st = self.stacked
         fused = program_fused_only(program, st)
         decode_bytes = tiles = 0
@@ -633,7 +638,6 @@ class WholeQueryRunner:
                                          * SHARD_WORDS * 4)
                 i += n
         shards = sum(len(g[0]) for g in live)
-        rows_padded = sum(_mat_rows(m) for m in run_mats)
         ctx = devobs.launch_ctx() or {}
         rows = ctx.get("rows")
         if rows is None:

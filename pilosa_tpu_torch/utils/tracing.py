@@ -16,6 +16,16 @@ Remote nodes piggyback their span summaries on /internal/query responses
 ``GET /debug/traces?trace=<id>`` on the coordinator renders the whole
 cluster tree.
 
+A window sink (``add_sink``) receives every finished sampled span beside
+the ring, so a caller can keep all the spans of a window longer than the
+ring holds.  While ``torch.profiler`` records, a live span also opens a
+``pilosa::<name>`` range: the profiler then records it on the same clock
+as the kernels.  The range is a host op (function scope), not a
+``record_function`` user annotation: the profiler mirrors a user
+annotation onto the device's timeline as a CUDA-typed event spanning
+the kernels launched inside it, which a reader of the trace's device
+events would count as busy time.
+
 Port copy of the JAX package's ``utils/tracing.py``: the PyTorch port
 keeps its own copy so that it imports nothing of the JAX package."""
 
@@ -27,6 +37,9 @@ import time
 import uuid
 from contextlib import contextmanager
 from typing import NamedTuple
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _torch_profiler
 
 from .locks import make_lock
 
@@ -123,11 +136,28 @@ class Tracer:
         self.max_spans = max_spans
         self.sample_rate = 1.0
         self._spans: list = []  # Span objects or adopted remote dicts
+        self._sinks: tuple = ()  # replaced whole under the lock
         self._lock = make_lock("tracer")
+
+    def add_sink(self, sink: list):
+        """Append every finished sampled span (live, or synthesized by
+        ``record_span``; adopted remote spans are not) to ``sink`` as
+        its ``to_dict()``, besides the ring, until ``remove_sink``."""
+        with self._lock:
+            self._sinks = self._sinks + (sink,)
+
+    def remove_sink(self, sink: list):
+        with self._lock:
+            self._sinks = tuple(s for s in self._sinks if s is not sink)
 
     def _record(self, span: Span):
         if span._collect is not None:
             span._collect.append(span.to_dict())
+        sinks = self._sinks
+        if sinks:
+            d = span.to_dict()
+            for sink in sinks:
+                sink.append(d)
         with self._lock:
             self._spans.append(span)
             if len(self._spans) > self.max_spans:
@@ -228,9 +258,16 @@ class Tracer:
         s = Span(self, name, tid, parent_id, sampled=sampled,
                  collect=collect)
         token = _CTX.set(TraceContext(tid, s.span_id, sampled, collect))
+        # one flag read when the profiler is off
+        mirror = None
+        if _torch_profiler._is_profiler_enabled:
+            mirror = _RecordFunctionFast("pilosa::" + name)
+            mirror.__enter__()
         try:
             yield s
         finally:
+            if mirror is not None:
+                mirror.__exit__(None, None, None)
             s.finish()
             _CTX.reset(token)
 

@@ -57,6 +57,7 @@ tests/test_torch_mesh.py
 tests/test_translate.py
 tests/test_wholequery.py
 tests/test_torch_devobs.py
+tests/test_torch_spans.py
 tests/test_torch_analysis.py
 tests/test_torch_crash.py
 tests/test_torch_durability.py
